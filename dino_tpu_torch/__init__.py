@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of ``dino_tpu``: DINO ViT coarse segmentation on an
+NVIDIA H100.
+
+The package mirrors ``dino_tpu/`` module by module.  Plain tensor code is
+PyTorch; the Pallas TPU kernels on the predict path are hand-written CUDA C++
+kernels for ``sm_90a`` (``csrc/``), built with nvcc at first use and bound
+with ctypes (``ops/_build.py``).  Tensors on the CPU take each kernel's plain
+PyTorch version, which is what the CPU tests compare.
+
+The package imports neither ``jax`` nor ``dino_tpu``.
+"""
+from dino_tpu_torch.api import DINOSeg
+
+__all__ = ["DINOSeg"]

@@ -1,0 +1,80 @@
+"""dino_tpu_torch's CUDA kernels against their plain versions, on the card.
+
+Skips without a CUDA device.  Imports neither jax nor dino_tpu, so the card
+machine runs it without tests/conftest.py:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from dino_tpu_torch import DINOSeg
+from dino_tpu_torch.models.vit import Block, ViTConfig
+from dino_tpu_torch.ops import attention as tatt
+from dino_tpu_torch.ops import fused_mlp as tfm
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest --noconftest "
+                    "-m cuda tests/test_torch_port_cuda.py on the GPU machine)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [37, 901])
+def test_flash_kernel_matches_plain(cuda, dtype, n):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    q, k, v = (torch.randn(2, 3, n, 64, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    before = tatt.flash_attention.launches
+    out, lse = tatt.flash_attention(q, k, v, 0.125, return_lse=True)
+    assert tatt.flash_attention.launches == before + 1
+    ref, ref_lse = tatt.attention_plain(q, k, v, 0.125)
+    atol, rtol = chip_smoke.FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=chip_smoke.LSE_ATOL, rtol=0)
+
+
+def test_fused_mlp_kernel_matches_plain(cuda):
+    g = torch.Generator().manual_seed(0)
+    block = Block(ViTConfig())
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    block = block.to(cuda)
+    x = (torch.randn(1000, 384, generator=g) * 0.5).to(cuda, torch.bfloat16)
+    before = tfm.fused_ln_mlp_residual.launches
+    with torch.no_grad():
+        out = tfm.fused_ln_mlp_residual(block.norm2, block.mlp, x, 1e-6)
+        ref = tfm.fused_ln_mlp_residual_plain(block.norm2, block.mlp, x, 1e-6)
+    assert tfm.fused_ln_mlp_residual.launches == before + 1
+    assert chip_smoke.mlp_err(out, ref, x)[2]
+
+
+def test_predict_on_card_runs_both_kernels(cuda):
+    model = DINOSeg(head="mlp", n_blocks=1, precision="bf16", random_init=True)
+    assert model.device.type == "cuda"
+    model.set_resolution(240)
+    frame = np.random.RandomState(0).randint(0, 256, (240, 320, 3)).astype(
+        np.uint8)
+    flash0 = tatt.flash_attention.launches
+    mlp0 = tfm.fused_ln_mlp_residual.launches
+    out = model.predict(frame)
+    assert out.shape == (480, 480) and out.dtype == np.int32
+    assert tatt.flash_attention.launches == flash0 + 1
+    assert tfm.fused_ln_mlp_residual.launches == mlp0 + 1
+    cpu = DINOSeg(head="mlp", n_blocks=1, precision="fp32", random_init=True,
+                  device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         model.model.state_dict().items()})
+    cpu.set_resolution(240)
+    img = torch.from_numpy(frame[None])
+    card = model.log_probs(img.to(cuda), precision="fp32").cpu()
+    np.testing.assert_allclose(card.numpy(), cpu.log_probs(img).numpy(),
+                               atol=chip_smoke.CPU_LOGP_ATOL, rtol=0)
