@@ -11,13 +11,14 @@ The counterpart of ``dino_tpu/api.py``'s ``DINOSeg`` for serving:
     kernels; ``'fp32'`` runs true float32 (TF32 off inside the call).
   * checkpoints: ``dino_tpu`` ``.npz`` files and reference PL ``.ckpt``
     files load; ``save`` writes the ``.npz`` format.
+  * ``freeze_backbone`` / ``freeze_bb`` / ``unfreeze_bb`` choose what the
+    train step (``train/loop.py``) updates; ``fit`` is not ported yet.
 
 The model runs on the card by default: ``device=None`` means ``"cuda"`` and
 raises when there is none.  Pass ``device="cpu"`` to run on the CPU.
 """
 from __future__ import annotations
 
-import contextlib
 import os
 import warnings
 from typing import Any, Dict, Optional
@@ -36,10 +37,11 @@ from dino_tpu_torch.models.vit import (ViTConfig, VisionTransformer,
                                        init_vit_params)
 from dino_tpu_torch.ops.preprocess import normalize_imagenet, preprocess
 from dino_tpu_torch.ops.upsample import kron_upsample
+from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.train.loop import seg_forward
 
 _HPARAM_KEYS = ("head", "n_blocks", "n_classes", "precision", "random_init",
-                "backbone")
+                "backbone", "freeze_backbone")
 
 
 def _roadmap(what: str, item: int) -> str:
@@ -58,26 +60,6 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-@contextlib.contextmanager
-def true_fp32():
-    """Turn TF32 off for CUDA matmuls and cuDNN inside the block, restoring
-    the caller's settings after it."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
-
-
-def _matmul_ctx(compute_dtype: Optional[torch.dtype]):
-    """fp32 serving means true float32 matmuls: TF32 off for the call."""
-    return true_fp32() if compute_dtype is None else contextlib.nullcontext()
-
-
 class SegModel(nn.Module):
     """Backbone + head under the reference's ``dino.``/``clf.`` names."""
 
@@ -94,7 +76,8 @@ class DINOSeg:
                  n_classes: int = 7, precision: str = "bf16",
                  random_init: bool = False,
                  pretrained_path: Optional[str] = None, seed: int = 0,
-                 device=None, backbone: str = "vit"):
+                 device=None, backbone: str = "vit",
+                 freeze_backbone: bool = True):
         if backbone != "vit":
             raise NotImplementedError(_roadmap(f"backbone {backbone!r}", 8))
         if precision == "int8":
@@ -106,7 +89,8 @@ class DINOSeg:
         self.device = resolve_device(device)
         self.hparams: Dict[str, Any] = dict(
             head=head, n_blocks=n_blocks, n_classes=n_classes,
-            precision=precision, random_init=random_init, backbone=backbone)
+            precision=precision, random_init=random_init, backbone=backbone,
+            freeze_backbone=freeze_backbone)
         self.head, self.n_blocks, self.n_classes = head, n_blocks, n_classes
         self.precision = precision
         self.cfg = ViTConfig(patch_size=8)  # ViT-S/8
@@ -127,6 +111,8 @@ class DINOSeg:
                               "$DINO_TPU_PRETRAINED)")
         clf = init_head(head, n_classes, self.cfg.embed_dim, generator=gen)
         self.model = SegModel(vit, clf).to(self.device).eval()
+        self.freeze_backbone = freeze_backbone
+        self.model.dino.requires_grad_(not freeze_backbone)
 
     # ------------------------------------------------------------------
     # Inference API
@@ -150,7 +136,7 @@ class DINOSeg:
         """uint8 (B,res,res,3) -> (B*N, n_classes) log-probs."""
         cdt = self._compute_dtype_for(None)
         x = torch.as_tensor(np.asarray(images_u8), device=self.device)
-        with _matmul_ctx(cdt):
+        with matmul_ctx(cdt):
             return seg_forward(self.model.dino, self.model.clf, self.cfg,
                                self.head, pre_normalized=normalize_imagenet(x),
                                compute_dtype=cdt)
@@ -161,7 +147,7 @@ class DINOSeg:
         """uint8 (B, H, W, 3) on the model's device -> (B*N, n_classes)
         log-probs at the current resolution (the predict path before argmax)."""
         cdt = self._compute_dtype_for(precision)
-        with _matmul_ctx(cdt):
+        with matmul_ctx(cdt):
             x = preprocess(imgs_u8, self.resolution)
             return seg_forward(self.model.dino, self.model.clf, self.cfg,
                                self.head, pre_normalized=x, compute_dtype=cdt)
@@ -204,6 +190,18 @@ class DINOSeg:
 
     def fit(self, *args, **kwargs):
         raise NotImplementedError(_roadmap("DINOSeg.fit", 5))
+
+    def freeze_bb(self) -> None:
+        """Train only the head (the reference's requires_grad flip)."""
+        self.freeze_backbone = True
+        self.hparams["freeze_backbone"] = True
+        self.model.dino.requires_grad_(False)
+
+    def unfreeze_bb(self) -> None:
+        """Train the backbone and the head."""
+        self.freeze_backbone = False
+        self.hparams["freeze_backbone"] = False
+        self.model.dino.requires_grad_(True)
 
     # ------------------------------------------------------------------
     # Checkpointing

@@ -48,30 +48,15 @@ constexpr int KS = HD + 1;      // f32 path: padded K/V row stride
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// rows [r0, r0+64) of a (n, 64) bf16 matrix -> smem (stride LD), one
-// cp.async per 16 bytes; rows past n are zero-filled so padded keys and
-// values are finite (0 * garbage could be NaN)
+// 64-row tiles -> smem, rows past n zero-filled (warp_mma.cuh)
 __device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
                                                int r0, int n) {
-  for (int i = threadIdx.x; i < BK * (HD / 8); i += NTHREADS) {
-    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
-    const bool valid = r0 + r < n;
-    cp_async16(dst + r * LD + c,
-               src + (size_t)(valid ? r0 + r : 0) * HD + c, valid);
-  }
+  load_rows64_bf16<BK, NTHREADS>(dst, LD, src, r0, n);
 }
 
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
                                               int r0, int n) {
-  constexpr int VEC = 4;
-  for (int i = threadIdx.x; i < BK * (HD / VEC); i += NTHREADS) {
-    const int r = i / (HD / VEC), c = (i % (HD / VEC)) * VEC;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n)
-      val = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * HD + c);
-    float* d = dst + r * KS + c;
-    d[0] = val.x; d[1] = val.y; d[2] = val.z; d[3] = val.w;
-  }
+  load_rows64_f32<BK, NTHREADS>(dst, KS, src, r0, n);
 }
 
 constexpr int SMEM_BF16 = (BQ + 4 * BK) * LD * (int)sizeof(bf16);  // Q, 2x(K, V)

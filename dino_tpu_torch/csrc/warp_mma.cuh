@@ -29,6 +29,36 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// rows [r0, r0+ROWS) of a row-major (n, 64) bf16 matrix -> shared memory
+// (row stride ld), one cp.async per 16 bytes by NT threads; rows past n are
+// zero-filled, so padded rows are finite (0 * garbage could be NaN)
+template <int ROWS, int NT>
+__device__ __forceinline__ void load_rows64_bf16(bf16* dst, int ld,
+                                                 const bf16* src, int r0,
+                                                 int n) {
+  for (int i = threadIdx.x; i < ROWS * 8; i += NT) {
+    const int r = i / 8, c = (i % 8) * 8;
+    const bool valid = r0 + r < n;
+    cp_async16(dst + r * ld + c, src + (size_t)(valid ? r0 + r : 0) * 64 + c,
+               valid);
+  }
+}
+
+// the same for float32 with plain 16-byte loads (synchronous)
+template <int ROWS, int NT>
+__device__ __forceinline__ void load_rows64_f32(float* dst, int ld,
+                                                const float* src, int r0,
+                                                int n) {
+  for (int i = threadIdx.x; i < ROWS * 16; i += NT) {
+    const int r = i / 16, c = (i % 16) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < n)
+      val = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * 64 + c);
+    float* d = dst + r * ld + c;
+    d[0] = val.x; d[1] = val.y; d[2] = val.z; d[3] = val.w;
+  }
+}
+
 // four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 address matrix i
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
   asm volatile(

@@ -46,20 +46,20 @@ def init_head(head_type: str, n_classes: int, input_dim: int = 384,
     return head
 
 
-def _affine(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+def affine(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """x @ W^T in the input dtype, + bias in float32; float32 out."""
     return F.linear(x, lin.weight.to(x.dtype)).float() + lin.bias.float()
 
 
 def mlp_head_apply(head: MLPHead, x: torch.Tensor) -> torch.Tensor:
     """(M, input_dim) -> (M, n_classes) log-probabilities."""
-    x = torch.relu(_affine(head.layer_1, x).to(x.dtype))
-    x = torch.relu(_affine(head.layer_2, x).to(x.dtype))
-    return torch.log_softmax(_affine(head.layer_3, x), dim=-1)
+    x = torch.relu(affine(head.layer_1, x).to(x.dtype))
+    x = torch.relu(affine(head.layer_2, x).to(x.dtype))
+    return torch.log_softmax(affine(head.layer_3, x), dim=-1)
 
 
 def linear_head_apply(head: LinearHead, x: torch.Tensor) -> torch.Tensor:
-    return torch.log_softmax(_affine(head.layer_1, x), dim=-1)
+    return torch.log_softmax(affine(head.layer_1, x), dim=-1)
 
 
 def head_apply(head_type: str, head: nn.Module,

@@ -1,4 +1,4 @@
-"""DINO Vision Transformer (eval path) in PyTorch.
+"""DINO Vision Transformer in PyTorch (inference and training).
 
 Modules hold the parameters under the reference's torch names
 (``patch_embed.proj.weight`` (D, 3, P, P), ``blocks.{i}.attn.qkv.weight``
@@ -11,9 +11,12 @@ modules, one per function of ``dino_tpu/models/vit.py``:
     convolution;
   * pos-embed resampling is two matmuls against torch-exact bicubic weights,
     with the reference's +0.1 anti-round-off hack;
-  * attention runs the flash kernel on CUDA tensors, and the bf16 eval path
-    on CUDA runs the fused LN+MLP+residual kernel; float32 runs the MLP as a
-    composition with true erf.
+  * attention runs the flash kernels on CUDA tensors (forward, and under
+    autograd the flash backward); the bf16 path on CUDA with no gradient
+    runs the fused LN+MLP+residual kernel, and under autograd or in float32
+    the MLP is a composition with true erf;
+  * ``vit_forward(..., remat=True)`` recomputes each block in the backward
+    pass (``torch.utils.checkpoint``), trading FLOPs for activation memory.
 """
 from __future__ import annotations
 
@@ -25,7 +28,9 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
+from dino_tpu_torch.models.heads import affine
 from dino_tpu_torch.ops.attention import multi_head_attention
 from dino_tpu_torch.ops.bicubic import bicubic_resize_matrix
 from dino_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual
@@ -170,11 +175,6 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """x @ W^T + b in the input dtype (bf16 products accumulate in f32)."""
-    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
-
-
 def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, N, C*P*P) with per-patch (c, ph, pw) element order,
     the order of a flattened Conv2d weight (D, C, P, P)."""
@@ -238,31 +238,55 @@ def prepare_tokens(model: VisionTransformer, x: torch.Tensor,
 
 def mlp_residual(norm: nn.LayerNorm, mlp: Mlp, x: torch.Tensor,
                  eps: float) -> torch.Tensor:
-    """x + fc2(gelu(fc1(LN(x)))) as a composition, with true erf."""
+    """x + fc2(gelu(fc1(LN(x)))) as a differentiable composition with the
+    numerics of ``dino_tpu/ops/fused_mlp.py:_xla_reference``: LN in float32
+    -> cast -> fc1 + f32 bias -> true-erf GELU in float32 -> cast -> fc2 +
+    f32 bias -> cast -> residual add in the input dtype.  (In bf16 the
+    product is rounded to bf16 before its f32 bias add; the JAX side adds
+    the bias to the f32 accumulator.)"""
+    dt = x.dtype
     h = layer_norm(norm, x, eps)
-    h = F.gelu(dense(mlp.fc1, h), approximate="none")
-    return x + dense(mlp.fc2, h)
+    h = F.gelu(affine(mlp.fc1, h), approximate="none").to(dt)
+    return x + affine(mlp.fc2, h).to(dt)
+
+
+def _needs_grad(blk: Block, x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in blk.parameters()))
 
 
 def block_apply(blk: Block, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
-    """One pre-LN transformer block, eval path."""
+    """One pre-LN transformer block.
+
+    The fused MLP kernel runs only on the bf16 CUDA path when no gradient
+    is needed (the kernel has no backward); otherwise the MLP is the
+    differentiable composition :func:`mlp_residual`.
+    """
     x = x + multi_head_attention(blk.attn, layer_norm(blk.norm1, x, cfg.ln_eps),
                                  num_heads=cfg.num_heads, scale=cfg.scale)
-    if x.is_cuda and x.dtype == torch.bfloat16:
+    if (x.is_cuda and x.dtype == torch.bfloat16
+            and not _needs_grad(blk, x)):
         return fused_ln_mlp_residual(blk.norm2, blk.mlp, x, cfg.ln_eps)
     return mlp_residual(blk.norm2, blk.mlp, x, cfg.ln_eps)
 
 
 def vit_forward(model: VisionTransformer, x: torch.Tensor, cfg: ViTConfig, *,
-                all_tokens: bool = True, intermediate: int = 0) -> torch.Tensor:
+                all_tokens: bool = True, intermediate: int = 0,
+                remat: bool = False) -> torch.Tensor:
     """Forward through all (possibly truncated) blocks + final LayerNorm.
 
     ``intermediate=i`` returns ``norm(x)`` right after block i (1-indexed),
-    as the reference's ``forward(intermediate=i)``.
+    as the reference's ``forward(intermediate=i)``.  ``remat=True``
+    recomputes each block's activations in the backward pass instead of
+    storing them.
     """
     tokens = prepare_tokens(model, x, cfg)
     for i, blk in enumerate(model.blocks):
-        tokens = block_apply(blk, tokens, cfg)
+        if remat:
+            tokens = torch.utils.checkpoint.checkpoint(
+                block_apply, blk, tokens, cfg, use_reentrant=False)
+        else:
+            tokens = block_apply(blk, tokens, cfg)
         if intermediate and i == intermediate - 1:
             return layer_norm(model.norm, tokens, cfg.ln_eps)
     tokens = layer_norm(model.norm, tokens, cfg.ln_eps)

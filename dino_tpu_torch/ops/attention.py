@@ -1,14 +1,21 @@
-"""Attention: the flash-attention forward kernel and its plain version.
+"""Attention: the flash-attention kernels and their plain versions.
 
 ``flash_attention`` is the port of ``dino_tpu/ops/attention.py``'s Pallas
-online-softmax kernel (``_flash_kernel`` via ``flash_attention``).  On a CUDA
-tensor it launches ``csrc/flash_attn_fwd.cu``; on a CPU tensor it runs
-``attention_plain``, the same function in plain PyTorch.
+``flash_attention``: its forward (``_flash_kernel``) and, under autograd, its
+backward (``_flash_bwd_kernel``, through :class:`FlashAttention`).  On CUDA
+tensors they launch ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``;
+on CPU tensors they run ``attention_plain`` and ``attention_bwd_plain``, the
+same functions in plain PyTorch.
 
-Numerics (shared by the kernel and the plain version): scores S = Q.K^T
-accumulate in float32 and are scaled after the product; P is rounded to the
-input dtype before P.V; O = acc / max(l, 1e-30) in the input dtype; the row
-log-sum-exp is m + log(max(l, 1e-30)) in float32.
+Forward numerics (kernel and plain version): scores S = Q.K^T accumulate in
+float32 and are scaled after the product; P is rounded to the input dtype
+before P.V; O = acc / max(l, 1e-30) in the input dtype; the row log-sum-exp
+is m + log(max(l, 1e-30)) in float32.
+
+Backward numerics: P = exp(S*scale - lse) in float32 from the forward's
+lse; dV = cast(P)^T.dO; dP = dO.V^T; dS = cast(P*(dP - D)*scale) with
+D = rowsum(dO*O) in float32; dK = dS^T.Q; dQ = dS.K; float32 accumulation,
+dq, dk, dv in float32, cast to the input dtype by the autograd rule.
 """
 from __future__ import annotations
 
@@ -19,9 +26,13 @@ from dino_tpu_torch.ops import _build
 
 _HEAD_DIM = 64
 _DTYPES = (torch.bfloat16, torch.float32)
-# rows of queries per chunk of the plain version: bounds its (chunk, N) f32
-# score matrix to ~1 GB at any sequence length
+# rows of queries per chunk of the plain versions: bounds each (chunk, N) f32
+# score-sized matrix to ~1 GB at any sequence length
 _PLAIN_SCORE_ELEMS = 1 << 28
+
+
+def _plain_chunk(b: int, nh: int, n: int) -> int:
+    return max(1, _PLAIN_SCORE_ELEMS // max(1, b * nh * n))
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -30,7 +41,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, nh, n, hd = q.shape
     kf = k.float()
     vf = v.float()
-    chunk = max(1, _PLAIN_SCORE_ELEMS // max(1, b * nh * n))
+    chunk = _plain_chunk(b, nh, n)
     outs, lses = [], []
     for i in range(0, n, chunk):
         s = torch.matmul(q[:, :, i:i + chunk].float(), kf.transpose(-1, -2))
@@ -44,6 +55,34 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.cat(outs, dim=2)
     lse = torch.cat(lses, dim=2).reshape(b * nh, n)
     return out, lse
+
+
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                        scale: float):
+    """The flash backward in plain PyTorch: (B, nh, N, hd) q, k, v, the
+    forward's out and lse (B*nh, N), the output gradient g -> float32
+    (dq, dk, dv), each (B, nh, N, hd).  q-chunked like attention_plain."""
+    b, nh, n, hd = q.shape
+    dt = q.dtype
+    kf, vf = k.float(), v.float()
+    lse = lse.reshape(b, nh, n, 1)
+    dsum = (g.float() * out.float()).sum(dim=-1, keepdim=True)
+    dk = torch.zeros(b, nh, n, hd, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dqs = []
+    chunk = _plain_chunk(b, nh, n)
+    for i in range(0, n, chunk):
+        sl = slice(i, i + chunk)
+        qc, gc = q[:, :, sl].float(), g[:, :, sl].float()
+        s = torch.matmul(qc, kf.transpose(-1, -2)) * scale
+        p = torch.exp(s - lse[:, :, sl])
+        dv += torch.matmul(p.to(dt).float().transpose(-1, -2), gc)
+        dp = torch.matmul(gc, vf.transpose(-1, -2))
+        ds = (p * (dp - dsum[:, :, sl]) * scale).to(dt).float()
+        dk += torch.matmul(ds.transpose(-1, -2), qc)
+        dqs.append(torch.matmul(ds, kf))
+    return torch.cat(dqs, dim=2), dk, dv
 
 
 def check_flash_args(q: torch.Tensor, k: torch.Tensor,
@@ -71,17 +110,13 @@ def check_flash_args(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("empty attention input")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float, return_lse: bool = False):
-    """Flash attention over (B, nh, N, hd) -> (B, nh, N, hd).
-
-    With ``return_lse`` also returns the row log-sum-exp, (B*nh, N) float32.
-    A CUDA tensor launches the kernel; a CPU tensor takes
-    :func:`attention_plain`; any other device raises.
-    """
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               scale: float, return_lse: bool):
+    """(out, lse or None): the forward kernel on CUDA, attention_plain on
+    the CPU; any other device raises."""
     if q.device.type == "cpu":
         out, lse = attention_plain(q, k, v, scale)
-        return (out, lse) if return_lse else out
+        return out, (lse if return_lse else None)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     check_flash_args(q, k, v)
@@ -97,6 +132,88 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("flash_attn_fwd", rc)
     flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                        scale: float):
+    """Float32 (dq, dk, dv) of flash attention, each (B, nh, N, hd).
+
+    A CUDA tensor launches the backward kernel; a CPU tensor takes
+    :func:`attention_bwd_plain`; any other device raises.
+    """
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, out, lse, g, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    check_flash_args(q, k, v)
+    b, nh, n, hd = q.shape
+    if g.shape != q.shape or g.dtype != q.dtype or not g.is_contiguous():
+        raise ValueError(f"g must be contiguous {tuple(q.shape)} {q.dtype}, "
+                         f"got {tuple(g.shape)} {g.dtype}")
+    if (lse.shape != (b * nh, n) or lse.dtype != torch.float32
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be contiguous ({b * nh}, {n}) float32, "
+                         f"got {tuple(lse.shape)} {lse.dtype}")
+    for t in (g, lse):
+        if t.device != q.device:
+            raise ValueError("q and the backward's inputs must be on one "
+                             "device")
+    dsum = (g.float() * out.float()).sum(dim=-1).reshape(b * nh, n)
+    dq, dk, dv = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+                  for _ in range(3))
+    lib = _build.library()
+    rc = lib.dtt_flash_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b * nh, n, hd, int(q.dtype == torch.bfloat16),
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check_launch("flash_attn_bwd", rc)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the flash backward: the forward keeps the row
+    lse, the backward runs :func:`flash_attention_bwd` (the counterpart of
+    the JAX package's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = _flash_fwd(q, k, v, scale, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, g.to(q.dtype).contiguous(), ctx.scale)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, return_lse: bool = False):
+    """Flash attention over (B, nh, N, hd) -> (B, nh, N, hd).
+
+    With ``return_lse`` also returns the row log-sum-exp, (B*nh, N) float32.
+    A CUDA tensor launches the kernel; a CPU tensor takes
+    :func:`attention_plain`; any other device raises.  When autograd needs a
+    gradient of q, k or v, the call goes through :class:`FlashAttention`,
+    whose backward is the flash backward on both devices.
+    """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = FlashAttention.apply(q, k, v, scale)
+    else:
+        out, lse = _flash_fwd(q, k, v, scale, return_lse)
     return (out, lse) if return_lse else out
 
 
@@ -105,7 +222,7 @@ flash_attention.launches = 0
 
 def multi_head_attention(attn, x: torch.Tensor, *, num_heads: int,
                          scale: float) -> torch.Tensor:
-    """Eval-path MHSA: qkv projection -> flash attention -> out projection.
+    """MHSA: qkv projection -> flash attention -> out projection.
 
     ``attn`` holds ``qkv`` and ``proj`` (nn.Linear, reference names).  q, k,
     v come out head-major, (B, nh, N, hd) each and contiguous.

@@ -4,8 +4,12 @@
 Pallas kernel.  On a CUDA bf16 tensor it launches ``csrc/fused_ln_mlp.cu``,
 which keeps the (rows, hidden) activation out of device memory; on a CPU
 tensor it runs ``fused_ln_mlp_residual_plain``, the same arithmetic in plain
-PyTorch.  Like the JAX package, the model takes it only on the bf16 eval
-path; float32 runs the composition with true erf (``models/vit.py``).
+PyTorch.  Like the JAX package, the model takes it only on the bf16 path
+when no gradient is needed; under autograd, and in float32, it runs the
+composition with true erf (``models/vit.py:mlp_residual``), as the JAX
+``custom_vjp`` forward rule runs ``_xla_reference``.  The kernel has no
+backward, so the wrapper raises rather than return an output that autograd
+cannot see through.
 
 Per row: LN with float32 statistics (eps from the caller) -> cast to the
 input dtype -> fc1 + b1 (f32 accumulation) -> GELU with the Abramowitz &
@@ -84,13 +88,21 @@ def fused_ln_mlp_residual(norm, mlp, x: torch.Tensor,
     """x: (..., 384) bf16 -> x + fc2(gelu(fc1(LN(x)))) in one kernel.
 
     A CUDA tensor launches the kernel; a CPU tensor takes
-    :func:`fused_ln_mlp_residual_plain`; any other device raises.
+    :func:`fused_ln_mlp_residual_plain`; any other device raises, and so
+    does a call that autograd would have to differentiate.
     """
-    if x.device.type == "cpu":
-        return fused_ln_mlp_residual_plain(norm, mlp, x, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_ln_mlp_residual: unsupported device "
                          f"{x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *norm.parameters(),
+                                      *mlp.parameters())):
+        raise RuntimeError("fused_ln_mlp_residual has no backward: call it "
+                           "under torch.no_grad() or on tensors that do not "
+                           "require grad (models/vit.py:block_apply runs "
+                           "mlp_residual under autograd)")
+    if x.device.type == "cpu":
+        return fused_ln_mlp_residual_plain(norm, mlp, x, eps)
     check_mlp_args(norm, mlp, x)
     d = x.shape[-1]
     hidden = mlp.fc1.weight.shape[0]

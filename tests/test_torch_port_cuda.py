@@ -14,6 +14,7 @@ from dino_tpu_torch import DINOSeg
 from dino_tpu_torch.models.vit import Block, ViTConfig
 from dino_tpu_torch.ops import attention as tatt
 from dino_tpu_torch.ops import fused_mlp as tfm
+from dino_tpu_torch.train import loop as tloop
 
 pytestmark = pytest.mark.cuda
 
@@ -78,3 +79,75 @@ def test_predict_on_card_runs_both_kernels(cuda):
     card = model.log_probs(img.to(cuda), precision="fp32").cpu()
     np.testing.assert_allclose(card.numpy(), cpu.log_probs(img).numpy(),
                                atol=chip_smoke.CPU_LOGP_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [37, 901])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, n):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    q, k, v, do = (torch.randn(2, 3, n, 64, generator=g, device=cuda).to(dtype)
+                   for _ in range(4))
+    out, lse = tatt.flash_attention(q, k, v, 0.125, return_lse=True)
+    before = tatt.flash_attention_bwd.launches
+    got = tatt.flash_attention_bwd(q, k, v, out, lse, do, 0.125)
+    assert tatt.flash_attention_bwd.launches == before + 1
+    ref = tatt.attention_bwd_plain(q, k, v, out, lse, do, 0.125)
+    assert all(t.dtype == torch.float32 for t in got)
+    assert chip_smoke.bwd_err(got, ref, dtype)[1]
+
+
+def _train_pair(cuda, res, seed=0):
+    """A 1-block ViT-S/8 + MLP head on the card and its copy on the CPU."""
+    card = DINOSeg(head="mlp", n_blocks=1, random_init=True, seed=seed,
+                   freeze_backbone=False)
+    cpu = DINOSeg(head="mlp", n_blocks=1, random_init=True, device="cpu",
+                  freeze_backbone=False)
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         card.model.state_dict().items()})
+    rs = np.random.RandomState(seed)
+    imgs = torch.from_numpy(rs.randint(0, 255, (2, res, res, 3)).astype(
+        np.uint8))
+    labels = torch.from_numpy(rs.randint(0, 7, (2, (res // 8) ** 2)).astype(
+        np.int32))
+    return card, cpu, imgs, labels
+
+
+def _step(model, imgs, labels, compute_dtype, accum_steps=1):
+    opt = tloop.make_optimizer("adam", 1e-5)
+    vit, head = model.model.dino, model.model.clf
+    step = tloop.make_train_step(model.cfg, "mlp", 7, opt, False,
+                                 compute_dtype=compute_dtype,
+                                 accum_steps=accum_steps)
+    return step(vit, head, tloop.init_opt_state(opt, vit, head, False),
+                imgs.to(model.device), labels.to(model.device))
+
+
+def test_unfrozen_bf16_step_launches_the_backward(cuda):
+    card, _, imgs, labels = _train_pair(cuda, 240)
+    before = (tatt.flash_attention.launches, tatt.flash_attention_bwd.launches,
+              tfm.fused_ln_mlp_residual.launches)
+    loss, _ = _step(card, imgs, labels, torch.bfloat16, accum_steps=2)
+    after = (tatt.flash_attention.launches, tatt.flash_attention_bwd.launches,
+             tfm.fused_ln_mlp_residual.launches)
+    # 2 microbatches x 1 block: forward and backward each, no fused MLP
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 0]
+    assert bool(torch.isfinite(loss))
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in card.model.dino.parameters())
+
+
+def test_card_backbone_gradients_equal_the_cpu_step(cuda):
+    """fp32: every backbone parameter gets a gradient through the CUDA
+    kernels, and it equals the CPU step's (chip_smoke's tolerances)."""
+    card, cpu, imgs, labels = _train_pair(cuda, 240, seed=1)
+    loss_card, _ = _step(card, imgs, labels, None)
+    loss_cpu, _ = _step(cpu, imgs, labels, None)
+    np.testing.assert_allclose(loss_card.item(), loss_cpu.item(),
+                               rtol=chip_smoke.STEP_LOSS_RTOL)
+    grads = dict(card.model.named_parameters())
+    for name, p in cpu.model.named_parameters():
+        g = grads[name].grad
+        assert g is not None, name
+        diff = (g.cpu() - p.grad).abs().max().item()
+        assert diff <= chip_smoke.STEP_GRAD_REL * p.grad.abs().max().item(), \
+            name

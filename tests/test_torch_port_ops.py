@@ -20,7 +20,7 @@ from dino_tpu.ops import bicubic as jbic
 from dino_tpu.ops import fused_mlp as jfm
 from dino_tpu.ops import resize as jres
 from dino_tpu.ops import upsample as jups
-from dino_tpu_torch.api import true_fp32
+from dino_tpu_torch.precision import true_fp32
 from dino_tpu_torch.models.vit import Mlp, ViTConfig, mlp_residual
 from dino_tpu_torch.ops import attention as tatt
 from dino_tpu_torch.ops import bicubic as tbic
@@ -268,6 +268,42 @@ def test_resize_bilinear_upscale_differs_only_at_ties(shape, res):
     exact = np.einsum("pw,owc->opc", wc, exact)
     frac = exact[diff] - np.floor(exact[diff])
     assert (np.abs(frac - 0.5) < 1e-4).all()
+
+
+def _tap_pass(x, dim, n_out, fma):
+    """One resize pass in float64 with float32 roundings: fl(fl(w0*x0) +
+    fl(w1*x1)), or with ``fma`` fl(fl(w0*x0) + w1*x1) (one rounding of the
+    second product and the add, as an FMA accumulating over k)."""
+    i0, i1, w0, w1 = tres.bilinear_taps(x.shape[dim], n_out)
+    shape = [1] * x.ndim
+    shape[dim] = n_out
+    p0 = (w0.reshape(shape).astype(np.float64)
+          * np.take(x, i0, axis=dim)).astype(np.float32)
+    p1 = w1.reshape(shape).astype(np.float64) * np.take(x, i1, axis=dim)
+    if not fma:
+        p1 = p1.astype(np.float32)
+    return (p0.astype(np.float64) + p1).astype(np.float32)
+
+
+def test_resize_960_follows_xla_dot_blocking():
+    """Why the 960px upscale cannot be bit-identical by an elementwise
+    formula (ROADMAP "Faults found"): XLA:CPU runs each pass as a dense
+    dot; the width pass (K=640) accumulates the two taps with an FMA,
+    fl(fl(w0*x0) + w1*x1), except in output columns whose taps straddle a
+    K-block edge of the CPU GEMM, where two block sums add as
+    fl(fl(w0*x0) + fl(w1*x1)), the port's form.  Every pixel of
+    dino_tpu's result is one of the two forms (unrounded, before
+    floor(x + 0.5))."""
+    img = np.random.RandomState(960).randint(0, 256, (480, 640, 3)).astype(
+        np.uint8)
+    ref = np.asarray(jres.resize_bilinear(jnp.asarray(img), 960, 960,
+                                          round_uint8=False))
+    rows = _tap_pass(img.astype(np.float32), 0, 960, fma=False)
+    plain = _tap_pass(rows, 1, 960, fma=False)
+    fused = _tap_pass(rows, 1, 960, fma=True)
+    np.testing.assert_array_equal(
+        plain, tres.resize_bilinear(_t(img), 960, 960, round_uint8=False))
+    assert ((ref == plain) | (ref == fused)).all()
 
 
 def test_preprocess_matches_jax():
