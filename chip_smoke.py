@@ -19,30 +19,57 @@ each printing JSON lines:
      unfrozen fp32 at 240px (batch 2, 1 step), with the launch counts read
      around every step; the fp32 step is repeated on the CPU from the same
      weights and batch and its loss and gradients compared;
-  6. timing (CUDA events around bursts of 10 back-to-back calls, median of
-     5 bursts) at the 480px predict shapes (batch 3) and, for the
-     backward, the train bench's microbatch shapes: kernel,
-     plain version, one PyTorch library call, and the card's bound; then
-     the cli/bench line (predict and train);
-  7. the per-kernel summary line, the card line, and the final status line.
+  6. sequence parallelism (ring attention): the dynamic-bound kernels vs
+     their plain versions at the per-hop shapes of a 960px ring over 1, 2
+     and 4 ranks (sp_kernels); SP predict_batch at 960px in a world of one
+     over NCCL (sp_path); two rank processes sharing the card over gloo,
+     started right after the build and joined before the timing, each
+     running SP predict and one SP train step (fp32 and bf16) against the
+     single-device predict and make_train_step (sp_path, rank records);
+  7. the streaming forward past dino_tpu's 8 resident K/V slices: an fp32
+     predict at 1624px (N = 41,210, where dino_tpu runs its chunked kernel)
+     and the kernel vs its plain version at that N;
+  8. timing (CUDA events around bursts of back-to-back calls, median of
+     the bursts) at the 480px predict shapes (batch 3), the train bench's
+     microbatch shapes for the backward, the 2-rank 960px per-hop shape for
+     the dynamic-bound kernels and the 1624px shape for the streaming
+     forward: kernel, plain version, one PyTorch library call, and the
+     card's bound; then the cli/bench line (predict and train);
+  9. the per-kernel summary line, the card line, and the final status line.
+
+``python3 chip_smoke.py --sp-world W`` (W cards) runs only phase 6's rank
+checks with one rank per card over NCCL.  ``--sp-rank R --sp-world W
+--sp-store PATH --sp-backend B`` is one rank process (started by the script
+itself).
 """
+import argparse
 import copy
 import json
+import os
+import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from dino_tpu_torch import DINOSeg
 from dino_tpu_torch.cli import bench
 from dino_tpu_torch.ops import _build
-from dino_tpu_torch.ops.attention import (attention_bwd_plain,
-                                          attention_plain, flash_attention,
-                                          flash_attention_bwd)
+from dino_tpu_torch.ops import attention as tatt
+from dino_tpu_torch.ops.attention import (attention_bwd_dyn_plain,
+                                          attention_bwd_plain,
+                                          attention_dyn_plain, attention_plain,
+                                          flash_attention, flash_attention_bwd,
+                                          flash_attention_bwd_dyn,
+                                          flash_attention_with_lse_dyn)
 from dino_tpu_torch.ops.fused_mlp import (fused_ln_mlp_residual,
                                           fused_ln_mlp_residual_plain)
+from dino_tpu_torch.parallel import dist as pdist
+from dino_tpu_torch.parallel.ring_attention import make_sp_train_step
 from dino_tpu_torch.train.loop import (init_opt_state, make_optimizer,
                                        make_train_step)
 
@@ -71,6 +98,34 @@ BWD_BF16_REL = 2e-2
 # sides, sums in another order; TF32 would show at ~1e-3)
 STEP_LOSS_RTOL = 1e-5
 STEP_GRAD_REL = 1e-4
+# the dynamic-bound backward: the flash backward's rates (f32 rtol 1e-4, bf16
+# 2e-2: BWD_F32_TOL, BWD_BF16_REL), each
+# tensor's max |err| against the hop's largest |ref| among dq, dk, dv.  With
+# one valid key the softmax is constant: dq and dk vanish in exact arithmetic
+# and both versions return float32 noise, and dv is the plain sum of N rows
+# of dO, which the kernel accumulates row by row (measured at N = 14,401:
+# |err| 1.1e-3 against |dv| up to 386, failing an elementwise rule)
+BWD_DYN_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# SP bf16 train step vs the single-device bf16 step: the SP block rounds
+# at the JAX package's SP points (dense qkv, GELU of the rounded fc1)
+SP_BF16_LOSS_RTOL = 1e-2
+# SP fp32 gradients over several ranks at 960px.  Not STEP_GRAD_REL alone:
+# at 960px batch 2 the float32 gradient is not determined to 1e-4 of a
+# leaf's max.  The same single-device step with the batch regrouped in two
+# microbatches (accum_steps=2) moves pos_embed, whose entries sum
+# bicubic-weighted token gradients that cancel, by about 2e-2 of its max,
+# and where the SP forward rounds differently a few of the head's ReLUs flip,
+# which regrouping does not do.  So over several ranks the worst leaf may
+# differ by SP_GRAD_SPREAD times the regrouped step's worst leaf on the same
+# batch.  The 1e-4 rule holds over several ranks at 240px, and at 960px in
+# a world of one (the ring of one hop is the single-device arithmetic).
+SP_GRAD_SPREAD = 8
+SP_RES = 960
+SP_N_REAL = (SP_RES // 8) ** 2 + 1  # 14,401 tokens
+SP_WORLD = 2          # rank processes sharing the card in phase 6
+SP_RANK_TIMEOUT = 600  # seconds for the rank processes, from their start
+CHUNKED_RES = 1624    # 203 x 203 + 1 = 41,210 tokens: dino_tpu's chunked
+                      # kernel in f32 (past 8 resident K/V slices)
 
 
 _T0 = time.perf_counter()
@@ -215,6 +270,13 @@ def bwd_err(got, ref, dtype):
     return errs, ok
 
 
+def bwd_dyn_err(got, ref, dtype):
+    """(max |err| of dq, dk, dv, within BWD_DYN_REL of the largest |ref|)."""
+    errs = [(a - b).abs().max().item() for a, b in zip(got, ref)]
+    scale = max(b.abs().max().item() for b in ref)
+    return errs, max(errs) <= BWD_DYN_REL[dtype] * scale
+
+
 def phase_bwd_kernel():
     """The flash backward vs its plain version; returns the max error at
     the train bench's microbatch shapes (bf16, B*nh = 12, N = 3,601)."""
@@ -243,14 +305,31 @@ def phase_bwd_kernel():
 
 
 def counts():
-    return (flash_attention.launches, fused_ln_mlp_residual.launches,
-            flash_attention_bwd.launches)
+    c = all_counts()
+    return c["flash_attn_fwd"], c["fused_ln_mlp"], c["flash_attn_bwd"]
 
 
 def zero_counts():
     flash_attention.launches = 0
     fused_ln_mlp_residual.launches = 0
     flash_attention_bwd.launches = 0
+    flash_attention_with_lse_dyn.launches = 0
+    flash_attention_bwd_dyn.launches = 0
+
+
+def all_counts():
+    """Launch counts of every kernel wrapper, by kernel name."""
+    return {"flash_attn_fwd": flash_attention.launches,
+            "fused_ln_mlp": fused_ln_mlp_residual.launches,
+            "flash_attn_bwd": flash_attention_bwd.launches,
+            "flash_attn_fwd_dyn": flash_attention_with_lse_dyn.launches,
+            "flash_attn_bwd_dyn": flash_attention_bwd_dyn.launches}
+
+
+def sp_want(fwd_dyn, bwd_dyn):
+    """The counts an SP run must show: dyn kernels only."""
+    return {"flash_attn_fwd": 0, "fused_ln_mlp": 0, "flash_attn_bwd": 0,
+            "flash_attn_fwd_dyn": fwd_dyn, "flash_attn_bwd_dyn": bwd_dyn}
 
 
 def phase_main_path(model, frame, frames3):
@@ -286,8 +365,7 @@ def phase_main_path(model, frame, frames3):
         if prec == "fp32":
             imgs = torch.from_numpy(frames3).cuda()
             logp = model.log_probs(imgs, precision="fp32").cpu()
-            top2 = torch.topk(logp, 2, dim=-1).values
-            near = (top2[:, 0] - top2[:, 1] < MARGIN).reshape(3, 60, 60)
+            near = near_ties(logp).reshape(3, 60, 60)
             flips = 0
             for i in range(3):
                 single = torch.from_numpy(model.predict(frames3[i],
@@ -503,6 +581,470 @@ def phase_timing(block, per_call, bwd_per_step):
     return rows
 
 
+def sp_shapes(n_real, d):
+    """(n_local, sorted distinct bounds) of a ring of ``d`` ranks: a full
+    shard, the last shard's bound, one key, none."""
+    n_local = -(-n_real // d)
+    last = n_real - (d - 1) * n_local
+    return n_local, sorted({n_local, last, 1, 0}, reverse=True)
+
+
+def phase_sp_kernels():
+    """Kernels 5 and 6 vs their plain versions at the per-hop shapes of a
+    960px ring over 1, 2 and 4 ranks; returns the max errors at the 2-rank
+    shape (bf16, B*nh = 12, valid 7,200)."""
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = FLASH_TOL[dtype]
+        for d in (1, 2, 4):
+            n, bounds = sp_shapes(SP_N_REAL, d)
+            for bh in (6, 12):
+                q, k, v = flash_inputs(bh, n, dtype, seed=n + bh)
+                g = torch.Generator(device="cuda").manual_seed(n + bh + 1)
+                do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+                full = None
+                for valid in bounds:
+                    out, lse = flash_attention_with_lse_dyn(q, k, v, SCALE,
+                                                            valid)
+                    torch.cuda.synchronize()
+                    ref, ref_lse = attention_dyn_plain(q, k, v, SCALE, valid)
+                    err = (out.float() - ref.float()).abs()
+                    rec = {"phase": "sp_kernels",
+                           "kernel": "flash_attn_fwd_dyn",
+                           "dtype": str(dtype).split(".")[1], "ring": d,
+                           "bh": bh, "n_local": n, "valid": valid,
+                           "max_abs_err": err.max().item(),
+                           "lse_max_abs_err":
+                               (lse - ref_lse).abs().max().item(),
+                           "lse_max": lse.max().item(),
+                           "tol": [atol, rtol, LSE_ATOL]}
+                    emit(rec)
+                    check(bool(torch.isfinite(out).all()), f"non-finite {rec}")
+                    if valid:
+                        check(bool((err <= atol + rtol * ref.float().abs()
+                                    ).all()), f"dyn forward {rec}")
+                        check(rec["lse_max_abs_err"] <= LSE_ATOL,
+                              f"dyn lse {rec}")
+                    else:
+                        check(rec["lse_max"] <= -1e29, f"dyn lse at 0 {rec}")
+                    # the backward's global lse and D: this bound's forward
+                    # (the full bound's when no key is valid)
+                    if full is None:
+                        full = (ref_lse, ref)
+                    lse_g, out_g = (ref_lse, ref) if valid else full
+                    dsum = (do.float() * out_g.float()).sum(-1).reshape(
+                        bh, n)
+                    got = flash_attention_bwd_dyn(q, do, lse_g, dsum, k, v,
+                                                  SCALE, valid)
+                    torch.cuda.synchronize()
+                    want = attention_bwd_dyn_plain(q, do, lse_g, dsum, k, v,
+                                                   SCALE, valid)
+                    b_errs, ok = bwd_dyn_err(got, want, dtype)
+                    tail = max(t[:, :, valid:].abs().max().item()
+                               if valid < n else 0.0 for t in got[1:])
+                    rec = {"phase": "sp_kernels",
+                           "kernel": "flash_attn_bwd_dyn",
+                           "dtype": str(dtype).split(".")[1], "ring": d,
+                           "bh": bh, "n_local": n, "valid": valid,
+                           "max_abs_err": max(b_errs), "dq_err": b_errs[0],
+                           "dk_err": b_errs[1], "dv_err": b_errs[2],
+                           "max_abs_ref": max(r.abs().max().item()
+                                              for r in want),
+                           "dead_key_grad_max": tail,
+                           "tol": f"{BWD_DYN_REL[dtype]} x max|ref| of the "
+                                  f"hop"}
+                    emit(rec)
+                    check(ok, f"dyn backward {rec}")
+                    check(tail == 0.0, f"dead keys' dk/dv not zero {rec}")
+                    check(all(bool(torch.isfinite(t).all()) for t in got),
+                          f"non-finite dyn backward {rec}")
+                    if (dtype == torch.bfloat16 and d == 2 and bh == 12
+                            and valid == n - 1):
+                        errs["flash_attn_fwd_dyn"] = err.max().item()
+                        errs["flash_attn_bwd_dyn"] = max(b_errs)
+                    del out, lse, ref, ref_lse, err, got, want
+                del q, k, v, do, full
+    return errs
+
+
+def near_ties(logp, margin=MARGIN):
+    """Rows whose top-2 log-prob gap is below ``margin``."""
+    top2 = torch.topk(logp.float(), 2, dim=-1).values
+    return top2[:, 0] - top2[:, 1] < margin
+
+
+def labels_agree(got, want, near, out_size):
+    """(patches that differ, of them away from near ties) of two
+    (B, 480, 480) label maps, read at one pixel per patch."""
+    f = 480 // out_size
+    diff = torch.from_numpy(got[:, ::f, ::f] != want[:, ::f, ::f])
+    near = near.reshape(diff.shape)
+    return int(diff.sum()), int((diff & ~near).sum())
+
+
+def counted(fn):
+    """(fn(), the launch counts of the call): every count zeroed just
+    before and read just after."""
+    zero_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, all_counts()
+
+
+def add_counts(total, got):
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_sp_world1(model, frames2):
+    """SP in a world of one over NCCL: predict_batch at 960px, batch 1 and
+    2, fp32 and bf16, against the port's predict_batch, then one SP
+    finetune step against make_train_step; returns the launch counts of the
+    SP calls."""
+    store = tempfile.mkdtemp(prefix="dtt_sp_")
+    pdist.init_distributed_mode("nccl", f"file://{store}/store", 1, 0)
+    total = {}
+    try:
+        model.set_resolution(SP_RES)
+        for prec in ("fp32", "bf16"):
+            for batch in (1, 2):
+                imgs = frames2[:batch]
+                t0 = time.perf_counter()
+                out, got = counted(lambda: model.predict_batch(
+                    imgs, precision=prec, parallelism="sp"))
+                dt = time.perf_counter() - t0
+                add_counts(total, got)
+                check(out.shape == (batch, 480, 480) and out.dtype == np.int32,
+                      "SP predict_batch output")
+                check(0 <= out.min() and out.max() < 7, "SP labels range")
+                check(got == sp_want(3, 0),
+                      f"SP predict launches {got}, want 3 of kernel 5")
+                ref = model.predict_batch(imgs, precision=prec)
+                logp = model.log_probs(torch.from_numpy(imgs).cuda(),
+                                       precision=prec).cpu()
+                n_diff, n_far = labels_agree(out, ref, near_ties(logp),
+                                             SP_RES // 8)
+                rec = {"phase": "sp_path", "world": 1, "backend": "nccl",
+                       "call": "predict_batch", "res": SP_RES,
+                       "batch": batch, "precision": prec, "launches": got,
+                       "patches_differing": n_diff,
+                       "agreement": 1 - n_diff / (batch * (SP_N_REAL - 1)),
+                       "host_s": dt}
+                emit(rec)
+                if prec == "fp32":
+                    check(n_far == 0, f"SP fp32 labels differ away from "
+                                      f"near ties {rec}")
+        check_sp_step(SP_RES, "fp32", np.random.RandomState(7), total, 1,
+                      "nccl")
+        return total
+    finally:
+        dist.destroy_process_group()
+        model.set_resolution(480)
+
+
+def start_sp_ranks(world=SP_WORLD, backend="gloo"):
+    """Start the rank processes of phase 6 (the library is built, so they
+    load it); returns (processes, their start time)."""
+    store = tempfile.mkdtemp(prefix="dtt_sp_")
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sp-rank", str(r),
+         "--sp-world", str(world), "--sp-store", f"{store}/store",
+         "--sp-backend", backend],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for r in range(world)]
+    return procs, time.perf_counter()
+
+
+def join_sp_ranks(started):
+    """Wait for the rank processes (each must exit 0 within
+    SP_RANK_TIMEOUT of the start); re-emit their records; return the
+    summed launch counts of their SP runs."""
+    procs, t0 = started
+    outs = []
+    try:
+        for p in procs:
+            left = max(1.0, SP_RANK_TIMEOUT - (time.perf_counter() - t0))
+            outs.append(p.communicate(timeout=left))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    total = {}
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+        for rec in lines:
+            emit(dict(rec, rank=r))
+        check(p.returncode == 0, f"SP rank {r} exited {p.returncode}: "
+                                 f"{err[-3000:]}")
+        summary = lines[-1]
+        check(summary.get("sp_rank_ok") is True, f"SP rank {r} summary")
+        for k, v in summary["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _grad_report(params, ref_params, tol):
+    """(worst relative gradient difference, its leaf, all within ``tol``)
+    of two models' .grad, leaf by leaf, each against the leaf's max |g|."""
+    worst, worst_name, ok = 0.0, None, True
+    for (name, p), (_, r) in zip(params, ref_params):
+        check(p.grad is not None and r.grad is not None, f"no grad {name}")
+        rel = ((p.grad - r.grad).abs().max().item()
+               / max(r.grad.abs().max().item(), 1e-30))
+        ok &= rel <= tol
+        if rel >= worst:
+            worst, worst_name = rel, name
+    return worst, worst_name, ok
+
+
+def sp_model(prec):
+    """The SP checks' model: random ViT-S/8 weights from seed 5, 3 blocks,
+    MLP head, 7 classes, backbone trainable."""
+    return DINOSeg(head="mlp", n_blocks=3, n_classes=7, precision=prec,
+                   random_init=True, seed=5, freeze_backbone=False)
+
+
+def one_step(prec, imgs, labels, make_step):
+    """One Adam 1e-5 step of ``make_step(cfg, optimizer, compute_dtype)``
+    on a fresh sp_model: (the model, its gradients in .grad; loss; cm)."""
+    m = sp_model(prec)
+    vit, head = m.model.dino, m.model.clf
+    opt = make_optimizer("adam", 1e-5)
+    step = make_step(m.cfg, opt,
+                     torch.bfloat16 if prec == "bf16" else None)
+    loss, cm = step(vit, head, init_opt_state(opt, vit, head, False), imgs,
+                    labels)
+    return m, loss, cm
+
+
+def check_sp_step(res, prec, rs, total, world, backend):
+    """One SP finetune step (batch 2 from ``rs``) against make_train_step
+    from the same weights and batch; adds its launch counts to ``total``.
+    fp32: loss rtol STEP_LOSS_RTOL, cm equal except near-tie patches, and
+    each gradient leaf within STEP_GRAD_REL of its max, or, over several
+    ranks at 960px, within SP_GRAD_SPREAD times the worst leaf of the same
+    single-device step with the batch regrouped in two microbatches.  bf16:
+    finite loss within SP_BF16_LOSS_RTOL."""
+    d, out = world, res // 8
+    imgs = torch.from_numpy(rs.randint(0, 255, (2, res, res, 3)).astype(
+        np.uint8)).cuda()
+    labels = torch.from_numpy(rs.randint(0, 7, (2, out * out)).astype(
+        np.int32)).cuda()
+
+    def single(accum):
+        return lambda cfg, opt, cdt: make_train_step(
+            cfg, "mlp", 7, opt, False, compute_dtype=cdt, accum_steps=accum)
+
+    ref_m, ref_loss, ref_cm = one_step(prec, imgs, labels, single(1))
+    with torch.no_grad():
+        near = near_ties(ref_m.forward(imgs.cpu().numpy()))
+    t0 = time.perf_counter()
+    (sp_m, loss, cm), got = counted(lambda: one_step(
+        prec, imgs, labels, lambda cfg, opt, cdt: make_sp_train_step(
+            cfg, "mlp", 7, opt, compute_dtype=cdt)))
+    dt = time.perf_counter() - t0
+    add_counts(total, got)
+    rec = {"phase": "sp_path", "world": d, "backend": backend,
+           "call": "train_step", "res": res, "batch": 2, "precision": prec,
+           "loss": loss.item(), "loss_single_device": ref_loss.item(),
+           "cm_abs_diff": int((cm - ref_cm).abs().sum()),
+           "near_tie_patches": int(near.sum()), "launches": got,
+           "host_s": dt}
+    tol = None
+    if prec == "fp32":
+        tol = STEP_GRAD_REL
+        if d > 1:  # the float32 gradient's own spread on this batch
+            acc_m = one_step(prec, imgs, labels, single(2))[0]
+            spread = _grad_report(acc_m.model.named_parameters(),
+                                  ref_m.model.named_parameters(), 1.0)[:2]
+            rec["grad_worst_rel_diff_regrouped_single_device"] = spread
+            if res == SP_RES:
+                tol = max(STEP_GRAD_REL, SP_GRAD_SPREAD * spread[0])
+    worst, leaf, grads_ok = _grad_report(sp_m.model.named_parameters(),
+                                         ref_m.model.named_parameters(),
+                                         tol or 1.0)
+    rec.update(grad_worst_rel_diff=worst, grad_worst_leaf=leaf, grad_tol=tol)
+    emit(rec)
+    check(got == sp_want(3 * d, 3 * d), f"SP step launches {rec}")
+    check(bool(torch.isfinite(loss)), f"non-finite SP loss {rec}")
+    if prec == "fp32":
+        check(abs(loss.item() - ref_loss.item())
+              <= STEP_LOSS_RTOL * abs(ref_loss.item()), f"SP loss {rec}")
+        check(rec["cm_abs_diff"] <= 2 * rec["near_tie_patches"],
+              f"SP confusion matrix {rec}")
+        check(grads_ok, f"SP gradients {rec}")
+    else:
+        check(abs(loss.item() - ref_loss.item())
+              <= SP_BF16_LOSS_RTOL * abs(ref_loss.item()),
+              f"SP bf16 loss {rec}")
+
+
+def sp_rank_main(rank, world, store, backend):
+    """One rank of phase 6: gloo over host-staged collectives with the
+    kernels on a shared card, or NCCL with one card per rank.  Prints JSON
+    records, the last one its summary."""
+    pdist.init_distributed_mode(backend, f"file://{store}", world, rank)
+    total = {}
+    rs = np.random.RandomState(6)
+    frame = rs.randint(0, 256, (480, 640, 3)).astype(np.uint8)
+    model = sp_model("fp32")
+    model.set_resolution(SP_RES)
+    sp, got = counted(lambda: model.predict_batch(
+        frame[None], precision="fp32", parallelism="sp"))
+    add_counts(total, got)
+    ref = model.predict_batch(frame[None], precision="fp32")
+    logp = model.log_probs(torch.from_numpy(frame[None]).cuda(),
+                           precision="fp32").cpu()
+    n_diff, n_far = labels_agree(sp, ref, near_ties(logp), SP_RES // 8)
+    rec = {"phase": "sp_path", "world": world, "backend": backend,
+           "call": "predict", "res": SP_RES, "precision": "fp32",
+           "launches": got, "patches_differing": n_diff}
+    emit(rec)
+    check(got == sp_want(3 * world, 0), f"SP predict launches {rec}")
+    check(n_far == 0, f"SP labels differ away from near ties {rec}")
+    for res, prec in ((240, "fp32"), (SP_RES, "fp32"), (SP_RES, "bf16")):
+        check_sp_step(res, prec, rs, total, world, backend)
+    dist.destroy_process_group()
+    emit({"sp_rank_ok": True, "rank": rank, "launches": total})
+
+
+def sp_cards_main(world, card):
+    """Phase 6's rank checks with one rank per card over NCCL."""
+    check(torch.cuda.device_count() >= world,
+          f"--sp-world {world} needs {world} cards, found "
+          f"{torch.cuda.device_count()}")
+    emit({"phase": "device", "names": [torch.cuda.get_device_name(i)
+                                       for i in range(world)],
+          "nvidia_smi": card, "torch": torch.__version__})
+    _build.library()
+    total = join_sp_ranks(start_sp_ranks(world, "nccl"))
+    emit({"phase": "sp_path", "world": world, "backend": "nccl",
+          "rank_launches_summed": total})
+    check(total["flash_attn_bwd_dyn"] > 0, "an SP kernel was never launched")
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+def phase_chunked(model, frame):
+    """fp32 predict at 1624px (N = 41,210): the streaming forward where
+    dino_tpu runs _flash_kernel_chunked, three launches, no LSE; then the
+    kernel vs its plain version at that N.  Returns (launches, max err)."""
+    calls = []
+    real = tatt._flash_fwd
+
+    def spy(q, k, v, scale, return_lse):
+        calls.append((str(q.dtype), return_lse, q.shape[2]))
+        return real(q, k, v, scale, return_lse)
+
+    model.set_resolution(CHUNKED_RES)
+    zero_counts()
+    tatt._flash_fwd = spy
+    try:
+        t0 = time.perf_counter()
+        out = model.predict(frame, precision="fp32")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        tatt._flash_fwd = real
+        model.set_resolution(480)
+    got = all_counts()
+    n = (CHUNKED_RES // 8) ** 2 + 1
+    emit({"phase": "chunked_path", "call": "predict", "res": CHUNKED_RES,
+          "precision": "fp32", "n_tokens": n, "shape": list(out.shape),
+          "launches": got,
+          "forward_calls": calls, "host_s": dt})
+    side = (CHUNKED_RES // 8) * (480 // (CHUNKED_RES // 8))  # kron factor 2
+    check(out.shape == (side, side) and 0 <= out.min() and out.max() < 7,
+          f"{CHUNKED_RES}px predict output {out.shape}")
+    check(got["flash_attn_fwd"] == 3 and calls == [
+        ("torch.float32", False, n)] * 3,
+          f"1624px fp32 predict: {calls}, want 3 f32 forwards, no LSE")
+    q, k, v = flash_inputs(6, n, torch.float32, seed=9)
+    o = flash_attention(q, k, v, SCALE)
+    torch.cuda.synchronize()
+    ref, _ = attention_plain(q, k, v, SCALE)
+    atol, rtol = FLASH_TOL[torch.float32]
+    err = (o - ref).abs()
+    rec = {"phase": "kernel_check", "kernel": "flash_attn_fwd_chunked",
+           "dtype": "float32", "bh": 6, "n": n,
+           "max_abs_err": err.max().item(), "tol": [atol, rtol]}
+    emit(rec)
+    check(bool((err <= atol + rtol * ref.abs()).all()), f"1624px flash {rec}")
+    return got["flash_attn_fwd"], rec["max_abs_err"]
+
+
+def phase_timing_sp(launches):
+    """Rows 4-6: the streaming forward at the 1624px shape (f32, B*nh = 6,
+    N = 41,210, short bursts), the dynamic-bound kernels at the 2-rank
+    960px per-hop shape (bf16, B*nh = 12, N = 7,201, valid 7,200)."""
+    rows = {}
+    n = (CHUNKED_RES // 8) ** 2 + 1
+    q, k, v = flash_inputs(6, n, torch.float32, seed=10)
+    b, nh, _, hd = q.shape
+    bnd, by = bound_ms(4 * n * n * hd * b * nh, 4 * b * nh * n * hd * 4,
+                       torch.float32)
+    burst = dict(rounds=3, burst=2, warmup=1)
+    rows["flash_attn_fwd_chunked"] = {
+        "ms": median_ms(lambda: flash_attention(q, k, v, SCALE), **burst),
+        "plain_ms": median_ms(lambda: attention_plain(q, k, v, SCALE),
+                              **burst),
+        "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=SCALE), **burst),
+        "bound_ms": bnd, "bound_by": by,
+        "flops": 4 * n * n * hd * b * nh, "bytes": 4 * b * nh * n * hd * 4,
+        "shape": f"{CHUNKED_RES}px fp32 predict (1 x 6 heads, N = {n})",
+        "launches_per_predict": launches["flash_attn_fwd_chunked"]}
+    del q, k, v
+    n_local, bounds = sp_shapes(SP_N_REAL, SP_WORLD)
+    valid = bounds[1]
+    q, k, v = flash_inputs(12, n_local, torch.bfloat16, seed=11)
+    b, nh, _, hd = q.shape
+    el = q.element_size()
+    kv = [t[:, :, :valid].contiguous() for t in (k, v)]
+    flops = 4 * n_local * valid * hd * b * nh
+    nbytes = b * nh * ((2 * n_local + 2 * valid) * hd * el + n_local * 4)
+    bnd, by = bound_ms(flops, nbytes, torch.bfloat16)
+    shape = (f"2-rank 960px ring hop (2 x 6 heads, N = {n_local}, "
+             f"valid {valid})")
+    rows["flash_attn_fwd_dyn"] = {
+        "ms": median_ms(lambda: flash_attention_with_lse_dyn(
+            q, k, v, SCALE, valid)),
+        "plain_ms": median_ms(lambda: attention_dyn_plain(q, k, v, SCALE,
+                                                          valid)),
+        "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+            q, *kv, scale=SCALE)),
+        "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
+        "shape": shape}
+    g = torch.Generator(device="cuda").manual_seed(12)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(torch.bfloat16)
+    out, lse = attention_dyn_plain(q, k, v, SCALE, valid)
+    dsum = (do.float() * out.float()).sum(-1).reshape(b * nh, n_local)
+    flops = 10 * n_local * valid * hd * b * nh
+    # q, dO, k, v (valid rows) in; lse, D in; dq, dk, dv (f32) out
+    nbytes = b * nh * ((2 * n_local + 2 * valid) * hd * el
+                       + 2 * n_local * 4 + 3 * n_local * hd * 4)
+    bnd, by = bound_ms(flops, nbytes, torch.bfloat16)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, *kv))
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, scale=SCALE)
+    rows["flash_attn_bwd_dyn"] = {
+        "ms": median_ms(lambda: flash_attention_bwd_dyn(
+            q, do, lse, dsum, k, v, SCALE, valid)),
+        "plain_ms": median_ms(lambda: attention_bwd_dyn_plain(
+            q, do, lse, dsum, k, v, SCALE, valid)),
+        "library_ms": median_ms(lambda: sdpa.backward(do, retain_graph=True)),
+        "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
+        "shape": shape}
+    for name, row in rows.items():
+        emit(dict({"phase": "timing", "kernel": name, "kernel_ms": row["ms"]},
+                  **row))
+    return rows
+
+
 KERNELS = {
     "flash_attn_fwd": dict(
         source="dino_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -514,6 +1056,19 @@ KERNELS = {
         source="dino_tpu_torch/csrc/flash_attn_bwd.cu",
         replaces="dino_tpu/ops/attention.py:580",
         tpu_kernel="_flash_bwd_kernel"),
+    # kernel 4 has no kernel of its own: the streaming forward covers it
+    "flash_attn_fwd_chunked": dict(
+        source="dino_tpu_torch/csrc/flash_attn_fwd.cu",
+        replaces="dino_tpu/ops/attention.py:370",
+        tpu_kernel="_flash_kernel_chunked"),
+    "flash_attn_fwd_dyn": dict(
+        source="dino_tpu_torch/csrc/flash_attn_fwd.cu",
+        replaces="dino_tpu/ops/attention.py:148",
+        tpu_kernel="_flash_kernel_dyn"),
+    "flash_attn_bwd_dyn": dict(
+        source="dino_tpu_torch/csrc/flash_attn_bwd.cu",
+        replaces="dino_tpu/ops/attention.py:645",
+        tpu_kernel="_flash_bwd_kernel_dyn"),
 }
 
 
@@ -521,7 +1076,18 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
                          "the card")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--sp-rank", type=int)
+    ap.add_argument("--sp-world", type=int)
+    ap.add_argument("--sp-store")
+    ap.add_argument("--sp-backend", default="gloo")
+    args = ap.parse_args()
+    if args.sp_rank is not None:
+        return sp_rank_main(args.sp_rank, args.sp_world, args.sp_store,
+                            args.sp_backend)
     card = bench.card_name_and_power_limit()
+    if args.sp_world is not None:
+        return sp_cards_main(args.sp_world, card)
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -532,19 +1098,34 @@ def main():
           "nvcc_seconds": _build.build_seconds})
     print(_build.build_log, file=sys.stderr)
 
-    model = DINOSeg(head="mlp", n_blocks=3, n_classes=7, precision="bf16",
-                    random_init=True, seed=0)
-    block = model.model.dino.blocks[0]
-    errs = phase_kernels(block)
-    errs["flash_attn_bwd"] = phase_bwd_kernel()
+    ranks = start_sp_ranks()  # they share the card until the timing phase
+    try:
+        model = DINOSeg(head="mlp", n_blocks=3, n_classes=7,
+                        precision="bf16", random_init=True, seed=0)
+        block = model.model.dino.blocks[0]
+        errs = phase_kernels(block)
+        errs["flash_attn_bwd"] = phase_bwd_kernel()
+        errs.update(phase_sp_kernels())
 
-    rs = np.random.RandomState(0)
-    frame = rs.randint(0, 256, (480, 640, 3)).astype(np.uint8)
-    frames3 = rs.randint(0, 256, (3, 480, 640, 3)).astype(np.uint8)
-    launches, per_call = phase_main_path(model, frame, frames3)
-    phase_cpu_reference(model, frame)
-    launches["flash_attn_bwd"], bwd_per_step = phase_train_path()
+        rs = np.random.RandomState(0)
+        frame = rs.randint(0, 256, (480, 640, 3)).astype(np.uint8)
+        frames3 = rs.randint(0, 256, (3, 480, 640, 3)).astype(np.uint8)
+        launches, per_call = phase_main_path(model, frame, frames3)
+        phase_cpu_reference(model, frame)
+        launches["flash_attn_bwd"], bwd_per_step = phase_train_path()
+        sp_world1 = phase_sp_world1(model, frames3[:2])
+        (launches["flash_attn_fwd_chunked"],
+         errs["flash_attn_fwd_chunked"]) = phase_chunked(model, frame)
+    finally:
+        sp_ranks = join_sp_ranks(ranks)
+    for name in ("flash_attn_fwd_dyn", "flash_attn_bwd_dyn"):
+        launches[name] = sp_world1[name] + sp_ranks[name]
+        check(sp_world1[name] > 0 and sp_ranks[name] > 0,
+              f"{name} was never launched on an SP path")
+    emit({"phase": "sp_path", "world1_launches": sp_world1,
+          "rank_launches_summed": sp_ranks})
     rows = phase_timing(block, per_call, bwd_per_step)
+    rows.update(phase_timing_sp(launches))
     emit(dict({"phase": "bench"}, **bench.run()))
 
     emit({"kernels": [

@@ -2,10 +2,11 @@
 NVIDIA H100.
 
 The package mirrors ``dino_tpu/`` module by module.  Plain tensor code is
-PyTorch; the Pallas TPU kernels on the predict path are hand-written CUDA C++
-kernels for ``sm_90a`` (``csrc/``), built with nvcc at first use and bound
-with ctypes (``ops/_build.py``).  Tensors on the CPU take each kernel's plain
-PyTorch version, which is what the CPU tests compare.
+PyTorch; every Pallas TPU kernel has a hand-written CUDA C++ counterpart for
+``sm_90a`` (``csrc/``), built with nvcc at first use and bound with ctypes
+(``ops/_build.py``).  Tensors on the CPU take each kernel's plain PyTorch
+version, which is what the CPU tests compare.  Collectives go through
+``torch.distributed`` (``parallel/``).
 
 The package imports neither ``jax`` nor ``dino_tpu``.
 """

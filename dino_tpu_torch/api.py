@@ -13,6 +13,10 @@ The counterpart of ``dino_tpu/api.py``'s ``DINOSeg`` for serving:
     files load; ``save`` writes the ``.npz`` format.
   * ``freeze_backbone`` / ``freeze_bb`` / ``unfreeze_bb`` choose what the
     train step (``train/loop.py``) updates; ``fit`` is not ported yet.
+  * ``parallelism='sp'`` shards the token axis over the ranks of the default
+    ``torch.distributed`` process group (ring attention,
+    ``parallel/ring_attention.py``); every rank calls with the same frames
+    and gets the full maps.  ``'tp'`` is not ported yet.
 
 The model runs on the card by default: ``device=None`` means ``"cuda"`` and
 raises when there is none.  Pass ``device="cpu"`` to run on the CPU.
@@ -32,11 +36,13 @@ from dino_tpu_torch.checkpointing.convert import (from_jax_params,
                                                   load_pl_checkpoint,
                                                   to_jax_params)
 from dino_tpu_torch.checkpointing.io import load_checkpoint, save_checkpoint
-from dino_tpu_torch.models.heads import init_head
+from dino_tpu_torch.models.heads import head_apply, init_head
 from dino_tpu_torch.models.vit import (ViTConfig, VisionTransformer,
                                        init_vit_params)
 from dino_tpu_torch.ops.preprocess import normalize_imagenet, preprocess
 from dino_tpu_torch.ops.upsample import kron_upsample
+from dino_tpu_torch.parallel.dist import is_dist_avail_and_initialized
+from dino_tpu_torch.parallel.ring_attention import vit_forward_seq_parallel
 from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.train.loop import seg_forward
 
@@ -141,24 +147,49 @@ class DINOSeg:
                                self.head, pre_normalized=normalize_imagenet(x),
                                compute_dtype=cdt)
 
+    @staticmethod
+    def _check_parallelism(parallelism: Optional[str]) -> None:
+        if parallelism == "tp":
+            raise NotImplementedError(_roadmap("parallelism='tp'", 11))
+        if parallelism not in (None, "sp"):
+            raise ValueError(f"unsupported parallelism {parallelism!r}")
+        if parallelism == "sp" and not is_dist_avail_and_initialized():
+            raise RuntimeError(
+                "parallelism='sp' shards the tokens over the default "
+                "torch.distributed process group, and none is initialized: "
+                "call dino_tpu_torch.parallel.dist.init_distributed_mode "
+                "first (a world of one is allowed)")
+
     @torch.no_grad()
     def log_probs(self, imgs_u8: torch.Tensor,
-                  precision: Optional[str] = None) -> torch.Tensor:
+                  precision: Optional[str] = None,
+                  parallelism: Optional[str] = None) -> torch.Tensor:
         """uint8 (B, H, W, 3) on the model's device -> (B*N, n_classes)
-        log-probs at the current resolution (the predict path before argmax)."""
+        log-probs at the current resolution (the predict path before argmax).
+        ``parallelism='sp'``: the backbone runs sequence-parallel over the
+        default process group, and every rank gets every row."""
+        self._check_parallelism(parallelism)
         cdt = self._compute_dtype_for(precision)
         with matmul_ctx(cdt):
             x = preprocess(imgs_u8, self.resolution)
-            return seg_forward(self.model.dino, self.model.clf, self.cfg,
-                               self.head, pre_normalized=x, compute_dtype=cdt)
+            if parallelism != "sp":
+                return seg_forward(self.model.dino, self.model.clf, self.cfg,
+                                   self.head, pre_normalized=x,
+                                   compute_dtype=cdt)
+            if cdt is not None:
+                x = x.to(cdt)
+            tokens = vit_forward_seq_parallel(self.model.dino, x, self.cfg)
+            feats = tokens[:, 1:, :].reshape(-1, self.cfg.embed_dim)
+            return head_apply(self.head, self.model.clf, feats)
 
     @torch.no_grad()
     def predict_device(self, imgs_u8: torch.Tensor,
-                       precision: Optional[str] = None) -> torch.Tensor:
+                       precision: Optional[str] = None,
+                       parallelism: Optional[str] = None) -> torch.Tensor:
         """uint8 (B, H, W, 3) on the model's device -> (B, 480, 480) label
         maps on the device, uint8 when n_classes <= 255 (the label wire)."""
         out_size = self.resolution // 8
-        low = self.log_probs(imgs_u8, precision).argmax(dim=-1)
+        low = self.log_probs(imgs_u8, precision, parallelism).argmax(dim=-1)
         wire = torch.uint8 if self.n_classes <= 255 else torch.int32
         return kron_upsample(low.to(wire).reshape(-1, out_size, out_size),
                              480 // out_size)
@@ -178,14 +209,14 @@ class DINOSeg:
 
     def predict_batch(self, images, precision: Optional[str] = None,
                       parallelism: Optional[str] = None) -> np.ndarray:
-        """Batched inference: uint8 (B, H, W, 3) -> (B, 480, 480) int32."""
-        if parallelism is not None:
-            raise NotImplementedError(_roadmap(f"parallelism={parallelism!r}",
-                                               11))
+        """Batched inference: uint8 (B, H, W, 3) -> (B, 480, 480) int32.
+        ``parallelism='sp'``: sequence-parallel over the default process
+        group; every rank passes the same frames and gets every map."""
+        self._check_parallelism(parallelism)
         if isinstance(images, (list, tuple)):
             images = np.stack([np.asarray(im) for im in images])
         imgs = torch.from_numpy(self._as_uint8(images)).to(self.device)
-        labels = self.predict_device(imgs, precision)
+        labels = self.predict_device(imgs, precision, parallelism)
         return labels.cpu().numpy().astype(np.int32, copy=False)
 
     def fit(self, *args, **kwargs):

@@ -1,12 +1,21 @@
 // Flash-attention backward for NVIDIA Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel dino_tpu/ops/attention.py:_flash_bwd_kernel
-// (launched by _flash_bwd_pallas from the custom_vjp rule _flash_bwd_rule),
-// and the K/V residency splits around it: the loops below stream any N.
+// Replaces two Pallas TPU kernels of dino_tpu/ops/attention.py, and the K/V
+// residency splits around them (the loops below stream any N):
+//   _flash_bwd_kernel (launched by _flash_bwd_pallas from the custom_vjp
+//     rule _flash_bwd_rule): entry dtt_flash_attn_bwd;
+//   _flash_bwd_kernel_dyn (launched by _dyn_bwd_call from
+//     flash_attention_bwd_dyn, once per hop of the ring-attention backward):
+//     entry dtt_flash_attn_bwd_dyn, where Q and dO have nq rows, K and V nk
+//     rows, lse and D are the caller's (the ring's global ones), and a
+//     runtime bound `valid` kills every key >= valid.  Key tiles wholly past
+//     the bound write exact zeros to dK/dV and stop; the dQ loop stops at
+//     the last key tile that holds a valid key.  dK/dV rows >= valid are
+//     stored as exact zeros (the outputs come from torch.empty).
 //
 // Given Q, K, V, dO (B*nh, N, 64), the forward's row log-sum-exp lse and
 // D = rowsum(dO * O) (B*nh, N) f32, it computes, per (bh) row:
-//   P  = exp(S*scale - lse),  S = Q.K^T      (keys >= N give P = 0)
+//   P  = exp(S*scale - lse),  S = Q.K^T      (keys >= valid give P = 0)
 //   dV = cast(P)^T . dO       dP = dO . V^T
 //   dS = cast(P * (dP - D) * scale)
 //   dK = dS^T . Q             dQ = dS . K
@@ -38,9 +47,10 @@
 // float32, with P and dS staged through shared memory.  wgmma/TMA are later
 // work.
 //
-// Layout: all tensors contiguous, (B*nh, N, 64) and (B*nh, N); grid
-// (ceil(N/64), B*nh); 128 threads.  Rows past N are zero-filled on load and
-// never stored; padded query rows also get P = 0.
+// Layout: all tensors contiguous, (B*nh, nq|nk, 64) and (B*nh, nq); grids
+// (ceil(nk/64), B*nh) for dK/dV and (ceil(nq/64), B*nh) for dQ; 128 threads.
+// Query rows past nq and key rows past valid are zero-filled on load; query
+// rows past nq also get P = 0 and are never stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,19 +104,22 @@ __device__ __forceinline__ void acc_to_a(unsigned (&a)[4],
 }
 
 // a warp's 16 x 64 accumulator strip (rows row0 + g, row0 + g + 8) -> f32
-// rows of dst that are < n
+// rows of dst that are < n; rows >= zero_from get exact zeros
 __device__ __forceinline__ void store_strip(float* dst, const float (&x)[8][4],
-                                            int row0, int n, int lane) {
+                                            int row0, int n, int zero_from,
+                                            int lane) {
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
     if (row >= n) continue;
+    const bool live = row < zero_from;
     float* d = dst + (size_t)row * HD + 2 * t;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<float2*>(d + 8 * j) =
-          make_float2(x[j][2 * r], x[j][2 * r + 1]);
+          live ? make_float2(x[j][2 * r], x[j][2 * r + 1])
+               : make_float2(0.f, 0.f);
   }
 }
 
@@ -121,7 +134,8 @@ flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ dsum, float* __restrict__ dk,
-                    float* __restrict__ dv, int n, float scale) {
+                    float* __restrict__ dv, int nq, int nk, int valid,
+                    float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // BK x LD
   bf16* Vs = Ks + BK * LD;                   // BK x LD
@@ -131,34 +145,40 @@ flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* Ds = Ls + 2 * BQ;                                 // 2 x BQ
 
   const int bh = blockIdx.y, k0 = blockIdx.x * BK;
-  const size_t base = (size_t)bh * n * HD;
-  const float* lse_bh = lse + (size_t)bh * n;
-  const float* d_bh = dsum + (size_t)bh * n;
+  const size_t qbase = (size_t)bh * nq * HD, kbase = (size_t)bh * nk * HD;
+  const float* lse_bh = lse + (size_t)bh * nq;
+  const float* d_bh = dsum + (size_t)bh * nq;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const bool key_ok[2] = {k0 + warp * 16 + g < n, k0 + warp * 16 + g + 8 < n};
+  float dka[HD / 8][4] = {}, dva[HD / 8][4] = {};
+  if (k0 >= valid) {  // a dead key tile: exact zeros, no work
+    store_strip(dk + kbase, dka, k0 + warp * 16, nk, valid, lane);
+    store_strip(dv + kbase, dva, k0 + warp * 16, nk, valid, lane);
+    return;
+  }
+  const bool key_ok[2] = {k0 + warp * 16 + g < valid,
+                          k0 + warp * 16 + g + 8 < valid};
 
-  load_rows64_bf16<BK, NTHREADS>(Ks, LD, k + base, k0, n);
-  load_rows64_bf16<BK, NTHREADS>(Vs, LD, v + base, k0, n);
-  load_rows64_bf16<BQ, NTHREADS>(Qs, LD, q + base, 0, n);
-  load_rows64_bf16<BQ, NTHREADS>(Gs, LD, dout + base, 0, n);
+  load_rows64_bf16<BK, NTHREADS>(Ks, LD, k + kbase, k0, valid);
+  load_rows64_bf16<BK, NTHREADS>(Vs, LD, v + kbase, k0, valid);
+  load_rows64_bf16<BQ, NTHREADS>(Qs, LD, q + qbase, 0, nq);
+  load_rows64_bf16<BQ, NTHREADS>(Gs, LD, dout + qbase, 0, nq);
   cp_async_commit();
-  load_rowstats(Ls, Ds, lse_bh, d_bh, 0, n);
+  load_rowstats(Ls, Ds, lse_bh, d_bh, 0, nq);
 
   unsigned ka[HD / 16][4], va[HD / 16][4];  // this warp's K, V strips
-  float dka[HD / 8][4] = {}, dva[HD / 8][4] = {};
 
-  const int ntiles = (n + BQ - 1) / BQ;
+  const int ntiles = (nq + BQ - 1) / BQ;
   for (int tile = 0; tile < ntiles; ++tile) {
     const int buf = tile & 1;
     if (tile + 1 < ntiles) {  // prefetch the next q-tile
       const int nq0 = (tile + 1) * BQ;
-      load_rows64_bf16<BQ, NTHREADS>(Qs + (buf ^ 1) * BQ * LD, LD, q + base,
-                                     nq0, n);
+      load_rows64_bf16<BQ, NTHREADS>(Qs + (buf ^ 1) * BQ * LD, LD, q + qbase,
+                                     nq0, nq);
       load_rows64_bf16<BQ, NTHREADS>(Gs + (buf ^ 1) * BQ * LD, LD,
-                                     dout + base, nq0, n);
+                                     dout + qbase, nq0, nq);
       load_rowstats(Ls + (buf ^ 1) * BQ, Ds + (buf ^ 1) * BQ, lse_bh, d_bh,
-                    nq0, n);
+                    nq0, nq);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and K, V) have landed
@@ -205,7 +225,7 @@ flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int qc = 8 * j + 2 * t + (e & 1);
         float p = prob(s[j][e], scale, Lt[qc]);
-        if (!key_ok[e >> 1] || q0 + qc >= n) p = 0.f;
+        if (!key_ok[e >> 1] || q0 + qc >= nq) p = 0.f;
         dp[j][e] = dscore(p, dp[j][e], Dt[qc], scale);
         s[j][e] = p;
       }
@@ -230,8 +250,8 @@ flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();  // every warp is done with this buffer before refill
   }
-  store_strip(dk + base, dka, k0 + warp * 16, n, lane);
-  store_strip(dv + base, dva, k0 + warp * 16, n, lane);
+  store_strip(dk + kbase, dka, k0 + warp * 16, nk, valid, lane);
+  store_strip(dv + kbase, dva, k0 + warp * 16, nk, valid, lane);
 }
 
 // Q, dO once; 2 x (K, V) tiles
@@ -242,7 +262,7 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ dsum, float* __restrict__ dq,
-                  int n, float scale) {
+                  int nq, int nk, int valid, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // BQ x LD
   bf16* Gs = Qs + BQ * LD;                   // BQ x LD (dO)
@@ -250,14 +270,14 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Vs = Ks + 2 * BK * LD;               // 2 buffers of BK x LD
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const size_t base = (size_t)bh * n * HD;
+  const size_t qbase = (size_t)bh * nq * HD, kbase = (size_t)bh * nk * HD;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
 
-  load_rows64_bf16<BQ, NTHREADS>(Qs, LD, q + base, q0, n);
-  load_rows64_bf16<BQ, NTHREADS>(Gs, LD, dout + base, q0, n);
-  load_rows64_bf16<BK, NTHREADS>(Ks, LD, k + base, 0, n);
-  load_rows64_bf16<BK, NTHREADS>(Vs, LD, v + base, 0, n);
+  load_rows64_bf16<BQ, NTHREADS>(Qs, LD, q + qbase, q0, nq);
+  load_rows64_bf16<BQ, NTHREADS>(Gs, LD, dout + qbase, q0, nq);
+  load_rows64_bf16<BK, NTHREADS>(Ks, LD, k + kbase, 0, valid);
+  load_rows64_bf16<BK, NTHREADS>(Vs, LD, v + kbase, 0, valid);
   cp_async_commit();
 
   // this lane's query rows g and g+8 of the warp's strip
@@ -266,22 +286,22 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + g + 8 * r;
-    row_ok[r] = row < n;
-    lse_r[r] = row_ok[r] ? lse[(size_t)bh * n + row] : 0.f;
-    d_r[r] = row_ok[r] ? dsum[(size_t)bh * n + row] : 0.f;
+    row_ok[r] = row < nq;
+    lse_r[r] = row_ok[r] ? lse[(size_t)bh * nq + row] : 0.f;
+    d_r[r] = row_ok[r] ? dsum[(size_t)bh * nq + row] : 0.f;
   }
 
   unsigned qa[HD / 16][4], ga[HD / 16][4];  // this warp's Q, dO strips
   float dqa[HD / 8][4] = {};
 
-  const int ntiles = (n + BK - 1) / BK;
+  const int ntiles = (valid + BK - 1) / BK;
   for (int tile = 0; tile < ntiles; ++tile) {
     const int buf = tile & 1;
     if (tile + 1 < ntiles) {  // prefetch the next K/V tile
-      load_rows64_bf16<BK, NTHREADS>(Ks + (buf ^ 1) * BK * LD, LD, k + base,
-                                     (tile + 1) * BK, n);
-      load_rows64_bf16<BK, NTHREADS>(Vs + (buf ^ 1) * BK * LD, LD, v + base,
-                                     (tile + 1) * BK, n);
+      load_rows64_bf16<BK, NTHREADS>(Ks + (buf ^ 1) * BK * LD, LD, k + kbase,
+                                     (tile + 1) * BK, valid);
+      load_rows64_bf16<BK, NTHREADS>(Vs + (buf ^ 1) * BK * LD, LD, v + kbase,
+                                     (tile + 1) * BK, valid);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -325,7 +345,7 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         float p = prob(s[j][e], scale, lse_r[r]);
-        if (!row_ok[r] || k0 + 8 * j + 2 * t + (e & 1) >= n) p = 0.f;
+        if (!row_ok[r] || k0 + 8 * j + 2 * t + (e & 1) >= valid) p = 0.f;
         dp[j][e] = dscore(p, dp[j][e], d_r[r], scale);
       }
     }
@@ -346,7 +366,8 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();
   }
-  store_strip(dq + base, dqa, q0 + warp * 16, n, lane);
+  cp_async_wait<0>();  // valid = 0 visits no tile: drain the first loads
+  store_strip(dq + qbase, dqa, q0 + warp * 16, nq, nq, lane);
 }
 
 // ----------------------------------------------------------------- f32 ---
@@ -364,7 +385,8 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ dsum, float* __restrict__ dk,
-                   float* __restrict__ dv, int n, float scale) {
+                   float* __restrict__ dv, int nq, int nk, int valid,
+                   float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);
   float* Vs = Ks + TILE_F32;
@@ -376,22 +398,25 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* Ds = Ls + BQ;
 
   const int bh = blockIdx.y, k0 = blockIdx.x * BK;
-  const size_t base = (size_t)bh * n * HD;
+  const size_t qbase = (size_t)bh * nq * HD, kbase = (size_t)bh * nk * HD;
   const int row = threadIdx.x / 2, half = threadIdx.x % 2;
-  const bool key_ok = k0 + row < n;
-
-  load_rows64_f32<BK, NTHREADS>(Ks, KS, k + base, k0, n);
-  load_rows64_f32<BK, NTHREADS>(Vs, KS, v + base, k0, n);
+  const bool key_ok = k0 + row < valid;
   float dka[HD / 2], dva[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
 
-  const int ntiles = (n + BQ - 1) / BQ;
+  // a dead key tile (k0 >= valid) skips the loop and stores its zeros
+  const int ntiles = k0 < valid ? (nq + BQ - 1) / BQ : 0;
+  if (ntiles > 0) {
+    load_rows64_f32<BK, NTHREADS>(Ks, KS, k + kbase, k0, valid);
+    load_rows64_f32<BK, NTHREADS>(Vs, KS, v + kbase, k0, valid);
+  }
   for (int tile = 0; tile < ntiles; ++tile) {
     const int q0 = tile * BQ;
-    load_rows64_f32<BQ, NTHREADS>(Qs, KS, q + base, q0, n);
-    load_rows64_f32<BQ, NTHREADS>(Gs, KS, dout + base, q0, n);
-    load_rowstats(Ls, Ds, lse + (size_t)bh * n, dsum + (size_t)bh * n, q0, n);
+    load_rows64_f32<BQ, NTHREADS>(Qs, KS, q + qbase, q0, nq);
+    load_rows64_f32<BQ, NTHREADS>(Gs, KS, dout + qbase, q0, nq);
+    load_rowstats(Ls, Ds, lse + (size_t)bh * nq, dsum + (size_t)bh * nq, q0,
+                  nq);
     __syncthreads();
 
     float s[BQ / 2], dp[BQ / 2];
@@ -411,7 +436,7 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < BQ / 2; ++c) {
       const int qc = 2 * c + half;
       float p = prob(s[c], scale, Ls[qc]);
-      if (!key_ok || q0 + qc >= n) p = 0.f;
+      if (!key_ok || q0 + qc >= nq) p = 0.f;
       Ps[row * KS + qc] = p;
       Ss[row * KS + qc] = dscore(p, dp[c], Ds[qc], scale);
     }
@@ -428,13 +453,13 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();  // Q, dO, P, dS are refilled next tile
   }
-  if (key_ok) {
-    float* dkr = dk + base + (size_t)(k0 + row) * HD + half;
-    float* dvr = dv + base + (size_t)(k0 + row) * HD + half;
+  if (k0 + row < nk) {
+    float* dkr = dk + kbase + (size_t)(k0 + row) * HD + half;
+    float* dvr = dv + kbase + (size_t)(k0 + row) * HD + half;
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) {
-      dkr[2 * i] = dka[i];
-      dvr[2 * i] = dva[i];
+      dkr[2 * i] = key_ok ? dka[i] : 0.f;
+      dvr[2 * i] = key_ok ? dva[i] : 0.f;
     }
   }
 }
@@ -447,7 +472,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ dsum, float* __restrict__ dq,
-                 int n, float scale) {
+                 int nq, int nk, int valid, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* Gs = Qs + TILE_F32;
@@ -456,23 +481,23 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* Ss = Vs + TILE_F32;  // dS [query][key]
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const size_t base = (size_t)bh * n * HD;
+  const size_t qbase = (size_t)bh * nq * HD, kbase = (size_t)bh * nk * HD;
   const int row = threadIdx.x / 2, half = threadIdx.x % 2;
-  const bool row_ok = q0 + row < n;
-  const float lse_r = row_ok ? lse[(size_t)bh * n + q0 + row] : 0.f;
-  const float d_r = row_ok ? dsum[(size_t)bh * n + q0 + row] : 0.f;
+  const bool row_ok = q0 + row < nq;
+  const float lse_r = row_ok ? lse[(size_t)bh * nq + q0 + row] : 0.f;
+  const float d_r = row_ok ? dsum[(size_t)bh * nq + q0 + row] : 0.f;
 
-  load_rows64_f32<BQ, NTHREADS>(Qs, KS, q + base, q0, n);
-  load_rows64_f32<BQ, NTHREADS>(Gs, KS, dout + base, q0, n);
+  load_rows64_f32<BQ, NTHREADS>(Qs, KS, q + qbase, q0, nq);
+  load_rows64_f32<BQ, NTHREADS>(Gs, KS, dout + qbase, q0, nq);
   float dqa[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
 
-  const int ntiles = (n + BK - 1) / BK;
+  const int ntiles = (valid + BK - 1) / BK;
   for (int tile = 0; tile < ntiles; ++tile) {
     const int k0 = tile * BK;
-    load_rows64_f32<BK, NTHREADS>(Ks, KS, k + base, k0, n);
-    load_rows64_f32<BK, NTHREADS>(Vs, KS, v + base, k0, n);
+    load_rows64_f32<BK, NTHREADS>(Ks, KS, k + kbase, k0, valid);
+    load_rows64_f32<BK, NTHREADS>(Vs, KS, v + kbase, k0, valid);
     __syncthreads();
 
     float s[BK / 2], dp[BK / 2];
@@ -492,7 +517,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < BK / 2; ++c) {
       const int kc = 2 * c + half;
       float p = prob(s[c], scale, lse_r);
-      if (!row_ok || k0 + kc >= n) p = 0.f;
+      if (!row_ok || k0 + kc >= valid) p = 0.f;
       Ss[row * KS + kc] = dscore(p, dp[c], d_r, scale);
     }
     __syncthreads();
@@ -507,24 +532,21 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // K, V, dS are refilled next tile
   }
   if (row_ok) {
-    float* dqr = dq + base + (size_t)(q0 + row) * HD + half;
+    float* dqr = dq + qbase + (size_t)(q0 + row) * HD + half;
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) dqr[2 * i] = dqa[i];
   }
 }
 
-}  // namespace
-
-// Launches (a) and (b) on one stream.  dq, dk, dv are f32 (B*nh, N, 64).
-extern "C" int dtt_flash_attn_bwd(const void* q, const void* k, const void* v,
-                                  const void* dout, const void* lse,
-                                  const void* dsum, void* dq, void* dk,
-                                  void* dv, int bh, int n, int hd,
-                                  int is_bf16, float scale, void* stream) {
-  if (hd != HD || n <= 0 || bh <= 0 || bh > 65535)
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* dsum, void* dq, void* dk, void* dv,
+           int bh, int nq, int nk, int valid, int hd, int is_bf16,
+           float scale, void* stream) {
+  if (hd != HD || nq <= 0 || nk <= 0 || valid < 0 || valid > nk || bh <= 0 ||
+      bh > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid_k((n + BK - 1) / BK, bh), grid_q((n + BQ - 1) / BQ, bh);
+  const dim3 grid_k((nk + BK - 1) / BK, bh), grid_q((nq + BQ - 1) / BQ, bh);
   const float* L = static_cast<const float*>(lse);
   const float* D = static_cast<const float*>(dsum);
   float *dQ = static_cast<float*>(dq), *dK = static_cast<float*>(dk),
@@ -543,10 +565,10 @@ extern "C" int dtt_flash_attn_bwd(const void* q, const void* k, const void* v,
                *V = static_cast<const bf16*>(v),
                *G = static_cast<const bf16*>(dout);
     flash_bwd_dkdv_bf16<<<grid_k, NTHREADS, SMEM_DKDV_BF16, s>>>(
-        Q, K, V, G, L, D, dK, dV, n, scale);
+        Q, K, V, G, L, D, dK, dV, nq, nk, valid, scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    flash_bwd_dq_bf16<<<grid_q, NTHREADS, SMEM_DQ_BF16, s>>>(Q, K, V, G, L, D,
-                                                             dQ, n, scale);
+    flash_bwd_dq_bf16<<<grid_q, NTHREADS, SMEM_DQ_BF16, s>>>(
+        Q, K, V, G, L, D, dQ, nq, nk, valid, scale);
   } else {
     if ((err = cudaFuncSetAttribute(flash_bwd_dkdv_f32,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -560,10 +582,35 @@ extern "C" int dtt_flash_attn_bwd(const void* q, const void* k, const void* v,
                 *V = static_cast<const float*>(v),
                 *G = static_cast<const float*>(dout);
     flash_bwd_dkdv_f32<<<grid_k, NTHREADS, SMEM_DKDV_F32, s>>>(
-        Q, K, V, G, L, D, dK, dV, n, scale);
+        Q, K, V, G, L, D, dK, dV, nq, nk, valid, scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    flash_bwd_dq_f32<<<grid_q, NTHREADS, SMEM_DQ_F32, s>>>(Q, K, V, G, L, D,
-                                                           dQ, n, scale);
+    flash_bwd_dq_f32<<<grid_q, NTHREADS, SMEM_DQ_F32, s>>>(
+        Q, K, V, G, L, D, dQ, nq, nk, valid, scale);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// _flash_bwd_kernel: every tensor of n rows, every key valid.  Launches (a)
+// and (b) on one stream; dq, dk, dv are f32 (B*nh, N, 64).
+extern "C" int dtt_flash_attn_bwd(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse,
+                                  const void* dsum, void* dq, void* dk,
+                                  void* dv, int bh, int n, int hd,
+                                  int is_bf16, float scale, void* stream) {
+  return launch(q, k, v, dout, lse, dsum, dq, dk, dv, bh, n, n, n, hd,
+                is_bf16, scale, stream);
+}
+
+// _flash_bwd_kernel_dyn: q, dout, lse, dsum, dq of nq rows; k, v, dk, dv of
+// nk rows; keys >= valid dead (their dk, dv rows exact zeros)
+extern "C" int dtt_flash_attn_bwd_dyn(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* dsum,
+                                      void* dq, void* dk, void* dv, int bh,
+                                      int nq, int nk, int valid, int hd,
+                                      int is_bf16, float scale, void* stream) {
+  return launch(q, k, v, dout, lse, dsum, dq, dk, dv, bh, nq, nk, valid, hd,
+                is_bf16, scale, stream);
 }

@@ -1,9 +1,21 @@
 // Flash-attention forward for NVIDIA Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel dino_tpu/ops/attention.py:_flash_kernel
-// (launched by _resident_call from flash_attention -> _flash_fwd_impl), and
-// the resident-split ladder around it: one K/V-streaming loop covers any
-// sequence length, so there is no per-slice rerun and no partial merge.
+// Replaces three Pallas TPU kernels of dino_tpu/ops/attention.py:
+//   _flash_kernel (launched by _resident_call from flash_attention ->
+//     _flash_fwd_impl) and the resident-split ladder around it: one
+//     K/V-streaming loop covers any sequence length, so there is no
+//     per-slice rerun and no partial merge;
+//   _flash_kernel_chunked (the same forward past 8 resident slices, with the
+//     running state carried across a K-chunk grid axis, no LSE): the same
+//     streaming loop, entry dtt_flash_attn_fwd at any n;
+//   _flash_kernel_dyn (launched by _dyn_fwd_call from
+//     flash_attention_with_lse_dyn, once per ring-attention hop): entry
+//     dtt_flash_attn_fwd_dyn, where q has nq rows, k/v have nk rows and a
+//     runtime bound `valid` masks every key >= valid.  The bound is a kernel
+//     argument, the counterpart of scalar prefetch; key tiles wholly past it
+//     are not visited (a masked tile adds exactly 0 to l and acc), and the
+//     LSE is always written.  At valid = 0 no tile is visited: O = 0 and
+//     lse = -1e30 + log(1e-30) = -1e30, which the ring's merge weighs 0.
 //
 // What bounds it: at the ViT-S/8 480px shapes (B*nh = 18, N = 3,601,
 // hd = 64) attention is 4*N^2*hd*B*nh = 6.0e10 FLOP against 33 MB of
@@ -18,15 +30,18 @@
 //
 // Contract (identical to the JAX kernel's numerics):
 //   S = (Q.K^T) in f32, then * scale      (scale after the product)
-//   keys >= n are masked to -1e30          (ragged last tile)
+//   keys >= valid are masked to -1e30      (ragged last tile; valid = n
+//                                           for the single-device forward)
 //   online softmax in f32; l sums the unrounded p
 //   P is rounded to the input dtype before P.V
 //   O = acc / max(l, 1e-30), stored in the input dtype
 //   lse = m + log(max(l, 1e-30)), f32, (B*nh, N), optional
 //
-// Layout: q, k, v, o are (B*nh, N, 64) contiguous; grid (ceil(N/64), B*nh);
-// one block of 128 threads per (bh, 64-query tile).  Warp w owns query rows
-// [16w, 16w+16) of the tile, so everything after the K/V load is warp-local.
+// Layout: q, o are (B*nh, nq, 64), k, v (B*nh, nk, 64), all contiguous;
+// lse (B*nh, nq); grid (ceil(nq/64), B*nh); one block of 128 threads per
+// (bh, 64-query tile).  Warp w owns query rows [16w, 16w+16) of the tile, so
+// everything after the K/V load is warp-local.  K/V rows >= valid are
+// zero-filled on load, never read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,20 +79,21 @@ constexpr int SMEM_BF16 = (BQ + 4 * BK) * LD * (int)sizeof(bf16);  // Q, 2x(K, V
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o,
-               float* __restrict__ lse, int n, float scale) {
+               float* __restrict__ lse, int nq, int nk, int valid,
+               float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // BQ x LD
   bf16* Ks = Qs + BQ * LD;                   // 2 buffers of BK x LD
   bf16* Vs = Ks + 2 * BK * LD;               // 2 buffers of BK x LD
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const size_t base = (size_t)bh * n * HD;
+  const size_t base = (size_t)bh * nq * HD, kbase = (size_t)bh * nk * HD;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;  // mma fragment row / column pair
 
-  load_tile_bf16(Qs, q + base, q0, n);
-  load_tile_bf16(Ks, k + base, 0, n);
-  load_tile_bf16(Vs, v + base, 0, n);
+  load_tile_bf16(Qs, q + base, q0, nq);
+  load_tile_bf16(Ks, k + kbase, 0, valid);
+  load_tile_bf16(Vs, v + kbase, 0, valid);
   cp_async_commit();
 
   unsigned qa[HD / 16][4];      // Q strip as A fragments, one per 16 of hd
@@ -85,12 +101,14 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float m[2] = {NEG_INF, NEG_INF};  // running max of rows g, g+8
   float l[2] = {0.f, 0.f};          // this lane's part of the running sum
 
-  const int ntiles = (n + BK - 1) / BK;
+  const int ntiles = (valid + BK - 1) / BK;
   for (int tile = 0; tile < ntiles; ++tile) {
     const int buf = tile & 1;
     if (tile + 1 < ntiles) {  // prefetch the next K/V tile
-      load_tile_bf16(Ks + (buf ^ 1) * BK * LD, k + base, (tile + 1) * BK, n);
-      load_tile_bf16(Vs + (buf ^ 1) * BK * LD, v + base, (tile + 1) * BK, n);
+      load_tile_bf16(Ks + (buf ^ 1) * BK * LD, k + kbase, (tile + 1) * BK,
+                     valid);
+      load_tile_bf16(Vs + (buf ^ 1) * BK * LD, v + kbase, (tile + 1) * BK,
+                     valid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and Q) have landed
@@ -128,7 +146,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[j][e] * scale;
-        if (k0 + j * 8 + 2 * t + (e & 1) >= n) x = NEG_INF;
+        if (k0 + j * 8 + 2 * t + (e & 1) >= valid) x = NEG_INF;
         s[j][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -179,6 +197,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();  // every warp is done with this buffer before refill
   }
+  cp_async_wait<0>();  // valid = 0 visits no tile: drain the first loads
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -186,13 +205,13 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(FULL, l[r], 2);
     const float lc = fmaxf(l[r], 1e-30f);
     const int qr = q0 + warp * 16 + g + 8 * r;
-    if (qr < n) {
+    if (qr < nq) {
       bf16* dst = o + base + (size_t)qr * HD + 2 * t;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
             oacc[j][2 * r] / lc, oacc[j][2 * r + 1] / lc);
-      if (lse != nullptr && t == 0) lse[(size_t)bh * n + qr] = m[r] + logf(lc);
+      if (lse != nullptr && t == 0) lse[(size_t)bh * nq + qr] = m[r] + logf(lc);
     }
   }
 }
@@ -206,30 +225,31 @@ constexpr int SMEM_F32 = 2 * BK * KS * (int)sizeof(float);
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
-              float* __restrict__ lse, int n, float scale) {
+              float* __restrict__ lse, int nq, int nk, int valid,
+              float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);  // BK x KS
   float* Vs = Ks + BK * KS;                    // BK x KS
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const size_t base = (size_t)bh * n * HD;
+  const size_t base = (size_t)bh * nq * HD, kbase = (size_t)bh * nk * HD;
   const int row = threadIdx.x / 2, half = threadIdx.x % 2;
   const int qr = q0 + row;
 
   float qv[HD];
 #pragma unroll
   for (int d = 0; d < HD; ++d)
-    qv[d] = qr < n ? q[base + (size_t)qr * HD + d] : 0.f;
+    qv[d] = qr < nq ? q[base + (size_t)qr * HD + d] : 0.f;
   float acc[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
 
   float m = NEG_INF, l = 0.f;
-  const int ntiles = (n + BK - 1) / BK;
+  const int ntiles = (valid + BK - 1) / BK;
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = t * BK;
-    load_tile_f32(Ks, k + base, k0, n);
-    load_tile_f32(Vs, v + base, k0, n);
+    load_tile_f32(Ks, k + kbase, k0, valid);
+    load_tile_f32(Vs, v + kbase, k0, valid);
     __syncthreads();
 
     float sv[BK / 2];
@@ -242,7 +262,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int d = 0; d < HD; ++d) s = fmaf(qv[d], kr[d], s);
       s *= scale;
-      if (k0 + key >= n) s = NEG_INF;
+      if (k0 + key >= valid) s = NEG_INF;
       sv[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -280,33 +300,54 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const float lc = fmaxf(l, 1e-30f);
-  if (qr < n) {
+  if (qr < nq) {
     float* dst = o + base + (size_t)qr * HD + half;
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) dst[2 * i] = acc[i] / lc;
-    if (lse != nullptr && half == 0) lse[(size_t)bh * n + qr] = m + logf(lc);
+    if (lse != nullptr && half == 0) lse[(size_t)bh * nq + qr] = m + logf(lc);
   }
 }
 
-}  // namespace
-
-extern "C" int dtt_flash_attn_fwd(const void* q, const void* k, const void* v,
-                                  void* o, void* lse, int bh, int n, int hd,
-                                  int is_bf16, float scale, void* stream) {
-  if (hd != HD || n <= 0 || bh <= 0 || bh > 65535)
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int bh, int nq, int nk, int valid, int hd, int is_bf16,
+           float scale, void* stream) {
+  if (hd != HD || nq <= 0 || nk <= 0 || valid < 0 || valid > nk || bh <= 0 ||
+      bh > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + BQ - 1) / BQ, bh);
+  const dim3 grid((nq + BQ - 1) / BQ, bh);
   if (is_bf16) {
     flash_fwd_bf16<<<grid, NTHREADS, SMEM_BF16, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(o),
-        static_cast<float*>(lse), n, scale);
+        static_cast<float*>(lse), nq, nk, valid, scale);
   } else {
     flash_fwd_f32<<<grid, NTHREADS, SMEM_F32, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o),
-        static_cast<float*>(lse), n, scale);
+        static_cast<float*>(lse), nq, nk, valid, scale);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// _flash_kernel / _flash_kernel_chunked: q, k, v of n rows, every key valid;
+// lse may be NULL
+extern "C" int dtt_flash_attn_fwd(const void* q, const void* k, const void* v,
+                                  void* o, void* lse, int bh, int n, int hd,
+                                  int is_bf16, float scale, void* stream) {
+  return launch(q, k, v, o, lse, bh, n, n, n, hd, is_bf16, scale, stream);
+}
+
+// _flash_kernel_dyn: q of nq rows, k/v of nk rows, keys >= valid masked,
+// lse always written
+extern "C" int dtt_flash_attn_fwd_dyn(const void* q, const void* k,
+                                      const void* v, void* o, void* lse,
+                                      int bh, int nq, int nk, int valid,
+                                      int hd, int is_bf16, float scale,
+                                      void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(q, k, v, o, lse, bh, nq, nk, valid, hd, is_bf16, scale,
+                stream);
 }

@@ -30,9 +30,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, out, lse (or NULL), bh, n, hd, is_bf16, scale, stream
     "dtt_flash_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # q, k, v, out, lse, bh, nq, nk, valid, hd, is_bf16, scale, stream
+    "dtt_flash_attn_fwd_dyn": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                               _P),
     # q, k, v, dout, lse, dsum, dq, dk, dv, bh, n, hd, is_bf16, scale, stream
     "dtt_flash_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _F, _P),
+    # q, k, v, dout, lse, dsum, dq, dk, dv, bh, nq, nk, valid, hd, is_bf16,
+    # scale, stream
+    "dtt_flash_attn_bwd_dyn": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _F, _P),
     # x, w1 (H, D), b1, w2 (D, H), b2, ln weight, ln bias, out, m, d, h, eps,
     # stream
     "dtt_fused_ln_mlp": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),

@@ -1,0 +1,145 @@
+"""Multi-process runtime over ``torch.distributed`` and the collectives that
+sequence parallelism needs.
+
+The counterpart of ``dino_tpu/parallel/dist.py`` (which feeds
+``jax.distributed``): rank discovery from RANK / WORLD_SIZE / MASTER_ADDR,
+NCCL for a CUDA device and gloo for the CPU.  Where the JAX package writes
+``ppermute`` / ``psum`` / ``all_gather`` inside ``shard_map``, the port calls
+:func:`ring_shift`, :func:`all_reduce_sum_` and :func:`all_gather_seq` on a
+process group.
+
+Under a gloo group the collectives stage CUDA tensors through host copies:
+gloo's send/recv and all_gather take CPU tensors only, and NCCL refuses two
+ranks on one device, so this is how several ranks share one card (the
+kernels still run on the card).  ``agree_across_hosts``, ``any_across_hosts``
+and ``reduce_dict`` serve ``fit`` and come with it (ROADMAP 'Modules to
+port' item 5).
+"""
+from __future__ import annotations
+
+import os
+from typing import List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+
+def init_distributed_mode(backend: Optional[str] = None,
+                          init_method: Optional[str] = None,
+                          world_size: Optional[int] = None,
+                          rank: Optional[int] = None) -> None:
+    """Initialize the default process group.
+
+    Rank discovery mirrors the JAX package: explicit arguments, else env
+    RANK / WORLD_SIZE (then SLURM_PROCID), and the rendezvous at
+    MASTER_ADDR:MASTER_PORT (port 12355 by default) unless ``init_method``
+    (``tcp://host:port`` or ``file:///path``) is given.  ``backend=None``
+    picks NCCL when there is a CUDA device and gloo otherwise; with NCCL the
+    process takes card ``rank % device_count``.
+    """
+    if world_size is None:
+        world_size = int(os.environ.get("WORLD_SIZE", "1"))
+    if rank is None:
+        rank = int(os.environ.get("RANK", os.environ.get("SLURM_PROCID", "0")))
+    if init_method is None:
+        addr = os.environ.get("MASTER_ADDR", "127.0.0.1")
+        init_method = f"tcp://{addr}:{os.environ.get('MASTER_PORT', '12355')}"
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world_size, rank=rank)
+
+
+def is_dist_avail_and_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def get_world_size(group=None) -> int:
+    return dist.get_world_size(group) if is_dist_avail_and_initialized() else 1
+
+
+def get_rank(group=None) -> int:
+    return dist.get_rank(group) if is_dist_avail_and_initialized() else 0
+
+
+def is_main_process() -> bool:
+    return get_rank() == 0
+
+
+def _staged(group) -> bool:
+    """Whether this group's collectives need CPU tensors (gloo)."""
+    return dist.get_backend(group) == "gloo"
+
+
+def _peer(group, group_rank: int) -> int:
+    """The global rank of ``group_rank`` in ``group``."""
+    if group is None or group is dist.group.WORLD:
+        return group_rank
+    return dist.get_global_rank(group, group_rank)
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], group=None
+               ) -> List[torch.Tensor]:
+    """Send ``tensors`` to rank+1 and receive rank-1's, around the ring.
+
+    The tensors travel as one byte buffer, with one send and one receive
+    posted together in ``batch_isend_irecv`` (a ring of blocking sends
+    would deadlock).  Returns new contiguous tensors of the same shapes,
+    dtypes and device; a world of one returns the inputs.
+    """
+    d = get_world_size(group)
+    if d == 1:
+        return list(tensors)
+    me = dist.get_rank(group)
+    device = tensors[0].device
+    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in tensors])
+    if _staged(group):
+        flat = flat.cpu()
+    recv = torch.empty_like(flat)
+    ops = [dist.P2POp(dist.isend, flat, _peer(group, (me + 1) % d), group),
+           dist.P2POp(dist.irecv, recv, _peer(group, (me - 1) % d), group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    recv = recv.to(device)
+    out, offset = [], 0
+    for t in tensors:
+        nbytes = t.numel() * t.element_size()
+        out.append(recv[offset:offset + nbytes].view(t.dtype).reshape(t.shape))
+        offset += nbytes
+    return out
+
+
+def all_reduce_sum_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Sum each tensor over the group, in place; one all-reduce per dtype."""
+    if get_world_size(group) == 1:
+        return
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        if _staged(group):
+            flat = flat.cpu()
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        flat = flat.to(ts[0].device)
+        offset = 0
+        for t in ts:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+
+
+def all_gather_seq(t: torch.Tensor, group=None, dim: int = 1) -> torch.Tensor:
+    """Concatenate every rank's ``t`` along ``dim`` in rank order (the
+    gather of a token-sharded sequence)."""
+    d = get_world_size(group)
+    if d == 1:
+        return t
+    src = t.contiguous()
+    if _staged(group):
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(d)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim).to(t.device)

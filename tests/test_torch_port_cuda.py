@@ -151,3 +151,47 @@ def test_card_backbone_gradients_equal_the_cpu_step(cuda):
         diff = (g.cpu() - p.grad).abs().max().item()
         assert diff <= chip_smoke.STEP_GRAD_REL * p.grad.abs().max().item(), \
             name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n, valid", [(901, 901), (901, 900), (901, 1),
+                                      (901, 0), (37, 36)])
+def test_dyn_kernels_match_plain(cuda, dtype, n, valid):
+    """Kernels 5 and 6 (one ring hop) vs their plain versions; dead keys'
+    dk/dv rows are exact zeros, and with no valid key the lse is ~ -1e30."""
+    g = torch.Generator(device=cuda).manual_seed(n + valid)
+    q, k, v, do = (torch.randn(2, 3, n, 64, generator=g, device=cuda).to(dtype)
+                   for _ in range(4))
+    before = (tatt.flash_attention_with_lse_dyn.launches,
+              tatt.flash_attention_bwd_dyn.launches)
+    out, lse = tatt.flash_attention_with_lse_dyn(q, k, v, 0.125, valid)
+    ref, ref_lse = tatt.attention_dyn_plain(q, k, v, 0.125, valid)
+    atol, rtol = chip_smoke.FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=chip_smoke.LSE_ATOL, rtol=0)
+    if valid == 0:
+        assert float(lse.max()) <= -1e29
+    if valid:  # the backward's global lse and D: this bound's forward
+        glse, gout = ref_lse, ref
+    else:  # no valid key: any finite lse, the full bound's
+        gout, glse = tatt.attention_plain(q, k, v, 0.125)
+    dsum = (do.float() * gout.float()).sum(-1).reshape(6, n)
+    got = tatt.flash_attention_bwd_dyn(q, do, glse, dsum, k, v, 0.125, valid)
+    want = tatt.attention_bwd_dyn_plain(q, do, glse, dsum, k, v, 0.125, valid)
+    assert (tatt.flash_attention_with_lse_dyn.launches,
+            tatt.flash_attention_bwd_dyn.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert all(t.dtype == torch.float32 for t in got)
+    assert chip_smoke.bwd_dyn_err(got, want, dtype)[1]
+    for t in got[1:]:
+        assert torch.count_nonzero(t[:, :, valid:]) == 0
+
+
+def test_dyn_forward_at_full_bound_is_the_static_kernel(cuda):
+    """At valid = N kernel 5 runs kernel 1's loop: the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(2, 3, 901, 64, generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(3))
+    out, lse = tatt.flash_attention_with_lse_dyn(q, k, v, 0.125, 901)
+    out1, lse1 = tatt.flash_attention(q, k, v, 0.125, return_lse=True)
+    assert torch.equal(out, out1) and torch.equal(lse, lse1)
