@@ -10,7 +10,8 @@ each printing JSON lines:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds the kernels of dino_tpu_torch/csrc at first use;
   3. kernels vs their plain PyTorch versions on the card, at the main
-     path's shapes, each against its stated tolerance;
+     path's shapes, each against its stated tolerance; every backward run
+     twice and held to the same bits;
   4. main path: DINOSeg.predict / predict_batch on random ViT-S/8 weights
      (3 blocks, MLP head, 7 classes) at 240/480/960px in bf16 and fp32,
      with every kernel's launch count read before and after;
@@ -32,9 +33,12 @@ each printing JSON lines:
   8. timing (CUDA events around bursts of back-to-back calls, median of
      the bursts) at the 480px predict shapes (batch 3), the train bench's
      microbatch shapes for the backward, the 2-rank 960px per-hop shape for
-     the dynamic-bound kernels and the 1624px shape for the streaming
-     forward: kernel, plain version, one PyTorch library call, and the
-     card's bound; then the cli/bench line (predict and train);
+     the dynamic-bound kernels and the 1624px shape (and the 960px fp32
+     predict's N) for the f32 forward: kernel, plain version, one PyTorch
+     library call (for the f32 forward also the device kernels it runs),
+     and the card's bound (the f32 forward's on its route: three TF32
+     passes); the fp32 predict latency at 480 and 960px; then the
+     cli/bench line (predict and train);
   9. the per-kernel summary line, the card line, and the final status line.
 
 ``python3 chip_smoke.py --sp-world W`` (W cards) runs only phase 6's rank
@@ -43,6 +47,7 @@ checks with one rank per card over NCCL.  ``--sp-rank R --sp-world W
 itself).
 """
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -73,8 +78,11 @@ from dino_tpu_torch.parallel.ring_attention import make_sp_train_step
 from dino_tpu_torch.train.loop import (init_opt_state, make_optimizer,
                                        make_train_step)
 
-# H100 SXM published peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM published peaks (dense): bf16 tensor cores, f32 CUDA cores, TF32
+# tensor cores (the f32 forward's route: three TF32 products per product),
+# HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
+TF32_PASSES = 3
 HBM_BYTES_PER_S = 3.35e12
 
 SCALE = 64 ** -0.5
@@ -109,17 +117,15 @@ BWD_DYN_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # SP bf16 train step vs the single-device bf16 step: the SP block rounds
 # at the JAX package's SP points (dense qkv, GELU of the rounded fc1)
 SP_BF16_LOSS_RTOL = 1e-2
-# SP fp32 gradients over several ranks at 960px.  Not STEP_GRAD_REL alone:
-# at 960px batch 2 the float32 gradient is not determined to 1e-4 of a
-# leaf's max.  The same single-device step with the batch regrouped in two
-# microbatches (accum_steps=2) moves pos_embed, whose entries sum
-# bicubic-weighted token gradients that cancel, by about 2e-2 of its max,
-# and where the SP forward rounds differently a few of the head's ReLUs flip,
-# which regrouping does not do.  So over several ranks the worst leaf may
-# differ by SP_GRAD_SPREAD times the regrouped step's worst leaf on the same
-# batch.  The 1e-4 rule holds over several ranks at 240px, and at 960px in
-# a world of one (the ring of one hop is the single-device arithmetic).
-SP_GRAD_SPREAD = 8
+# SP fp32 gradients: STEP_GRAD_REL per leaf, with the head's ReLU choices
+# held equal.  A head unit whose pre-activation sits at 0 within float32
+# rounding takes either side depending on the order of sums, and at 960px
+# batch 2 one such choice moves pos_embed (whose entries sum
+# bicubic-weighted token gradients that cancel) by about 2e-2 of its max.
+# Any other valid rounding may flip it (regrouping the batch in two
+# microbatches did, with another f32 forward), so no other step is a
+# yardstick for it: the SP step replays the single-device step's ReLU
+# masks (head_relu) and reports how many units it would have flipped.
 SP_RES = 960
 SP_N_REAL = (SP_RES // 8) ** 2 + 1  # 14,401 tokens
 SP_WORLD = 2          # rank processes sharing the card in phase 6
@@ -167,8 +173,10 @@ def median_ms(fn, rounds=5, burst=10, warmup=3):
 
 def bound_ms(flops, nbytes, dtype):
     """Least time the card could take: max(operations / peak rate, bytes /
-    memory rate), in ms, and which of the two bounds it."""
-    t_ops = flops / PEAK_FLOPS[dtype]
+    memory rate), in ms, and which of the two bounds it.  ``dtype`` "tf32"
+    counts the f32 forward's route: TF32_PASSES TF32 products each."""
+    t_ops = flops / PEAK_FLOPS[dtype] * (TF32_PASSES if dtype == "tf32"
+                                         else 1)
     t_mem = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
                                      else "bytes")
@@ -286,7 +294,9 @@ def phase_bwd_kernel():
             for bh in (6, 12, 18):
                 q, k, v, do, out, lse = bwd_inputs(bh, n, dtype, seed=n + bh)
                 got = flash_attention_bwd(q, k, v, out, lse, do, SCALE)
+                again = flash_attention_bwd(q, k, v, out, lse, do, SCALE)
                 torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
                 ref = attention_bwd_plain(q, k, v, out, lse, do, SCALE)
                 errs, ok = bwd_err(got, ref, dtype)
                 rec = {"phase": "kernel_check", "kernel": "flash_attn_bwd",
@@ -294,13 +304,15 @@ def phase_bwd_kernel():
                        "max_abs_err": max(errs), "dq_err": errs[0],
                        "dk_err": errs[1], "dv_err": errs[2],
                        "max_abs_ref": max(r.abs().max().item() for r in ref),
+                       "same_bits_twice": same,
                        "tol": (list(BWD_F32_TOL) if dtype == torch.float32
                                else f"{BWD_BF16_REL} x max|ref| per tensor")}
                 emit(rec)
                 check(ok, f"flash backward {rec}")
+                check(same, f"flash backward bits differ between runs {rec}")
                 if dtype == torch.bfloat16 and n == 3601 and bh == 12:
                     worst = rec["max_abs_err"]
-                del q, k, v, do, out, lse, got, ref
+                del q, k, v, do, out, lse, got, again, ref
     return worst
 
 
@@ -636,7 +648,10 @@ def phase_sp_kernels():
                         bh, n)
                     got = flash_attention_bwd_dyn(q, do, lse_g, dsum, k, v,
                                                   SCALE, valid)
+                    again = flash_attention_bwd_dyn(q, do, lse_g, dsum, k, v,
+                                                    SCALE, valid)
                     torch.cuda.synchronize()
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
                     want = attention_bwd_dyn_plain(q, do, lse_g, dsum, k, v,
                                                    SCALE, valid)
                     b_errs, ok = bwd_dyn_err(got, want, dtype)
@@ -651,10 +666,12 @@ def phase_sp_kernels():
                            "max_abs_ref": max(r.abs().max().item()
                                               for r in want),
                            "dead_key_grad_max": tail,
+                           "same_bits_twice": same,
                            "tol": f"{BWD_DYN_REL[dtype]} x max|ref| of the "
                                   f"hop"}
                     emit(rec)
                     check(ok, f"dyn backward {rec}")
+                    check(same, f"dyn backward bits differ between runs {rec}")
                     check(tail == 0.0, f"dead keys' dk/dv not zero {rec}")
                     check(all(bool(torch.isfinite(t).all()) for t in got),
                           f"non-finite dyn backward {rec}")
@@ -662,7 +679,7 @@ def phase_sp_kernels():
                             and valid == n - 1):
                         errs["flash_attn_fwd_dyn"] = err.max().item()
                         errs["flash_attn_bwd_dyn"] = max(b_errs)
-                    del out, lse, ref, ref_lse, err, got, want
+                    del out, lse, ref, ref_lse, err, got, again, want
                 del q, k, v, do, full
     return errs
 
@@ -820,13 +837,46 @@ def one_step(prec, imgs, labels, make_step):
     return m, loss, cm
 
 
+@contextlib.contextmanager
+def head_relu(record=None, replay=None, rows=None):
+    """torch.relu as the MLP head calls it (the backbone calls none).
+    ``record``, a list, gets each call's mask (x > 0) over the single-device
+    step's patch rows.  ``replay``, such a list, sets each call's mask on an
+    SP step's local token rows, ``rows`` = (batch, patches per image, world
+    size, rank): a patch row takes the recorded choice, the CLS and padding
+    rows (loss weight 0) their own.  Yields the list of units per call whose
+    own choice differed."""
+    real, calls, flips = torch.relu, iter(replay or ()), []
+
+    def relu(x):
+        own = x > 0
+        if record is not None:
+            record.append(own)
+            return real(x)
+        b, n_patches, d, me = rows
+        n_local = x.shape[0] // b
+        pos = me * n_local + torch.arange(n_local, device=x.device)
+        live = ((pos >= 1) & (pos <= n_patches)).repeat(b)
+        src = (torch.arange(b, device=x.device)[:, None] * n_patches
+               + pos[None, :] - 1).reshape(-1)
+        mask = own.clone()
+        mask[live] = next(calls)[src[live]]
+        flips.append(int((mask != own).sum()))
+        return x * mask.to(x.dtype)
+
+    torch.relu = relu
+    try:
+        yield flips
+    finally:
+        torch.relu = real
+
+
 def check_sp_step(res, prec, rs, total, world, backend):
     """One SP finetune step (batch 2 from ``rs``) against make_train_step
     from the same weights and batch; adds its launch counts to ``total``.
     fp32: loss rtol STEP_LOSS_RTOL, cm equal except near-tie patches, and
-    each gradient leaf within STEP_GRAD_REL of its max, or, over several
-    ranks at 960px, within SP_GRAD_SPREAD times the worst leaf of the same
-    single-device step with the batch regrouped in two microbatches.  bf16:
+    each gradient leaf within STEP_GRAD_REL of its max, with the head's
+    ReLU choices replayed from the single-device step (head_relu).  bf16:
     finite loss within SP_BF16_LOSS_RTOL."""
     d, out = world, res // 8
     imgs = torch.from_numpy(rs.randint(0, 255, (2, res, res, 3)).astype(
@@ -838,13 +888,18 @@ def check_sp_step(res, prec, rs, total, world, backend):
         return lambda cfg, opt, cdt: make_train_step(
             cfg, "mlp", 7, opt, False, compute_dtype=cdt, accum_steps=accum)
 
-    ref_m, ref_loss, ref_cm = one_step(prec, imgs, labels, single(1))
+    masks = [] if prec == "fp32" else None
+    with (head_relu(record=masks) if masks is not None
+          else contextlib.nullcontext()):
+        ref_m, ref_loss, ref_cm = one_step(prec, imgs, labels, single(1))
     with torch.no_grad():
         near = near_ties(ref_m.forward(imgs.cpu().numpy()))
     t0 = time.perf_counter()
-    (sp_m, loss, cm), got = counted(lambda: one_step(
-        prec, imgs, labels, lambda cfg, opt, cdt: make_sp_train_step(
-            cfg, "mlp", 7, opt, compute_dtype=cdt)))
+    with (head_relu(replay=masks, rows=(2, out * out, d, dist.get_rank()))
+          if masks is not None else contextlib.nullcontext()) as flips:
+        (sp_m, loss, cm), got = counted(lambda: one_step(
+            prec, imgs, labels, lambda cfg, opt, cdt: make_sp_train_step(
+                cfg, "mlp", 7, opt, compute_dtype=cdt)))
     dt = time.perf_counter() - t0
     add_counts(total, got)
     rec = {"phase": "sp_path", "world": d, "backend": backend,
@@ -856,13 +911,12 @@ def check_sp_step(res, prec, rs, total, world, backend):
     tol = None
     if prec == "fp32":
         tol = STEP_GRAD_REL
+        rec["head_relu_units_replayed"] = flips
         if d > 1:  # the float32 gradient's own spread on this batch
             acc_m = one_step(prec, imgs, labels, single(2))[0]
-            spread = _grad_report(acc_m.model.named_parameters(),
-                                  ref_m.model.named_parameters(), 1.0)[:2]
-            rec["grad_worst_rel_diff_regrouped_single_device"] = spread
-            if res == SP_RES:
-                tol = max(STEP_GRAD_REL, SP_GRAD_SPREAD * spread[0])
+            rec["grad_worst_rel_diff_regrouped_single_device"] = _grad_report(
+                acc_m.model.named_parameters(),
+                ref_m.model.named_parameters(), 1.0)[:2]
     worst, leaf, grads_ok = _grad_report(sp_m.model.named_parameters(),
                                          ref_m.model.named_parameters(),
                                          tol or 1.0)
@@ -978,28 +1032,44 @@ def phase_chunked(model, frame):
     return got["flash_attn_fwd"], rec["max_abs_err"]
 
 
-def phase_timing_sp(launches):
-    """Rows 4-6: the streaming forward at the 1624px shape (f32, B*nh = 6,
-    N = 41,210, short bursts), the dynamic-bound kernels at the 2-rank
-    960px per-hop shape (bf16, B*nh = 12, N = 7,201, valid 7,200)."""
-    rows = {}
-    n = (CHUNKED_RES // 8) ** 2 + 1
+def f32_forward_row(res, burst):
+    """The f32 forward at an fp32 predict's shape (1 x 6 heads, N tokens of
+    ``res``): kernel, plain version, SDPA and the device kernels SDPA
+    launches; bound by three TF32 passes, and on the f32 CUDA cores beside
+    it."""
+    n = (res // 8) ** 2 + 1
     q, k, v = flash_inputs(6, n, torch.float32, seed=10)
     b, nh, _, hd = q.shape
-    bnd, by = bound_ms(4 * n * n * hd * b * nh, 4 * b * nh * n * hd * 4,
-                       torch.float32)
-    burst = dict(rounds=3, burst=2, warmup=1)
-    rows["flash_attn_fwd_chunked"] = {
-        "ms": median_ms(lambda: flash_attention(q, k, v, SCALE), **burst),
-        "plain_ms": median_ms(lambda: attention_plain(q, k, v, SCALE),
-                              **burst),
-        "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=SCALE), **burst),
-        "bound_ms": bnd, "bound_by": by,
-        "flops": 4 * n * n * hd * b * nh, "bytes": 4 * b * nh * n * hd * 4,
-        "shape": f"{CHUNKED_RES}px fp32 predict (1 x 6 heads, N = {n})",
-        "launches_per_predict": launches["flash_attn_fwd_chunked"]}
-    del q, k, v
+    flops, nbytes = 4 * n * n * hd * b * nh, 4 * b * nh * n * hd * 4
+    bnd, by = bound_ms(flops, nbytes, "tf32")
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, scale=SCALE)
+
+    row = {"ms": median_ms(lambda: flash_attention(q, k, v, SCALE), **burst),
+           "plain_ms": median_ms(lambda: attention_plain(q, k, v, SCALE),
+                                 **burst),
+           "library_ms": median_ms(sdpa, **burst),
+           "bound_ms": bnd, "bound_by": by,
+           "bound_f32_cores_ms": bound_ms(flops, nbytes, torch.float32)[0],
+           "flops": flops, "bytes": nbytes,
+           "shape": f"{res}px fp32 predict (1 x 6 heads, N = {n})"}
+    row["library_kernels"] = bench.device_breakdown(
+        sdpa, 1, row["library_ms"])["kernels"]
+    return row
+
+
+def phase_timing_sp(launches):
+    """Rows 4-6: the streaming forward at the 1624px shape (f32, B*nh = 6,
+    N = 41,210, short bursts; and at the 960px fp32 predict's N = 14,401),
+    the dynamic-bound kernels at the 2-rank 960px per-hop shape (bf16,
+    B*nh = 12, N = 7,201, valid 7,200)."""
+    rows = {}
+    rows["flash_attn_fwd_chunked"] = dict(
+        f32_forward_row(CHUNKED_RES, dict(rounds=3, burst=2, warmup=1)),
+        launches_per_predict=launches["flash_attn_fwd_chunked"])
+    emit(dict({"phase": "timing", "kernel": "flash_attn_fwd (f32)"},
+              **f32_forward_row(SP_RES, dict(rounds=5, burst=3, warmup=1))))
     n_local, bounds = sp_shapes(SP_N_REAL, SP_WORLD)
     valid = bounds[1]
     q, k, v = flash_inputs(12, n_local, torch.bfloat16, seed=11)
@@ -1045,6 +1115,22 @@ def phase_timing_sp(launches):
     return rows
 
 
+def phase_fp32_latency(model, frame):
+    """Host wall time of one fp32 predict (frame in, labels out) at 480 and
+    960px: the median of 5 calls after a warm-up call."""
+    for res in (480, SP_RES):
+        model.set_resolution(res)
+        model.predict(frame, precision="fp32")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            model.predict(frame, precision="fp32")
+            times.append((time.perf_counter() - t0) * 1e3)
+        emit({"phase": "timing", "call": "predict", "precision": "fp32",
+              "res": res, "p50_ms": float(np.median(times)), "ms": times})
+    model.set_resolution(480)
+
+
 KERNELS = {
     "flash_attn_fwd": dict(
         source="dino_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -1056,7 +1142,7 @@ KERNELS = {
         source="dino_tpu_torch/csrc/flash_attn_bwd.cu",
         replaces="dino_tpu/ops/attention.py:580",
         tpu_kernel="_flash_bwd_kernel"),
-    # kernel 4 has no kernel of its own: the streaming forward covers it
+    # kernel 4: the f32 K/V stream of entry dtt_flash_attn_fwd
     "flash_attn_fwd_chunked": dict(
         source="dino_tpu_torch/csrc/flash_attn_fwd.cu",
         replaces="dino_tpu/ops/attention.py:370",
@@ -1126,6 +1212,7 @@ def main():
           "rank_launches_summed": sp_ranks})
     rows = phase_timing(block, per_call, bwd_per_step)
     rows.update(phase_timing_sp(launches))
+    phase_fp32_latency(model, frame)
     emit(dict({"phase": "bench"}, **bench.run()))
 
     emit({"kernels": [

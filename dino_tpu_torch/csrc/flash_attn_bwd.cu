@@ -25,37 +25,51 @@
 // Design.  The TPU kernel walks the q-blocks of one bh in order and keeps
 // dK/dV in an output block that stays resident across that walk; CUDA
 // blocks run concurrently, so that carry would race.  Here the work is split
-// FlashAttention-2 style into two kernels that need no atomics and give the
-// same bits on every run:
-//   (a) dkdv: one block per (bh, 64-key tile).  K_j and V_j stay in shared
-//       memory (and as mma A fragments in registers); the block loops over
-//       the q-tiles, recomputes S^T and P^T from the saved lse, and
-//       accumulates dK_j and dV_j in registers.
-//   (b) dq:   one block per (bh, 64-query tile), the forward's layout.  It
-//       loops over the key tiles, recomputes S, P and dP, and accumulates
-//       dQ_i in registers.
-// (b) recomputes S and dP, so the pair does 7 N^2 hd-sized products where
-// one kernel with atomic dQ would do 5.
+// FlashAttention-2 style into two kinds of blocks that need no atomics and
+// give the same bits on every run (the remat contract and repeated SP steps
+// rely on it):
+//   (a) dkdv: one block per (bh, 128 keys; 64 in f32).  K and V stay in
+//       shared memory (in bf16 also as wgmma A fragments in registers); the
+//       block loops over the 64-query tiles, recomputes S^T and P^T from the
+//       saved lse, and accumulates dK and dV in registers.
+//   (b) dq:   one block per (bh, 128 queries; 64 in f32).  It loops over the
+//       64-key tiles below `valid`, recomputes S, P and dP, and accumulates
+//       dQ.
+// (b) recomputes S and dP, so the pair executes 7 N^2 hd-sized products
+// where one kernel with atomic dQ would do 5.  The bf16 blocks of (a) and
+// (b) go out as one grid, (a)'s first: the shorter (b) blocks fill the last
+// wave of (a)'s.
 //
 // What bounds it: at the bench's microbatch shapes (B*nh = 12, N = 3,601,
 // hd = 64) the function is 10*N^2*hd*B*nh = 1.0e11 FLOP against ~18 MB of
-// inputs and outputs: bound by operations.  The bf16 path runs every product
-// on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate) with each
-// warp's 16-row strips of S, P, dP and dS in registers; the next q (or K/V)
-// tile streams in with cp.async, double buffered, while the current one is
-// used.  The f32 path (the parity mode) runs on the CUDA cores in full
-// float32, with P and dS staged through shared memory.  wgmma/TMA are later
-// work.
+// inputs and outputs: bound by operations, on the tensor cores for the
+// products and on the f32 pipe for the exp and dS arithmetic between them
+// (about 15 instructions per score element, twice: once in each kernel).
+// The bf16 kernels therefore keep the tensor cores fed by Hopper's own
+// means: every product is wgmma (m64n64k16, bf16 in, f32 accumulate) over
+// 128-byte-swizzled tiles that a producer warp keeps in flight by TMA
+// (a 3-stage ring, mbarriers); two consumer warpgroups of 64 rows each take
+// 240 registers (setmaxnreg) so P, dP, dS and both accumulators stay in
+// registers; and each warpgroup issues tile j's gradient products and tile
+// j+1's score products back to back, so one wgmma wait per tile overlaps
+// the next tile's products.  The tensor maps are encoded on the host
+// (hopper.cuh make_rows_map) with K/V extents of `valid` rows and Q/dO
+// extents of nq rows: TMA's out-of-bounds fill supplies the zero rows.  The
+// f32 path (the parity mode) runs on the CUDA cores in full float32, with P
+// and dS staged through shared memory.
 //
-// Layout: all tensors contiguous, (B*nh, nq|nk, 64) and (B*nh, nq); grids
-// (ceil(nk/64), B*nh) for dK/dV and (ceil(nq/64), B*nh) for dQ; 128 threads.
-// Query rows past nq and key rows past valid are zero-filled on load; query
-// rows past nq also get P = 0 and are never stored.
+// Layout: all tensors contiguous, (B*nh, nq|nk, 64) and (B*nh, nq).  bf16:
+// grid (ceil(nk/128) + ceil(nq/128), B*nh), 384 threads.  f32:
+// grids (ceil(nk/64), B*nh) and (ceil(nq/64), B*nh), 128 threads, rows
+// zero-filled on load.  Query rows past nq get P = 0 (a zero Q row gives
+// S = 0, which the padded lse of 0 would turn into P = 1) and are never
+// stored; key rows past valid get P = 0 and are stored as exact zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -66,8 +80,6 @@ constexpr int HD = 64;          // head dim
 constexpr int BQ = 64;          // query rows per tile
 constexpr int BK = 64;          // keys per tile
 constexpr int NTHREADS = 128;   // 4 warps
-constexpr int LD = HD + 8;      // bf16 smem row stride (ldmatrix rows hit
-                                // distinct banks)
 constexpr int KS = HD + 1;      // f32 smem row stride
 
 // lse and D of query rows [q0, q0+64) -> smem; 0 past n (those rows get
@@ -93,21 +105,100 @@ __device__ __forceinline__ float dscore(float p, float dp, float d,
   return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, d)), scale);
 }
 
-// the A fragment of columns [16c, 16c+16) of a 16-row strip held as mma
-// accumulators (x[j] = columns 8j..8j+7), rounded to bf16
-__device__ __forceinline__ void acc_to_a(unsigned (&a)[4],
-                                         const float (&x)[8][4], int c) {
-  a[0] = pack_bf16(x[2 * c][0], x[2 * c][1]);
-  a[1] = pack_bf16(x[2 * c][2], x[2 * c][3]);
-  a[2] = pack_bf16(x[2 * c + 1][0], x[2 * c + 1][1]);
-  a[3] = pack_bf16(x[2 * c + 1][2], x[2 * c + 1][3]);
+// ---------------------------------------------------------------- bf16 ---
+// Every product takes its A operand from registers: the score-like products
+// S^T = K.Q^T, dP^T = V.dO^T (dkdv) or S = Q.K^T, dP = dO.V^T (dq) the block's
+// own rows, loaded once, against K-major [row][hd] tiles; the gradient
+// products P^T, dS^T or dS (the accumulator packed into bf16 pairs is the A
+// fragment) against dO, Q or K as MN-major B operands (a [row][hd] tile, K
+// running down its rows).  The producer warp fills a ring of B_STAGES tiles
+// (and, for dkdv, their lse and D rows) behind a full and an empty mbarrier
+// per stage.
+
+constexpr int B_TILE = 64 * 128;   // 64 rows x 64 bf16, 128-byte swizzled
+constexpr int B_ROWS = 128;        // keys (dkdv) or queries (dq) per block
+constexpr int B_STAGES = 3;
+// 2 consumer warpgroups, then a producer warpgroup of which one warp
+// works: the producer gives its registers up (setmaxnreg) so that each
+// consumer thread can hold its 4 accumulators and fragments (240 registers)
+constexpr int B_THREADS = 384;
+constexpr int B_PRODUCER = 8;      // the producer's warp index
+constexpr int B_REGS_PRODUCER = 24, B_REGS_CONSUMER = 240;
+
+// P^T, dS^T of one 64 x 64 dkdv tile in place (st <- P, dpt <- dS); MASK
+// zeroes P of dead keys and of query columns >= nq
+template <bool MASK>
+__device__ __forceinline__ void dkdv_scores(float (&st)[32], float (&dpt)[32],
+                                            const float* Lt, const float* Dt,
+                                            const bool (&key_ok)[2], int q0,
+                                            int nq, int t, float scale) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(Lt + 8 * j + 2 * t);
+    const float2 d2 = *reinterpret_cast<const float2*>(Dt + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = prob(st[4 * j + e], scale, (e & 1) ? l2.y : l2.x);
+      if (MASK && (!key_ok[e >> 1] || q0 + 8 * j + 2 * t + (e & 1) >= nq))
+        p = 0.f;
+      dpt[4 * j + e] = dscore(p, dpt[4 * j + e], (e & 1) ? d2.y : d2.x, scale);
+      st[4 * j + e] = p;
+    }
+  }
 }
 
-// a warp's 16 x 64 accumulator strip (rows row0 + g, row0 + g + 8) -> f32
-// rows of dst that are < n; rows >= zero_from get exact zeros
-__device__ __forceinline__ void store_strip(float* dst, const float (&x)[8][4],
-                                            int row0, int n, int zero_from,
-                                            int lane) {
+// dS of one 64 x 64 dq tile in place of dP; MASK zeroes P of rows >= nq and
+// of keys >= valid
+template <bool MASK>
+__device__ __forceinline__ void dq_scores(const float (&sa)[32],
+                                          float (&dpa)[32],
+                                          const float (&lse_r)[2],
+                                          const float (&d_r)[2],
+                                          const bool (&row_ok)[2], int k0,
+                                          int valid, int t, float scale) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float p = prob(sa[4 * j + e], scale, lse_r[r]);
+      if (MASK && (!row_ok[r] || k0 + 8 * j + 2 * t + (e & 1) >= valid))
+        p = 0.f;
+      dpa[4 * j + e] = dscore(p, dpa[4 * j + e], d_r[r], scale);
+    }
+  }
+}
+
+// K, V (2 tiles each); stages of Q, dO tiles and lse, D rows; barriers
+constexpr int SMEM_DKDV_BF16 = 4 * B_TILE + B_STAGES * 2 * B_TILE +
+                               B_STAGES * 2 * 64 * 4 +
+                               (1 + 2 * B_STAGES) * 8 + 1024;
+// Q, dO (2 tiles each); stages of K, V tiles; barriers
+constexpr int SMEM_DQ_BF16 =
+    4 * B_TILE + B_STAGES * 2 * B_TILE + (1 + 2 * B_STAGES) * 8 + 1024;
+constexpr int SMEM_BWD_BF16 =
+    SMEM_DKDV_BF16 > SMEM_DQ_BF16 ? SMEM_DKDV_BF16 : SMEM_DQ_BF16;
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// the A fragment of columns [16c, 16c+16) of a warpgroup accumulator
+// (hopper.cuh layout), rounded to bf16
+__device__ __forceinline__ void acc_to_a(unsigned (&a)[4], const float (&x)[32],
+                                         int c) {
+  a[0] = pack_bf16(x[8 * c], x[8 * c + 1]);
+  a[1] = pack_bf16(x[8 * c + 2], x[8 * c + 3]);
+  a[2] = pack_bf16(x[8 * c + 4], x[8 * c + 5]);
+  a[3] = pack_bf16(x[8 * c + 6], x[8 * c + 7]);
+}
+
+// a warp's 16 rows of a warpgroup accumulator (rows row0 + g, row0 + g + 8)
+// -> f32 rows of dst that are < n; rows >= zero_from get exact zeros
+__device__ __forceinline__ void store_acc(float* dst, const float (&x)[32],
+                                          int row0, int n, int zero_from,
+                                          int lane) {
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -118,256 +209,328 @@ __device__ __forceinline__ void store_strip(float* dst, const float (&x)[8][4],
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<float2*>(d + 8 * j) =
-          live ? make_float2(x[j][2 * r], x[j][2 * r + 1])
+          live ? make_float2(x[4 * j + 2 * r], x[4 * j + 2 * r + 1])
                : make_float2(0.f, 0.f);
   }
 }
 
-// ---------------------------------------------------------------- bf16 ---
-
-// K, V once; 2 x (Q, dO) tiles; 2 x (lse, D) rows
-constexpr int SMEM_DKDV_BF16 =
-    (2 * BK + 4 * BQ) * LD * (int)sizeof(bf16) + 4 * BQ * (int)sizeof(float);
-
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dsum, float* __restrict__ dk,
-                    float* __restrict__ dv, int nq, int nk, int valid,
-                    float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // BK x LD
-  bf16* Vs = Ks + BK * LD;                   // BK x LD
-  bf16* Qs = Vs + BK * LD;                   // 2 buffers of BQ x LD
-  bf16* Gs = Qs + 2 * BQ * LD;               // 2 buffers of BQ x LD (dO)
-  float* Ls = reinterpret_cast<float*>(Gs + 2 * BQ * LD);  // 2 x BQ
-  float* Ds = Ls + 2 * BQ;                                 // 2 x BQ
-
-  const int bh = blockIdx.y, k0 = blockIdx.x * BK;
-  const size_t qbase = (size_t)bh * nq * HD, kbase = (size_t)bh * nk * HD;
-  const float* lse_bh = lse + (size_t)bh * nq;
-  const float* d_bh = dsum + (size_t)bh * nq;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  float dka[HD / 8][4] = {}, dva[HD / 8][4] = {};
-  if (k0 >= valid) {  // a dead key tile: exact zeros, no work
-    store_strip(dk + kbase, dka, k0 + warp * 16, nk, valid, lane);
-    store_strip(dv + kbase, dva, k0 + warp * 16, nk, valid, lane);
-    return;
+// A fragments of warp w's 16 rows of a 64-row, 128-byte-swizzled bf16
+// tile, one per 16 columns (ldmatrix from the swizzled rows)
+__device__ __forceinline__ void load_a_frags(unsigned (&a)[4][4],
+                                             const unsigned char* tile, int w,
+                                             int lane) {
+  const int row = 16 * w + lane % 8 + (lane / 8 % 2) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int chunk = 2 * kk + lane / 16;
+    ldsm_x4(a[kk], tile + row * 128 + ((chunk ^ (row & 7)) << 4));
   }
-  const bool key_ok[2] = {k0 + warp * 16 + g < valid,
-                          k0 + warp * 16 + g + 8 < valid};
-
-  load_rows64_bf16<BK, NTHREADS>(Ks, LD, k + kbase, k0, valid);
-  load_rows64_bf16<BK, NTHREADS>(Vs, LD, v + kbase, k0, valid);
-  load_rows64_bf16<BQ, NTHREADS>(Qs, LD, q + qbase, 0, nq);
-  load_rows64_bf16<BQ, NTHREADS>(Gs, LD, dout + qbase, 0, nq);
-  cp_async_commit();
-  load_rowstats(Ls, Ds, lse_bh, d_bh, 0, nq);
-
-  unsigned ka[HD / 16][4], va[HD / 16][4];  // this warp's K, V strips
-
-  const int ntiles = (nq + BQ - 1) / BQ;
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int buf = tile & 1;
-    if (tile + 1 < ntiles) {  // prefetch the next q-tile
-      const int nq0 = (tile + 1) * BQ;
-      load_rows64_bf16<BQ, NTHREADS>(Qs + (buf ^ 1) * BQ * LD, LD, q + qbase,
-                                     nq0, nq);
-      load_rows64_bf16<BQ, NTHREADS>(Gs + (buf ^ 1) * BQ * LD, LD,
-                                     dout + qbase, nq0, nq);
-      load_rowstats(Ls + (buf ^ 1) * BQ, Ds + (buf ^ 1) * BQ, lse_bh, d_bh,
-                    nq0, nq);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile (and K, V) have landed
-    __syncthreads();
-    if (tile == 0) {
-#pragma unroll
-      for (int kc = 0; kc < HD / 16; ++kc) {
-        ldsm_x4(ka[kc], a_tile(Ks, LD, warp * 16, kc * 16, lane));
-        ldsm_x4(va[kc], a_tile(Vs, LD, warp * 16, kc * 16, lane));
-      }
-    }
-    const bf16* Qt = Qs + buf * BQ * LD;
-    const bf16* Gt = Gs + buf * BQ * LD;
-    const float* Lt = Ls + buf * BQ;
-    const float* Dt = Ds + buf * BQ;
-
-    // S^T = K.Q^T and dP^T = V.dO^T, 16 keys x 64 queries per warp; Q and
-    // dO row-major are the column-major B operands
-    float s[BQ / 8][4], dp[BQ / 8][4];
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc) {
-#pragma unroll
-      for (int np = 0; np < BQ / 16; ++np) {
-        unsigned b[4];
-        ldsm_x4(b, b_tiles_nk(Qt, LD, np * 16, kc * 16, lane));
-        mma_bf16(s[2 * np], ka[kc], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], ka[kc], b[2], b[3]);
-        ldsm_x4(b, b_tiles_nk(Gt, LD, np * 16, kc * 16, lane));
-        mma_bf16(dp[2 * np], va[kc], b[0], b[1]);
-        mma_bf16(dp[2 * np + 1], va[kc], b[2], b[3]);
-      }
-    }
-
-    // P^T and dS^T in place (s <- P, dp <- dS); element e of tile j sits at
-    // key row g + 8*(e>>1), query column 8j + 2t + (e&1)
-    const int q0 = tile * BQ;
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = 8 * j + 2 * t + (e & 1);
-        float p = prob(s[j][e], scale, Lt[qc]);
-        if (!key_ok[e >> 1] || q0 + qc >= nq) p = 0.f;
-        dp[j][e] = dscore(p, dp[j][e], Dt[qc], scale);
-        s[j][e] = p;
-      }
-    }
-
-    // dV += bf16(P^T).dO and dK += bf16(dS^T).Q, contracting the 64 queries
-#pragma unroll
-    for (int kc = 0; kc < BQ / 16; ++kc) {
-      unsigned pa[4], da[4];
-      acc_to_a(pa, s, kc);
-      acc_to_a(da, dp, kc);
-#pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
-        unsigned b[4];
-        ldsm_x4_trans(b, b_tiles_kn(Gt, LD, kc * 16, np * 16, lane));
-        mma_bf16(dva[2 * np], pa, b[0], b[1]);
-        mma_bf16(dva[2 * np + 1], pa, b[2], b[3]);
-        ldsm_x4_trans(b, b_tiles_kn(Qt, LD, kc * 16, np * 16, lane));
-        mma_bf16(dka[2 * np], da, b[0], b[1]);
-        mma_bf16(dka[2 * np + 1], da, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before refill
-  }
-  store_strip(dk + kbase, dka, k0 + warp * 16, nk, valid, lane);
-  store_strip(dv + kbase, dva, k0 + warp * 16, nk, valid, lane);
 }
 
-// Q, dO once; 2 x (K, V) tiles
-constexpr int SMEM_DQ_BF16 = (2 * BQ + 4 * BK) * LD * (int)sizeof(bf16);
-
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ dsum, float* __restrict__ dq,
-                  int nq, int nk, int valid, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // BQ x LD
-  bf16* Gs = Qs + BQ * LD;                   // BQ x LD (dO)
-  bf16* Ks = Gs + BQ * LD;                   // 2 buffers of BK x LD
-  bf16* Vs = Ks + 2 * BK * LD;               // 2 buffers of BK x LD
-
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const size_t qbase = (size_t)bh * nq * HD, kbase = (size_t)bh * nk * HD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-
-  load_rows64_bf16<BQ, NTHREADS>(Qs, LD, q + qbase, q0, nq);
-  load_rows64_bf16<BQ, NTHREADS>(Gs, LD, dout + qbase, q0, nq);
-  load_rows64_bf16<BK, NTHREADS>(Ks, LD, k + kbase, 0, valid);
-  load_rows64_bf16<BK, NTHREADS>(Vs, LD, v + kbase, 0, valid);
-  cp_async_commit();
-
-  // this lane's query rows g and g+8 of the warp's strip
-  bool row_ok[2];
-  float lse_r[2], d_r[2];
+// the score-like products of one tile, issued as one wgmma group: s = A.B^T
+// and dp = A2.B2^T over hd, A and A2 (64 rows) in registers, B and B2 tiles
+// [row][hd] (K-major)
+__device__ __forceinline__ void score_products(float (&s)[32], float (&dp)[32],
+                                               const unsigned (&a)[4][4],
+                                               const unsigned (&a2)[4][4],
+                                               const unsigned char* b,
+                                               const unsigned char* b2) {
+  const uint64_t db = sw128_desc(b), db2 = sw128_desc(b2);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    row_ok[r] = row < nq;
-    lse_r[r] = row_ok[r] ? lse[(size_t)bh * nq + row] : 0.f;
-    d_r[r] = row_ok[r] ? dsum[(size_t)bh * nq + row] : 0.f;
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  reg_fence(s);
+  reg_fence(dp);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)  // 32 bytes per k-step
+    wgmma_bf16_rs<0>(s, a[kk], db + 2 * kk);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_bf16_rs<0>(dp, a2[kk], db2 + 2 * kk);
+  wgmma_commit();
+}
+
+// (a) dK/dV of the 128 keys of block kb, looping over the 64-query tiles
+__device__ __forceinline__ void dkdv_block(
+    const CUtensorMap& qmap, const CUtensorMap& kmap, const CUtensorMap& vmap,
+    const CUtensorMap& gmap, const float* __restrict__ lse,
+    const float* __restrict__ dsum, float* __restrict__ dk,
+    float* __restrict__ dv, int nq, int nk, int valid, float scale,
+    unsigned char* smem_raw, int kb) {
+  unsigned char* Ks = align1024(smem_raw);     // keys k0.., k0+64..
+  unsigned char* Vs = Ks + 2 * B_TILE;
+  unsigned char* Qs = Vs + 2 * B_TILE;         // B_STAGES tiles
+  unsigned char* Gs = Qs + B_STAGES * B_TILE;  // B_STAGES tiles (dO)
+  float* Ls = reinterpret_cast<float*>(Gs + B_STAGES * B_TILE);
+  float* Ds = Ls + B_STAGES * 64;
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(Ds + B_STAGES * 64);
+  uint64_t* full = kv_bar + 1;
+  uint64_t* empty = full + B_STAGES;
+
+  const int bh = blockIdx.y, k0 = kb * B_ROWS, tid = threadIdx.x;
+  const size_t kbase = (size_t)bh * nk * HD;
+  if (k0 >= valid) {  // a dead key block: exact zeros, no work
+    const int rows = min(B_ROWS, nk - k0);
+    for (int i = tid; i < rows * (HD / 4); i += B_THREADS) {
+      const size_t off = kbase + (size_t)(k0 + i / (HD / 4)) * HD + (i % (HD / 4)) * 4;
+      *reinterpret_cast<float4*>(dk + off) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(dv + off) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
   }
-
-  unsigned qa[HD / 16][4], ga[HD / 16][4];  // this warp's Q, dO strips
-  float dqa[HD / 8][4] = {};
-
-  const int ntiles = (valid + BK - 1) / BK;
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int buf = tile & 1;
-    if (tile + 1 < ntiles) {  // prefetch the next K/V tile
-      load_rows64_bf16<BK, NTHREADS>(Ks + (buf ^ 1) * BK * LD, LD, k + kbase,
-                                     (tile + 1) * BK, valid);
-      load_rows64_bf16<BK, NTHREADS>(Vs + (buf ^ 1) * BK * LD, LD, v + kbase,
-                                     (tile + 1) * BK, valid);
+  if (tid == 0) {
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < B_STAGES; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes
+      mbar_init(&empty[s], 8);  // one lane per consumer warp
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (tile == 0) {
-#pragma unroll
-      for (int kc = 0; kc < HD / 16; ++kc) {
-        ldsm_x4(qa[kc], a_tile(Qs, LD, warp * 16, kc * 16, lane));
-        ldsm_x4(ga[kc], a_tile(Gs, LD, warp * 16, kc * 16, lane));
-      }
-    }
-    const bf16* Kt = Ks + buf * BK * LD;
-    const bf16* Vt = Vs + buf * BK * LD;
-
-    // S = Q.K^T and dP = dO.V^T, 16 queries x 64 keys per warp
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc) {
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        unsigned b[4];
-        ldsm_x4(b, b_tiles_nk(Kt, LD, np * 16, kc * 16, lane));
-        mma_bf16(s[2 * np], qa[kc], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qa[kc], b[2], b[3]);
-        ldsm_x4(b, b_tiles_nk(Vt, LD, np * 16, kc * 16, lane));
-        mma_bf16(dp[2 * np], ga[kc], b[0], b[1]);
-        mma_bf16(dp[2 * np + 1], ga[kc], b[2], b[3]);
-      }
-    }
-
-    // dS in place of dP; element e of tile j: query row g + 8*(e>>1), key
-    // column 8j + 2t + (e&1)
-    const int k0 = tile * BK;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float p = prob(s[j][e], scale, lse_r[r]);
-        if (!row_ok[r] || k0 + 8 * j + 2 * t + (e & 1) >= valid) p = 0.f;
-        dp[j][e] = dscore(p, dp[j][e], d_r[r], scale);
-      }
-    }
-
-    // dQ += bf16(dS).K, contracting the 64 keys; K row-major is the
-    // row-major [k][n] B operand
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      unsigned da[4];
-      acc_to_a(da, dp, kc);
-#pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
-        unsigned b[4];
-        ldsm_x4_trans(b, b_tiles_kn(Kt, LD, kc * 16, np * 16, lane));
-        mma_bf16(dqa[2 * np], da, b[0], b[1]);
-        mma_bf16(dqa[2 * np + 1], da, b[2], b[3]);
-      }
-    }
-    __syncthreads();
+    mbar_fence_init();
   }
-  cp_async_wait<0>();  // valid = 0 visits no tile: drain the first loads
-  store_strip(dq + qbase, dqa, q0 + warp * 16, nq, nq, lane);
+  __syncthreads();
+
+  const int ntiles = (nq + 63) / 64;
+  const int warp = tid / 32, lane = tid % 32;
+  if (warp >= B_PRODUCER) {
+    setmaxnreg_dec<B_REGS_PRODUCER>();
+    if (warp != B_PRODUCER) return;
+    if (lane == 0) {  // K, V rows [k0, k0+128) once; rows >= valid are 0
+      mbar_arrive_expect_tx(kv_bar, 4 * B_TILE);
+      tma_load_3d(Ks, &kmap, kv_bar, 0, k0, bh);
+      tma_load_3d(Ks + B_TILE, &kmap, kv_bar, 0, k0 + 64, bh);
+      tma_load_3d(Vs, &vmap, kv_bar, 0, k0, bh);
+      tma_load_3d(Vs + B_TILE, &vmap, kv_bar, 0, k0 + 64, bh);
+    }
+    const float* lse_bh = lse + (size_t)bh * nq;
+    const float* d_bh = dsum + (size_t)bh * nq;
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int s = tile % B_STAGES, q0 = tile * 64;
+      mbar_wait(&empty[s], ((tile / B_STAGES) & 1) ^ 1);
+      for (int i = lane; i < 64; i += 32) {  // 0 past nq (P = 0 there)
+        const int r = q0 + i;
+        Ls[s * 64 + i] = r < nq ? lse_bh[r] : 0.f;
+        Ds[s * 64 + i] = r < nq ? d_bh[r] : 0.f;
+      }
+      if (lane == 0) {  // Q, dO rows [q0, q0+64); rows >= nq are 0
+        mbar_arrive_expect_tx(&full[s], 2 * B_TILE);
+        tma_load_3d(Qs + s * B_TILE, &qmap, &full[s], 0, q0, bh);
+        tma_load_3d(Gs + s * B_TILE, &gmap, &full[s], 0, q0, bh);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {  // consumer warpgroup c: keys k0 + 64c + [0, 64)
+    setmaxnreg_inc<B_REGS_CONSUMER>();
+    const int c = warp / 4, w = warp % 4, t = lane % 4;
+    const int krow = k0 + 64 * c + 16 * w + lane / 4;  // and krow + 8
+    const bool key_ok[2] = {krow < valid, krow + 8 < valid};
+    const bool keys_live = k0 + 64 * c + 64 <= valid;
+    float dka[32], dva[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+    mbar_wait(kv_bar, 0);
+    unsigned ka[4][4], va[4][4];  // this warp's K and V rows, A fragments
+    load_a_frags(ka, Ks + c * B_TILE, w, lane);
+    load_a_frags(va, Vs + c * B_TILE, w, lane);
+
+    // S^T = K.Q^T and dP^T = V.dO^T (64 keys x 64 queries) of tile 0; each
+    // iteration then issues tile j's gradient products and, behind them,
+    // tile j+1's score products
+    float st[32], dpt[32];
+    unsigned pa[4][4], da[4][4];
+    mbar_wait(&full[0], 0);
+    score_products(st, dpt, ka, va, Qs, Gs);
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int s = tile % B_STAGES, q0 = tile * 64;
+      const unsigned char* Qt = Qs + s * B_TILE;
+      const unsigned char* Gt = Gs + s * B_TILE;
+      wgmma_wait<0>();
+      reg_fence(st);
+      reg_fence(dpt);
+
+      // P^T and dS^T in place (st <- P, dpt <- dS); element 4j+e sits at
+      // key row krow + 8*(e>>1), query column 8j + 2t + (e&1)
+      if (keys_live && q0 + 64 <= nq)  // a whole tile: no mask
+        dkdv_scores<false>(st, dpt, Ls + s * 64, Ds + s * 64, key_ok, q0, nq,
+                           t, scale);
+      else
+        dkdv_scores<true>(st, dpt, Ls + s * 64, Ds + s * 64, key_ok, q0, nq,
+                          t, scale);
+
+      // dV += bf16(P^T).dO and dK += bf16(dS^T).Q, contracting the queries
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        acc_to_a(pa[kc], st, kc);
+        acc_to_a(da[kc], dpt, kc);
+      }
+      const uint64_t dg = sw128_desc(Gt), dq_ = sw128_desc(Qt);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)  // 16 rows, 2048 bytes per k-step
+        wgmma_bf16_rs<1>(dva, pa[kc], dg + 128 * kc);
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_bf16_rs<1>(dka, da[kc], dq_ + 128 * kc);
+      wgmma_commit();
+      if (tile + 1 < ntiles) {
+        const int s1 = (tile + 1) % B_STAGES;
+        mbar_wait(&full[s1], ((tile + 1) / B_STAGES) & 1);
+        score_products(st, dpt, ka, va, Qs + s1 * B_TILE, Gs + s1 * B_TILE);
+        wgmma_wait<1>();  // tile's gradient products are done
+      } else {
+        wgmma_wait<0>();
+      }
+      reg_fence(dva);
+      reg_fence(dka);
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        reg_fence(pa[kc]);
+        reg_fence(da[kc]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with it
+    }
+    const int row0 = k0 + 64 * c + 16 * w;
+    store_acc(dk + kbase, dka, row0, nk, valid, lane);
+    store_acc(dv + kbase, dva, row0, nk, valid, lane);
+  }
+}
+
+// (b) dQ of the 128 queries of block qb, looping over the 64-key tiles
+// below `valid`
+__device__ __forceinline__ void dq_block(
+    const CUtensorMap& qmap, const CUtensorMap& kmap, const CUtensorMap& vmap,
+    const CUtensorMap& gmap, const float* __restrict__ lse,
+    const float* __restrict__ dsum, float* __restrict__ dq, int nq, int valid,
+    float scale, unsigned char* smem_raw, int qb) {
+  unsigned char* Qs = align1024(smem_raw);     // queries q0.., q0+64..
+  unsigned char* Gs = Qs + 2 * B_TILE;         // dO, the same rows
+  unsigned char* Ks = Gs + 2 * B_TILE;         // B_STAGES tiles
+  unsigned char* Vs = Ks + B_STAGES * B_TILE;  // B_STAGES tiles
+  uint64_t* qg_bar = reinterpret_cast<uint64_t*>(Vs + B_STAGES * B_TILE);
+  uint64_t* full = qg_bar + 1;
+  uint64_t* empty = full + B_STAGES;
+
+  const int bh = blockIdx.y, q0 = qb * B_ROWS, tid = threadIdx.x;
+  const int ntiles = (valid + 63) / 64;  // valid = 0: no tile, dQ = 0
+  if (tid == 0) {
+    mbar_init(qg_bar, 1);
+    for (int s = 0; s < B_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32;
+  if (warp >= B_PRODUCER) {
+    setmaxnreg_dec<B_REGS_PRODUCER>();
+    if (warp == B_PRODUCER && lane == 0 && ntiles > 0) {
+      mbar_arrive_expect_tx(qg_bar, 4 * B_TILE);
+      tma_load_3d(Qs, &qmap, qg_bar, 0, q0, bh);
+      tma_load_3d(Qs + B_TILE, &qmap, qg_bar, 0, q0 + 64, bh);
+      tma_load_3d(Gs, &gmap, qg_bar, 0, q0, bh);
+      tma_load_3d(Gs + B_TILE, &gmap, qg_bar, 0, q0 + 64, bh);
+      for (int tile = 0; tile < ntiles; ++tile) {
+        const int s = tile % B_STAGES;
+        mbar_wait(&empty[s], ((tile / B_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * B_TILE);
+        tma_load_3d(Ks + s * B_TILE, &kmap, &full[s], 0, tile * 64, bh);
+        tma_load_3d(Vs + s * B_TILE, &vmap, &full[s], 0, tile * 64, bh);
+      }
+    }
+  } else {  // consumer warpgroup c: queries q0 + 64c + [0, 64)
+    setmaxnreg_inc<B_REGS_CONSUMER>();
+    const int c = warp / 4, w = warp % 4, t = lane % 4;
+    // this lane's query rows qrow and qrow + 8
+    const int qrow = q0 + 64 * c + 16 * w + lane / 4;
+    const bool rows_live = q0 + 64 * c + 64 <= nq;
+    bool row_ok[2];
+    float lse_r[2], d_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qrow + 8 * r;
+      row_ok[r] = row < nq;
+      lse_r[r] = row_ok[r] ? lse[(size_t)bh * nq + row] : 0.f;
+      d_r[r] = row_ok[r] ? dsum[(size_t)bh * nq + row] : 0.f;
+    }
+    float dqa[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+    if (ntiles > 0) {
+      mbar_wait(qg_bar, 0);
+      unsigned qa[4][4], ga[4][4];  // this warp's Q and dO rows
+      load_a_frags(qa, Qs + c * B_TILE, w, lane);
+      load_a_frags(ga, Gs + c * B_TILE, w, lane);
+
+      // S = Q.K^T and dP = dO.V^T (64 queries x 64 keys) of tile 0; each
+      // iteration then issues tile j's dQ product and, behind it, tile
+      // j+1's score products
+      float sa[32], dpa[32];
+      unsigned da[4][4];
+      mbar_wait(&full[0], 0);
+      score_products(sa, dpa, qa, ga, Ks, Vs);
+      for (int tile = 0; tile < ntiles; ++tile) {
+        const int s = tile % B_STAGES, k0 = tile * 64;
+        wgmma_wait<0>();
+        reg_fence(sa);
+        reg_fence(dpa);
+
+        // dS in place of dP; element 4j+e: query row qrow + 8*(e>>1), key
+        // column 8j + 2t + (e&1)
+        if (rows_live && k0 + 64 <= valid)  // a whole tile: no mask
+          dq_scores<false>(sa, dpa, lse_r, d_r, row_ok, k0, valid, t, scale);
+        else
+          dq_scores<true>(sa, dpa, lse_r, d_r, row_ok, k0, valid, t, scale);
+
+        // dQ += bf16(dS).K, contracting the keys
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) acc_to_a(da[kc], dpa, kc);
+        const uint64_t dk_ = sw128_desc(Ks + s * B_TILE);
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc)  // 16 rows, 2048 bytes per k-step
+          wgmma_bf16_rs<1>(dqa, da[kc], dk_ + 128 * kc);
+        wgmma_commit();
+        if (tile + 1 < ntiles) {
+          const int s1 = (tile + 1) % B_STAGES;
+          mbar_wait(&full[s1], ((tile + 1) / B_STAGES) & 1);
+          score_products(sa, dpa, qa, ga, Ks + s1 * B_TILE, Vs + s1 * B_TILE);
+          wgmma_wait<1>();  // tile's dQ product is done
+        } else {
+          wgmma_wait<0>();
+        }
+        reg_fence(dqa);
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) reg_fence(da[kc]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+    }
+    store_acc(dq + (size_t)bh * nq * HD, dqa, q0 + 64 * c + 16 * w, nq, nq,
+              lane);
+  }
+}
+
+// (a) and (b) in one grid: blocks [0, nkb) of x are dK/dV blocks, the rest
+// dQ blocks, so that the dQ blocks fill the last wave of the longer dK/dV
+// blocks
+__global__ void __launch_bounds__(B_THREADS, 1)
+flash_bwd_bf16(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               const __grid_constant__ CUtensorMap gmap,
+               const float* __restrict__ lse, const float* __restrict__ dsum,
+               float* __restrict__ dq, float* __restrict__ dk,
+               float* __restrict__ dv, int nq, int nk, int valid, int nkb,
+               float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  if ((int)blockIdx.x < nkb)
+    dkdv_block(qmap, kmap, vmap, gmap, lse, dsum, dk, dv, nq, nk, valid, scale,
+               smem_raw, blockIdx.x);
+  else
+    dq_block(qmap, kmap, vmap, gmap, lse, dsum, dq, nq, valid, scale,
+             smem_raw, blockIdx.x - nkb);
 }
 
 // ----------------------------------------------------------------- f32 ---
@@ -553,22 +716,24 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
         *dV = static_cast<float*>(dv);
   cudaError_t err;
   if (is_bf16) {
+    // Q/dO seen as nq rows and K/V as `valid` rows of each head: TMA
+    // zero-fills the rows past them
+    CUtensorMap qm, km, vm, gm;
+    int rc;
+    const CUtensorMapDataType bt = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    if ((rc = make_rows_map(&qm, q, bt, 2, bh, nq, nq, 64, 64)) != 0 ||
+        (rc = make_rows_map(&gm, dout, bt, 2, bh, nq, nq, 64, 64)) != 0 ||
+        (rc = make_rows_map(&km, k, bt, 2, bh, nk, valid, 64, 64)) != 0 ||
+        (rc = make_rows_map(&vm, v, bt, 2, bh, nk, valid, 64, 64)) != 0)
+      return rc;
     // above 48 KB, dynamic shared memory needs an opt-in per kernel
-    if ((err = cudaFuncSetAttribute(flash_bwd_dkdv_bf16,
+    if ((err = cudaFuncSetAttribute(flash_bwd_bf16,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    SMEM_DKDV_BF16)) != cudaSuccess ||
-        (err = cudaFuncSetAttribute(flash_bwd_dq_bf16,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    SMEM_DQ_BF16)) != cudaSuccess)
+                                    SMEM_BWD_BF16)) != cudaSuccess)
       return (int)err;
-    const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
-               *V = static_cast<const bf16*>(v),
-               *G = static_cast<const bf16*>(dout);
-    flash_bwd_dkdv_bf16<<<grid_k, NTHREADS, SMEM_DKDV_BF16, s>>>(
-        Q, K, V, G, L, D, dK, dV, nq, nk, valid, scale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    flash_bwd_dq_bf16<<<grid_q, NTHREADS, SMEM_DQ_BF16, s>>>(
-        Q, K, V, G, L, D, dQ, nq, nk, valid, scale);
+    const int nkb = (nk + B_ROWS - 1) / B_ROWS, nqb = (nq + B_ROWS - 1) / B_ROWS;
+    flash_bwd_bf16<<<dim3(nkb + nqb, bh), B_THREADS, SMEM_BWD_BF16, s>>>(
+        qm, km, vm, gm, L, D, dQ, dK, dV, nq, nk, valid, nkb, scale);
   } else {
     if ((err = cudaFuncSetAttribute(flash_bwd_dkdv_f32,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -195,3 +195,63 @@ def test_dyn_forward_at_full_bound_is_the_static_kernel(cuda):
     out, lse = tatt.flash_attention_with_lse_dyn(q, k, v, 0.125, 901)
     out1, lse1 = tatt.flash_attention(q, k, v, 0.125, return_lse=True)
     assert torch.equal(out, out1) and torch.equal(lse, lse1)
+
+
+@pytest.mark.parametrize("n", [37, 129, 901, 4001])
+def test_f32_forward_matches_plain(cuda, n):
+    """The 3-pass TF32 forward (kernels 1 and 4 in f32) vs its plain
+    version, at FLASH_TOL/LSE_ATOL; out is the same bits with and without
+    the LSE."""
+    g = torch.Generator(device=cuda).manual_seed(n + 1)
+    q, k, v = (torch.randn(1, 6, n, 64, generator=g, device=cuda)
+               for _ in range(3))
+    out, lse = tatt.flash_attention(q, k, v, 0.125, return_lse=True)
+    out_only = tatt.flash_attention(q, k, v, 0.125)
+    ref, ref_lse = tatt.attention_plain(q, k, v, 0.125)
+    atol, rtol = chip_smoke.FLASH_TOL[torch.float32]
+    torch.testing.assert_close(out, ref, atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=chip_smoke.LSE_ATOL, rtol=0)
+    assert torch.equal(out, out_only)
+
+
+@pytest.mark.parametrize("n", [127, 128, 129, 901, 3601])
+def test_bf16_bwd_at_tile_edges(cuda, n):
+    """The bf16 backward (128-row blocks of 64-row warpgroups) vs its plain
+    version at N on both sides of the tiles, static and dynamic-bound, with
+    the bound on both sides of them too; dead keys' rows exact zeros."""
+    g = torch.Generator(device=cuda).manual_seed(n + 2)
+    q, k, v, do = (torch.randn(2, 6, n, 64, generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(4))
+    out, lse = tatt.flash_attention(q, k, v, 0.125, return_lse=True)
+    got = tatt.flash_attention_bwd(q, k, v, out, lse, do, 0.125)
+    ref = tatt.attention_bwd_plain(q, k, v, out, lse, do, 0.125)
+    assert chip_smoke.bwd_err(got, ref, torch.bfloat16)[1]
+    dsum = (do.float() * out.float()).sum(-1).reshape(12, n)
+    for valid in sorted({n, n - 1, 127, 128, 129, 64, 1, 0}):
+        if valid > n:
+            continue
+        got = tatt.flash_attention_bwd_dyn(q, do, lse, dsum, k, v, 0.125,
+                                           valid)
+        want = tatt.attention_bwd_dyn_plain(q, do, lse, dsum, k, v, 0.125,
+                                            valid)
+        assert chip_smoke.bwd_dyn_err(got, want, torch.bfloat16)[1], valid
+        for t in got[1:]:
+            assert torch.count_nonzero(t[:, :, valid:]) == 0, valid
+        assert all(bool(torch.isfinite(t).all()) for t in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_repeats_its_bits(cuda, dtype):
+    """Two back-to-back backward calls (static and dynamic-bound) give the
+    same bits: no atomics, a fixed order of every sum."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, do = (torch.randn(2, 6, 901, 64, generator=g, device=cuda).to(
+        dtype) for _ in range(4))
+    out, lse = tatt.flash_attention(q, k, v, 0.125, return_lse=True)
+    a = tatt.flash_attention_bwd(q, k, v, out, lse, do, 0.125)
+    b = tatt.flash_attention_bwd(q, k, v, out, lse, do, 0.125)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    dsum = (do.float() * out.float()).sum(-1).reshape(12, 901)
+    a = tatt.flash_attention_bwd_dyn(q, do, lse, dsum, k, v, 0.125, 700)
+    b = tatt.flash_attention_bwd_dyn(q, do, lse, dsum, k, v, 0.125, 700)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
