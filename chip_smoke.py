@@ -9,9 +9,14 @@ each printing JSON lines:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds the kernels of dino_tpu_torch/csrc at first use;
+     ptxas's registers and spills per kernel, failing on a spill in the
+     bf16 forward or the fused MLP;
   3. kernels vs their plain PyTorch versions on the card, at the main
-     path's shapes, each against its stated tolerance; every backward run
-     twice and held to the same bits;
+     path's shapes, each against its stated tolerance; every kernel run
+     twice and held to the same bits; the bf16 forward at query counts
+     around its 128-row blocks and key bounds around its key tiles, the
+     fused MLP at row counts around its 64-row blocks (up to batch 16) and
+     at hidden widths 64 and 1,536;
   4. main path: DINOSeg.predict / predict_batch on random ViT-S/8 weights
      (3 blocks, MLP head, 7 classes) at 240/480/960px in bf16 and fp32,
      with every kernel's launch count read before and after;
@@ -31,14 +36,17 @@ each printing JSON lines:
      predict at 1624px (N = 41,210, where dino_tpu runs its chunked kernel)
      and the kernel vs its plain version at that N;
   8. timing (CUDA events around bursts of back-to-back calls, median of
-     the bursts) at the 480px predict shapes (batch 3), the train bench's
-     microbatch shapes for the backward, the 2-rank 960px per-hop shape for
-     the dynamic-bound kernels and the 1624px shape (and the 960px fp32
-     predict's N) for the f32 forward: kernel, plain version, one PyTorch
-     library call (for the f32 forward also the device kernels it runs),
-     and the card's bound (the f32 forward's on its route: three TF32
-     passes); the fp32 predict latency at 480 and 960px; then the
-     cli/bench line (predict and train);
+     the bursts; the bf16 kernels also replayed from a CUDA graph, which
+     takes the host out) at the 480px predict shapes (batch 3; the fused
+     MLP also at one frame), the train bench's microbatch shapes for the
+     backward (and the fp32 240px step's for the f32 backward), the 2-rank
+     960px per-hop shape for the dynamic-bound kernels and the 1624px shape
+     (and the 960px fp32 predict's N) for the f32 forward: kernel, plain
+     version, one PyTorch library call (for the forwards also the device
+     kernels it runs), the fused MLP's eager bf16 composition, and the
+     card's bound (the f32 forward's on its route: three TF32 passes); the
+     fp32 predict latency at 480 and 960px; then the cli/bench line
+     (predict and train);
   9. the per-kernel summary line, the card line, and the final status line.
 
 ``python3 chip_smoke.py --sp-world W`` (W cards) runs only phase 6's rank
@@ -49,6 +57,7 @@ itself).
 import argparse
 import contextlib
 import copy
+import functools
 import json
 import os
 import subprocess
@@ -63,6 +72,7 @@ import torch.nn.functional as F
 
 from dino_tpu_torch import DINOSeg
 from dino_tpu_torch.cli import bench
+from dino_tpu_torch.models.vit import Mlp, ViTConfig
 from dino_tpu_torch.ops import _build
 from dino_tpu_torch.ops import attention as tatt
 from dino_tpu_torch.ops.attention import (attention_bwd_dyn_plain,
@@ -132,6 +142,13 @@ SP_WORLD = 2          # rank processes sharing the card in phase 6
 SP_RANK_TIMEOUT = 600  # seconds for the rank processes, from their start
 CHUNKED_RES = 1624    # 203 x 203 + 1 = 41,210 tokens: dino_tpu's chunked
                       # kernel in f32 (past 8 resident K/V slices)
+FWD_BQ = 128          # query rows per block of the bf16 forward (csrc FB_BQ)
+# row counts and hidden widths of the fused-MLP edge checks: both sides of
+# the 64-row blocks, one frame, 480px batch 3 and batch 16
+MLP_EDGE_M = (1, 63, 64, 65, 129, 3601, 10803, 57616)
+MLP_EDGE_H = (64, 1536)
+# the kernels whose ptxas report must show no spill
+NO_SPILL = ("flash_fwd_bf16", "fused_ln_mlp_kernel")
 
 
 _T0 = time.perf_counter()
@@ -169,6 +186,41 @@ def median_ms(fn, rounds=5, burst=10, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end) / burst)
     return float(np.median(times))
+
+
+def graph_ms(fn, rounds=5, burst=10, warmup=3):
+    """Device time of one call of ``fn`` with the host out of the way: a
+    CUDA graph of ``burst`` back-to-back calls, CUDA events around its
+    replays, the median over ``rounds``.  Eager bursts (median_ms) measure
+    the host's enqueue rate instead once a kernel takes less time than its
+    wrapper's Python and launch work."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(burst):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / burst)
+    return float(np.median(times))
+
+
+def kernel_times(fn, **burst):
+    """{"ms": graph_ms, "ms_eager": median_ms} of one kernel call."""
+    return {"ms": graph_ms(fn, **burst), "ms_eager": median_ms(fn, **burst)}
 
 
 def bound_ms(flops, nbytes, dtype):
@@ -219,6 +271,8 @@ def phase_kernels(block):
             for bh in (6, 18):
                 q, k, v = flash_inputs(bh, n, dtype, seed=n + bh)
                 out, lse = flash_attention(q, k, v, SCALE, return_lse=True)
+                again, lse_again = flash_attention(q, k, v, SCALE,
+                                                   return_lse=True)
                 out_only = flash_attention(q, k, v, SCALE)
                 torch.cuda.synchronize()
                 ref, ref_lse = attention_plain(q, k, v, SCALE)
@@ -228,31 +282,98 @@ def phase_kernels(block):
                        "dtype": str(dtype).split(".")[1], "bh": bh, "n": n,
                        "max_abs_err": err.max().item(),
                        "lse_max_abs_err": (lse - ref_lse).abs().max().item(),
+                       "same_bits_twice": bool(torch.equal(out, again)
+                                               and torch.equal(lse, lse_again)),
                        "tol": [atol, rtol, LSE_ATOL]}
                 emit(rec)
                 check(bool((err <= tol).all()), f"flash out {rec}")
                 check(rec["lse_max_abs_err"] <= LSE_ATOL, f"flash lse {rec}")
                 check(torch.equal(out, out_only), "flash out with/without lse")
+                check(rec["same_bits_twice"], f"flash bits differ {rec}")
                 if dtype == torch.bfloat16 and n == 3601 and bh == 18:
                     errs["flash_attn_fwd"] = rec["max_abs_err"]
-                del q, k, v, out, lse, out_only, ref, ref_lse, err, tol
+                del q, k, v, out, lse, again, lse_again, out_only, ref
+                del ref_lse, err, tol
     g = torch.Generator(device="cuda").manual_seed(1)
     for m in (10803, 1000):
-        x = (torch.randn(m, 384, generator=g, device="cuda") * 0.5
-             ).to(torch.bfloat16)
-        with torch.no_grad():
-            out = fused_ln_mlp_residual(block.norm2, block.mlp, x, EPS)
-            torch.cuda.synchronize()
-            ref = fused_ln_mlp_residual_plain(block.norm2, block.mlp, x, EPS)
-        max_err, ulps, ok = mlp_err(out, ref, x)
-        rec = {"phase": "kernel_check", "kernel": "fused_ln_mlp", "m": m,
-               "max_abs_err": max_err, "max_err_bf16_ulps": ulps,
-               "tol": "2 bf16 ulps of max(|x|,|ref|,|h|) + 1 ulp of rms(h)"}
-        emit(rec)
-        check(ok, f"fused MLP {rec}")
+        max_err = check_mlp(block.norm2, block.mlp, m, g)
         if m == 10803:
             errs["fused_ln_mlp"] = max_err
     return errs
+
+
+def check_mlp(norm, mlp, m, g):
+    """The fused MLP on m random rows, twice (the same bits), against its
+    plain version under mlp_err's tolerance; returns the max error."""
+    x = (torch.randn(m, 384, generator=g, device="cuda") * 0.5
+         ).to(torch.bfloat16)
+    with torch.no_grad():
+        out = fused_ln_mlp_residual(norm, mlp, x, EPS)
+        again = fused_ln_mlp_residual(norm, mlp, x, EPS)
+        torch.cuda.synchronize()
+        ref = fused_ln_mlp_residual_plain(norm, mlp, x, EPS)
+    max_err, ulps, ok = mlp_err(out, ref, x)
+    rec = {"phase": "kernel_check", "kernel": "fused_ln_mlp", "m": m,
+           "hidden": mlp.fc1.weight.shape[0], "max_abs_err": max_err,
+           "max_err_bf16_ulps": ulps,
+           "same_bits_twice": bool(torch.equal(out, again)),
+           "tol": "2 bf16 ulps of max(|x|,|ref|,|h|) + 1 ulp of rms(h)"}
+    emit(rec)
+    check(ok, f"fused MLP {rec}")
+    check(rec["same_bits_twice"], f"fused MLP bits differ {rec}")
+    return max_err
+
+
+def phase_edges(block):
+    """The bf16 forward at query counts around its block rows (FWD_BQ),
+    B*nh = 1, static and dynamic-bound with bounds around the key tiles;
+    the fused MLP at MLP_EDGE_M rows with hidden widths MLP_EDGE_H.  Each
+    kernel runs twice and is held to the same bits."""
+    atol, rtol = FLASH_TOL[torch.bfloat16]
+    for n in (FWD_BQ - 1, FWD_BQ, FWD_BQ + 1):
+        g = torch.Generator(device="cuda").manual_seed(n)
+        q, k, v = (torch.randn(1, 1, n, 64, generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(3))
+        calls = [("static", n, lambda: flash_attention(q, k, v, SCALE,
+                                                       return_lse=True))]
+        for valid in sorted({0, 1, 63, 64, 65, 127, 128, 129, n}):
+            if valid <= n:
+                calls.append(("dyn", valid, functools.partial(
+                    flash_attention_with_lse_dyn, q, k, v, SCALE, valid)))
+        for entry, valid, fn in calls:
+            (out, lse), (again, lse2) = fn(), fn()
+            torch.cuda.synchronize()
+            ref, ref_lse = attention_dyn_plain(q, k, v, SCALE, valid)
+            err = (out.float() - ref.float()).abs()
+            rec = {"phase": "kernel_check", "kernel": "flash_attn_fwd_edges",
+                   "entry": entry, "bh": 1, "n": n, "valid": valid,
+                   "max_abs_err": err.max().item(),
+                   "lse_max_abs_err": (lse - ref_lse).abs().max().item(),
+                   "same_bits_twice": bool(torch.equal(out, again)
+                                           and torch.equal(lse, lse2)),
+                   "tol": [atol, rtol, LSE_ATOL]}
+            emit(rec)
+            check(bool((err <= atol + rtol * ref.float().abs()).all()),
+                  f"flash edge {rec}")
+            check(rec["lse_max_abs_err"] <= LSE_ATOL if valid
+                  else lse.max().item() <= -1e29, f"flash edge lse {rec}")
+            check(rec["same_bits_twice"], f"flash edge bits differ {rec}")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for hidden in MLP_EDGE_H:
+        if hidden == block.mlp.fc1.weight.shape[0]:
+            norm, mlp = block.norm2, block.mlp
+        else:  # the model's own init (models/vit.py:init_vit_params)
+            norm = torch.nn.LayerNorm(384, eps=EPS).cuda()
+            mlp = Mlp(ViTConfig(mlp_ratio=hidden / 384))
+            gen = torch.Generator().manual_seed(3)
+            with torch.no_grad():
+                for lin in (mlp.fc1, mlp.fc2):
+                    torch.nn.init.trunc_normal_(lin.weight, std=0.02, a=-0.04,
+                                                b=0.04, generator=gen)
+                    torch.nn.init.zeros_(lin.bias)
+            mlp = mlp.cuda()
+        for m in MLP_EDGE_M:
+            check_mlp(norm, mlp, m, g)
 
 
 def bwd_inputs(bh, n, dtype, seed):
@@ -540,13 +661,18 @@ def phase_timing(block, per_call, bwd_per_step):
     flops = 4 * n * n * hd * b * nh
     nbytes = 4 * b * nh * n * hd * q.element_size()
     bnd, by = bound_ms(flops, nbytes, torch.bfloat16)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, scale=SCALE)
+
     rows["flash_attn_fwd"] = {
-        "ms": median_ms(lambda: flash_attention(q, k, v, SCALE)),
+        **kernel_times(lambda: flash_attention(q, k, v, SCALE)),
         "plain_ms": median_ms(lambda: attention_plain(q, k, v, SCALE)),
-        "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=SCALE)),
+        "library_ms": median_ms(sdpa),
         "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
         "launches_per_predict": per_call["bf16"][0]}
+    rows["flash_attn_fwd"]["library_kernels"] = bench.device_breakdown(
+        sdpa, 1, rows["flash_attn_fwd"]["library_ms"])["kernels"]
     # the kernel's own inputs: bf16 weights (the wrapper's casts of the f32
     # masters are then no-ops and stay out of the timed window)
     block = copy.deepcopy(block)
@@ -560,15 +686,30 @@ def phase_timing(block, per_call, bwd_per_step):
     flops = 4 * m * d * h
     nbytes = 2 * m * d * 2 + 2 * d * h * 2 + (h + 3 * d) * 4
     bnd, by = bound_ms(flops, nbytes, torch.bfloat16)
+    # the eager bf16 composition on cuBLAS, its bf16 operands cast beforehand
+    fc1, fc2, norm = block.mlp.fc1, block.mlp.fc2, block.norm2
+    cw = [t.detach().to(torch.bfloat16) for t in (
+        norm.weight, norm.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias)]
+
+    def composition():
+        y = F.layer_norm(x, (d,), cw[0], cw[1], EPS)
+        y = F.gelu(F.linear(y, cw[2], cw[3]))
+        return x + F.linear(y, cw[4], cw[5])
+
     with torch.no_grad():
         rows["fused_ln_mlp"] = {
-            "ms": median_ms(lambda: fused_ln_mlp_residual(
+            **kernel_times(lambda: fused_ln_mlp_residual(
                 block.norm2, block.mlp, x, EPS)),
             "plain_ms": median_ms(lambda: fused_ln_mlp_residual_plain(
                 block.norm2, block.mlp, x, EPS)),
-            "library_ms": None,
+            "library_ms": None, "composition_ms": median_ms(composition),
             "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
             "launches_per_predict": per_call["bf16"][1]}
+        for m_one in (3601,):  # one frame: 57 row blocks
+            x1 = x[:m_one]
+            rows["fused_ln_mlp"][f"ms_m{m_one}"] = graph_ms(
+                lambda: fused_ln_mlp_residual(block.norm2, block.mlp, x1,
+                                              EPS))
     q, k, v, do, out, lse = bwd_inputs(12, 3601, torch.bfloat16, seed=8)
     b, nh, n, hd = q.shape
     flops = 10 * n * n * hd * b * nh
@@ -578,8 +719,8 @@ def phase_timing(block, per_call, bwd_per_step):
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qs, ks, vs, scale=SCALE)
     rows["flash_attn_bwd"] = {
-        "ms": median_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do,
-                                                    SCALE)),
+        **kernel_times(lambda: flash_attention_bwd(q, k, v, out, lse, do,
+                                                   SCALE)),
         "plain_ms": median_ms(lambda: attention_bwd_plain(q, k, v, out, lse,
                                                           do, SCALE)),
         "library_ms": median_ms(lambda: sdpa.backward(do, retain_graph=True)),
@@ -590,7 +731,34 @@ def phase_timing(block, per_call, bwd_per_step):
                  if name == "flash_attn_bwd" else "480px batch 3")
         emit(dict({"phase": "timing", "kernel": name, "shape": shape,
                    "kernel_ms": row["ms"]}, **row))
+    emit(f32_backward_row())
     return rows
+
+
+def f32_backward_row():
+    """The f32 backward route (flash_bwd_dkdv_f32 + flash_bwd_dq_f32, the
+    CUDA cores) at the fp32 240px train step's shape (batch 2 x 6 heads,
+    N = 901): kernel, plain version, SDPA's f32 backward on the same
+    inputs, and the bound on the f32 CUDA cores."""
+    q, k, v, do, out, lse = bwd_inputs(12, 901, torch.float32, seed=13)
+    b, nh, n, hd = q.shape
+    flops = 10 * n * n * hd * b * nh
+    # q, k, v, dO in; lse, D in; dq, dk, dv out; all f32
+    nbytes = (4 * 4 + 2 * 4 / hd + 3 * 4) * b * nh * n * hd
+    bnd, by = bound_ms(flops, nbytes, torch.float32)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, scale=SCALE)
+    times = kernel_times(lambda: flash_attention_bwd(q, k, v, out, lse, do,
+                                                     SCALE))
+    return {"phase": "timing", "kernel": "flash_attn_bwd (f32)",
+            "shape": "240px fp32 train step (2 x 6 heads, N = 901)",
+            "kernel_ms": times["ms"], **times,
+            "plain_ms": median_ms(lambda: attention_bwd_plain(
+                q, k, v, out, lse, do, SCALE)),
+            "library_ms": median_ms(lambda: sdpa.backward(
+                do, retain_graph=True)),
+            "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
+            "launches_per_train_step": 3}
 
 
 def sp_shapes(n_real, d):
@@ -1082,7 +1250,7 @@ def phase_timing_sp(launches):
     shape = (f"2-rank 960px ring hop (2 x 6 heads, N = {n_local}, "
              f"valid {valid})")
     rows["flash_attn_fwd_dyn"] = {
-        "ms": median_ms(lambda: flash_attention_with_lse_dyn(
+        **kernel_times(lambda: flash_attention_with_lse_dyn(
             q, k, v, SCALE, valid)),
         "plain_ms": median_ms(lambda: attention_dyn_plain(q, k, v, SCALE,
                                                           valid)),
@@ -1102,7 +1270,7 @@ def phase_timing_sp(launches):
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, *kv))
     sdpa = F.scaled_dot_product_attention(qs, ks, vs, scale=SCALE)
     rows["flash_attn_bwd_dyn"] = {
-        "ms": median_ms(lambda: flash_attention_bwd_dyn(
+        **kernel_times(lambda: flash_attention_bwd_dyn(
             q, do, lse, dsum, k, v, SCALE, valid)),
         "plain_ms": median_ms(lambda: attention_bwd_dyn_plain(
             q, do, lse, dsum, k, v, SCALE, valid)),
@@ -1180,9 +1348,14 @@ def main():
 
     t0 = time.perf_counter()
     _build.library()
+    ptxas = {k: r for k, r in _build.ptxas_report(_build.build_log).items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": _build.build_seconds})
+          "nvcc_seconds": _build.build_seconds, "ptxas": ptxas})
     print(_build.build_log, file=sys.stderr)
+    for name in NO_SPILL:
+        rep = [r for k, r in ptxas.items() if name in k]
+        check(rep and not any(r.get("spill_stores") or r.get("spill_loads")
+                              for r in rep), f"{name} spills: {rep}")
 
     ranks = start_sp_ranks()  # they share the card until the timing phase
     try:
@@ -1190,6 +1363,7 @@ def main():
                         precision="bf16", random_init=True, seed=0)
         block = model.model.dino.blocks[0]
         errs = phase_kernels(block)
+        phase_edges(block)
         errs["flash_attn_bwd"] = phase_bwd_kernel()
         errs.update(phase_sp_kernels())
 

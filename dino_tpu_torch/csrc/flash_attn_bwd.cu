@@ -179,21 +179,6 @@ constexpr int SMEM_DQ_BF16 =
 constexpr int SMEM_BWD_BF16 =
     SMEM_DKDV_BF16 > SMEM_DQ_BF16 ? SMEM_DKDV_BF16 : SMEM_DQ_BF16;
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-// the A fragment of columns [16c, 16c+16) of a warpgroup accumulator
-// (hopper.cuh layout), rounded to bf16
-__device__ __forceinline__ void acc_to_a(unsigned (&a)[4], const float (&x)[32],
-                                         int c) {
-  a[0] = pack_bf16(x[8 * c], x[8 * c + 1]);
-  a[1] = pack_bf16(x[8 * c + 2], x[8 * c + 3]);
-  a[2] = pack_bf16(x[8 * c + 4], x[8 * c + 5]);
-  a[3] = pack_bf16(x[8 * c + 6], x[8 * c + 7]);
-}
-
 // a warp's 16 rows of a warpgroup accumulator (rows row0 + g, row0 + g + 8)
 // -> f32 rows of dst that are < n; rows >= zero_from get exact zeros
 __device__ __forceinline__ void store_acc(float* dst, const float (&x)[32],
@@ -211,19 +196,6 @@ __device__ __forceinline__ void store_acc(float* dst, const float (&x)[32],
       *reinterpret_cast<float2*>(d + 8 * j) =
           live ? make_float2(x[4 * j + 2 * r], x[4 * j + 2 * r + 1])
                : make_float2(0.f, 0.f);
-  }
-}
-
-// A fragments of warp w's 16 rows of a 64-row, 128-byte-swizzled bf16
-// tile, one per 16 columns (ldmatrix from the swizzled rows)
-__device__ __forceinline__ void load_a_frags(unsigned (&a)[4][4],
-                                             const unsigned char* tile, int w,
-                                             int lane) {
-  const int row = 16 * w + lane % 8 + (lane / 8 % 2) * 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int chunk = 2 * kk + lane / 16;
-    ldsm_x4(a[kk], tile + row * 128 + ((chunk ^ (row & 7)) << 4));
   }
 }
 

@@ -22,11 +22,14 @@
 // q/k/v/out, ~1,800 FLOP per byte, far above the card's ~295 FLOP/byte ridge:
 // it is bound by operations, in both dtypes.
 //
-// bf16: both products on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-// accumulate) in the FlashAttention-2 arrangement: each warp keeps its 16
-// query rows' scores, probabilities and output accumulator in registers, so
-// the softmax never touches shared memory, and the next K/V tile streams in
-// (cp.async, double buffered) while the current one is used.
+// bf16: both products on wgmma (bf16 in, f32 accumulate), warp-specialized
+// as the bf16 backward: a producer warp keeps Q and a ring of K/V tiles in
+// flight by TMA, and consumer warpgroups of 64 query rows keep their scores,
+// probabilities and output accumulator in registers, so the softmax never
+// touches shared memory; each warpgroup issues the next tile's Q.K^T ahead
+// of this tile's P.V and runs the next softmax while P.V is in flight (see
+// flash_fwd_bf16).  128 query rows per block halve the K/V traffic from L2
+// against 64-row blocks (each block streams its head's whole K and V).
 //
 // f32 (the parity mode): float32 on the CUDA cores peaks at 67 TFLOP/s; the
 // TF32 tensor cores at 495.  So both products run as three TF32 products
@@ -41,183 +44,287 @@
 //   S = (Q.K^T) in f32, then * scale      (scale after the product)
 //   keys >= valid are masked to -1e30      (ragged last tile; valid = n
 //                                           for the single-device forward)
-//   online softmax in f32; l sums the unrounded p
+//   online softmax in f32; l sums the unrounded p; bf16 takes
+//   p = 2^(S*(scale*log2 e) - m*log2 e) by one FMA and ex2 (within
+//   FLASH_TOL and LSE_ATOL of exp(S*scale - m): tests/test_torch_port_fwd_mlp_emul.py),
+//   f32 p = exp(S*scale - m)
 //   P is rounded to the input dtype before P.V (bf16; in f32 it is split
 //                                           into its two TF32 halves)
 //   O = acc / max(l, 1e-30), stored in the input dtype
 //   lse = m + log(max(l, 1e-30)), f32, (B*nh, N), optional
 //
 // Layout: q, o are (B*nh, nq, 64), k, v (B*nh, nk, 64), all contiguous;
-// lse (B*nh, nq).  bf16: grid (ceil(nq/64), B*nh), one block of 128 threads
-// per (bh, 64-query tile); warp w owns query rows [16w, 16w+16) of the
-// tile, so everything after the K/V load is warp-local.  f32: grid
-// (ceil(nq/128), B*nh), 256 threads.  K/V rows >= valid are zero-filled on
-// load (cp.async zero-fill, or TMA's out-of-bounds fill over a tensor map
-// of `valid` rows), never used.
+// lse (B*nh, nq).  bf16: grid (ceil(nq/FB_BQ), B*nh), FB_THREADS threads
+// (FB_CONSUMERS warpgroups of 64 query rows, one producer warpgroup).  f32:
+// grid (ceil(nq/128), B*nh), 256 threads.  K/V rows >= valid (and, in
+// bf16, Q rows >= nq) are zero-filled on load by TMA's out-of-bounds fill
+// over tensor maps of `valid` (nq) rows; f32 Q rows >= nq load as zeros.
+// Such rows are never used.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
-#include "warp_mma.cuh"
 
 namespace {
 
 using namespace dtt;
 
 constexpr int HD = 64;          // head dim
-constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // keys per tile
-constexpr int NTHREADS = 128;   // 4 warps
-constexpr int LD = HD + 8;      // bf16 smem row stride: ldmatrix rows hit
-                                // distinct banks
+constexpr int BK = 64;          // keys per f32 tile
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// 64-row tiles -> smem, rows past n zero-filled (warp_mma.cuh)
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
-                                               int r0, int n) {
-  load_rows64_bf16<BK, NTHREADS>(dst, LD, src, r0, n);
+// ---------------------------------------------------------------- bf16 ---
+// Warp-specialized: FB_CONSUMERS warpgroups of 64 query rows each, then a
+// producer warpgroup of which one thread works.  The producer loads the
+// block's Q tiles once and keeps a ring of FB_STAGES K/V tiles in flight by
+// TMA (128-byte swizzle, a full and an empty mbarrier per stage; K/V maps of
+// `valid` rows, so TMA zero-fills the ragged tile), and gives its registers
+// up (setmaxnreg) to the consumers.  A consumer warpgroup keeps its Q rows
+// as wgmma A fragments (ldmatrix, once), runs S = Q.K^T as wgmma
+// m64n{FB_BK}k16 against the K-major K tile, and O += bf16(P).V as wgmma
+// m64n64k16 with P's accumulator registers packed into bf16 pairs as the A
+// fragment and V as the MN-major B operand.  Tile j+1's S product is issued
+// before tile j's P.V, so tile j+1's softmax runs while P.V is on the tensor
+// cores; O is rescaled by tile j+1's alpha once P.V has landed.  Interior
+// key tiles skip the mask.
+
+constexpr int FB_CONSUMERS = 2;   // consumer warpgroups, 64 query rows each
+constexpr int FB_BK = 128;        // keys per tile
+constexpr int FB_STAGES = 4;      // K/V ring depth
+constexpr int FB_BLOCKS = 1;      // blocks per SM
+constexpr int FB_BQ = 64 * FB_CONSUMERS;
+constexpr int FB_THREADS = 128 * (FB_CONSUMERS + 1);
+constexpr int FB_PRODUCER = 4 * FB_CONSUMERS;  // the producer's warp index
+constexpr int FB_REGS_PRODUCER = 24;
+// registers a thread: ptxas gives every thread the launch bound's share
+// (FB_REGS_LAUNCH); the producer group gives all but 24 back and the
+// consumers take them (setmaxnreg draws on the block's own registers)
+constexpr int FB_REGS_LAUNCH = 65536 / (FB_BLOCKS * FB_THREADS) / 8 * 8;
+constexpr int FB_REGS_CONSUMER_MAX =
+    FB_REGS_LAUNCH + (FB_REGS_LAUNCH - FB_REGS_PRODUCER) / FB_CONSUMERS;
+constexpr int FB_REGS_CONSUMER =
+    FB_REGS_CONSUMER_MAX >= 240 ? 240 : FB_REGS_CONSUMER_MAX / 8 * 8;
+constexpr float LOG2E = 1.4426950408889634f;
+
+constexpr int Q_TILE = 64 * 128;       // 64 rows x 64 bf16, swizzled
+constexpr int KV_TILE = FB_BK * 128;   // FB_BK rows x 64 bf16, swizzled
+constexpr int SMEM_BF16 = FB_CONSUMERS * Q_TILE + FB_STAGES * 2 * KV_TILE +
+                          (1 + 2 * FB_STAGES) * 8 + 1024;  // + align
+
+// online softmax of one tile's raw scores S = Q.K^T in place (s <- p,
+// unrounded), rows g (e = 0, 1) and g+8 (e = 2, 3) of each 8-key slice; the
+// row's four lanes (same g) combine their maxima with two shuffles.  MASK
+// sets keys >= valid to -1e30.  The row max m is of the scaled scores
+// (scale > 0, so max(S)*scale rounds as max(S*scale)), and
+// p = 2^(S*(scale*log2 e) - m*log2 e): one FMA and one ex2 per score.
+template <bool MASK, int NR>
+__device__ __forceinline__ void softmax_tile(float (&s)[NR], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             int k0, int valid, int t,
+                                             float scale) {
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < NR / 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (MASK && k0 + j * 8 + 2 * t + (e & 1) >= valid) s[4 * j + e] = NEG_INF;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+    }
+  }
+  float ml[2];  // m * log2 e
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale);
+    alpha[r] = ex2((m[r] - m_new) * LOG2E);
+    m[r] = m_new;
+    ml[r] = m_new * LOG2E;
+  }
+  const float sl = scale * LOG2E;
+  float rsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NR / 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = ex2(fmaf(s[4 * j + e], sl, -ml[e >> 1]));
+      rsum[e >> 1] += s[4 * j + e];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rsum[r];
 }
 
-constexpr int SMEM_BF16 = (BQ + 4 * BK) * LD * (int)sizeof(bf16);  // Q, 2x(K, V)
+template <int NR>
+__device__ __forceinline__ void softmax_any(float (&s)[NR], float (&m)[2],
+                                            float (&l)[2], float (&alpha)[2],
+                                            int k0, int valid, int t,
+                                            float scale) {
+  if (k0 + FB_BK <= valid)  // an interior tile: no mask
+    softmax_tile<false>(s, m, l, alpha, k0, valid, t, scale);
+  else
+    softmax_tile<true>(s, m, l, alpha, k0, valid, t, scale);
+}
 
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o,
-               float* __restrict__ lse, int nq, int nk, int valid,
-               float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // BQ x LD
-  bf16* Ks = Qs + BQ * LD;                   // 2 buffers of BK x LD
-  bf16* Vs = Ks + 2 * BK * LD;               // 2 buffers of BK x LD
+// S (64 x FB_BK) = Q.K^T of one key tile, one wgmma group: Q rows and K
+// rows from their swizzled tiles, both K-major (32 bytes per k-step)
+template <int NR>
+__device__ __forceinline__ void score_issue(float (&s)[NR], uint64_t dq,
+                                            const unsigned char* kt) {
+  const uint64_t dk = sw128_desc(kt);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_bf16_ss(s, dq + 2 * kk, dk + 2 * kk);
+  wgmma_commit();
+}
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const size_t base = (size_t)bh * nq * HD, kbase = (size_t)bh * nk * HD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment row / column pair
+// O (64 x 64) += bf16(P) . V of one key tile, one wgmma group: P as register
+// A fragments, V the MN-major B operand (16 key rows, 2048 bytes a k-step)
+__device__ __forceinline__ void pv_issue(float (&oacc)[32],
+                                         const unsigned (&pa)[FB_BK / 16][4],
+                                         const unsigned char* vt) {
+  const uint64_t dv = sw128_desc(vt);
+#pragma unroll
+  for (int kc = 0; kc < FB_BK / 16; ++kc)
+    wgmma_bf16_rs<1>(oacc, pa[kc], dv + 128 * kc);
+  wgmma_commit();
+}
 
-  load_tile_bf16(Qs, q + base, q0, nq);
-  load_tile_bf16(Ks, k + kbase, 0, valid);
-  load_tile_bf16(Vs, v + kbase, 0, valid);
-  cp_async_commit();
+// K and V rows [tile*FB_BK, ..) of head bh -> stage st of the ring
+__device__ __forceinline__ void kv_load(const CUtensorMap* kmap,
+                                        const CUtensorMap* vmap,
+                                        unsigned char* Ks, unsigned char* Vs,
+                                        uint64_t* full, int tile, int bh) {
+  const int st = tile % FB_STAGES;
+  mbar_arrive_expect_tx(&full[st], 2 * KV_TILE);
+  tma_load_3d(Ks + st * KV_TILE, kmap, &full[st], 0, tile * FB_BK, bh);
+  tma_load_3d(Vs + st * KV_TILE, vmap, &full[st], 0, tile * FB_BK, bh);
+}
 
-  unsigned qa[HD / 16][4];      // Q strip as A fragments, one per 16 of hd
-  float oacc[HD / 8][4] = {};   // O strip, 16 x 64
+__global__ void __launch_bounds__(FB_THREADS, FB_BLOCKS)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               bf16* __restrict__ o, float* __restrict__ lse, int nq,
+               int valid, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);             // FB_CONSUMERS tiles
+  unsigned char* Ks = Qs + FB_CONSUMERS * Q_TILE;      // FB_STAGES tiles
+  unsigned char* Vs = Ks + FB_STAGES * KV_TILE;        // FB_STAGES tiles
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(Vs + FB_STAGES * KV_TILE);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + FB_STAGES;
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * FB_BQ, tid = threadIdx.x;
+  const int ntiles = (valid + FB_BK - 1) / FB_BK;  // valid = 0: none
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < FB_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * FB_CONSUMERS);  // one lane per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32;
+  // Q first, ahead of the register hand-over below (the consumers'
+  // setmaxnreg.inc waits for the producer's .dec), so its load latency
+  // overlaps the hand-over
+  if (tid == FB_PRODUCER * 32 && ntiles > 0) {
+    mbar_arrive_expect_tx(q_bar, FB_CONSUMERS * Q_TILE);
+    for (int c = 0; c < FB_CONSUMERS; ++c)  // rows >= nq are 0
+      tma_load_3d(Qs + c * Q_TILE, &qmap, q_bar, 0, q0 + 64 * c, bh);
+  }
+  if (warp >= FB_PRODUCER) {
+    setmaxnreg_dec<FB_REGS_PRODUCER>();
+    if (tid == FB_PRODUCER * 32)
+      for (int tile = 0; tile < ntiles; ++tile) {
+        mbar_wait(&empty[tile % FB_STAGES], ((tile / FB_STAGES) & 1) ^ 1);
+        kv_load(&kmap, &vmap, Ks, Vs, full, tile, bh);
+      }
+    return;
+  }
+
+  // consumer warpgroup c: query rows q0 + 64c + [0, 64)
+  setmaxnreg_inc<FB_REGS_CONSUMER>();
+  const int c = warp / 4, w = warp % 4, g = lane / 4, t = lane % 4;
+  float oacc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF};  // running max of rows g, g+8
   float l[2] = {0.f, 0.f};          // this lane's part of the running sum
+  if (ntiles > 0) {
+    mbar_wait(q_bar, 0);
+    const uint64_t dq = sw128_desc(Qs + c * Q_TILE);  // this group's Q rows
+    float s[FB_BK / 2], alpha[2];
+    unsigned pa[FB_BK / 16][4];  // bf16(P) of the tile, A fragments
 
-  const int ntiles = (valid + BK - 1) / BK;
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int buf = tile & 1;
-    if (tile + 1 < ntiles) {  // prefetch the next K/V tile
-      load_tile_bf16(Ks + (buf ^ 1) * BK * LD, k + kbase, (tile + 1) * BK,
-                     valid);
-      load_tile_bf16(Vs + (buf ^ 1) * BK * LD, v + kbase, (tile + 1) * BK,
-                     valid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile (and Q) have landed
-    __syncthreads();
-    if (tile == 0) {
+    // tile 0's scores and softmax
 #pragma unroll
-      for (int kc = 0; kc < HD / 16; ++kc)
-        ldsm_x4(qa[kc], a_tile(Qs, LD, warp * 16, kc * 16, lane));
-    }
-    const bf16* Kt = Ks + buf * BK * LD;
-    const bf16* Vt = Vs + buf * BK * LD;
+    for (int i = 0; i < FB_BK / 2; ++i) s[i] = 0.f;
+    mbar_wait(&full[0], 0);
+    reg_fence(s);
+    wgmma_fence();
+    score_issue(s, dq, Ks);
+    wgmma_wait<0>();
+    reg_fence(s);
+    softmax_any(s, m, l, alpha, 0, valid, t, scale);
+#pragma unroll
+    for (int kc = 0; kc < FB_BK / 16; ++kc) acc_to_a(pa[kc], s, kc);
 
-    // S strip (16 x 64) = Q . K^T; K row-major is K^T's column-major B
-    float s[BK / 8][4];
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int st = tile % FB_STAGES;
+      if (tile + 1 < ntiles) {
+        // tile+1's S ahead of tile's P.V; tile+1's softmax while P.V runs
+        const int s1 = (tile + 1) % FB_STAGES;
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        for (int i = 0; i < FB_BK / 2; ++i) s[i] = 0.f;
+        mbar_wait(&full[s1], ((tile + 1) / FB_STAGES) & 1);
+        reg_fence(s);
+        reg_fence(oacc);
+        wgmma_fence();
+        score_issue(s, dq, Ks + s1 * KV_TILE);
+        pv_issue(oacc, pa, Vs + st * KV_TILE);
+        wgmma_wait<1>();
+        reg_fence(s);
+        softmax_any(s, m, l, alpha, (tile + 1) * FB_BK, valid, t, scale);
+        wgmma_wait<0>();
+      } else {
+        reg_fence(oacc);
+        wgmma_fence();
+        pv_issue(oacc, pa, Vs + st * KV_TILE);
+        wgmma_wait<0>();
+      }
+      reg_fence(oacc);
 #pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc) {
+      for (int kc = 0; kc < FB_BK / 16; ++kc) reg_fence(pa[kc]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with it
+      if (tile + 1 < ntiles) {
 #pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        unsigned b[4];
-        ldsm_x4(b, b_tiles_nk(Kt, LD, np * 16, kc * 16, lane));
-        mma_bf16(s[2 * np], qa[kc], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qa[kc], b[2], b[3]);
+        for (int i = 0; i < 32; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+        for (int kc = 0; kc < FB_BK / 16; ++kc) acc_to_a(pa[kc], s, kc);
       }
     }
-
-    // online softmax on rows g (e = 0, 1) and g+8 (e = 2, 3); the row's four
-    // lanes (same g) combine their maxima with two shuffles
-    const int k0 = tile * BK;
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale;
-        if (k0 + j * 8 + 2 * t + (e & 1) >= valid) x = NEG_INF;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-    float rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - m[e >> 1]);
-        rsum[e >> 1] += s[j][e];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rsum[r];
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      oacc[j][0] *= alpha[0];
-      oacc[j][1] *= alpha[0];
-      oacc[j][2] *= alpha[1];
-      oacc[j][3] *= alpha[1];
-    }
-
-    // O strip += bf16(P) . V; the S accumulators of key tiles 2kc, 2kc+1 are
-    // exactly the A fragment of keys [16kc, 16kc+16)
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      const unsigned pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int np = 0; np < HD / 16; ++np) {
-        unsigned b[4];
-        ldsm_x4_trans(b, b_tiles_kn(Vt, LD, kc * 16, np * 16, lane));
-        mma_bf16(oacc[2 * np], pa, b[0], b[1]);
-        mma_bf16(oacc[2 * np + 1], pa, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer before refill
   }
-  cp_async_wait<0>();  // valid = 0 visits no tile: drain the first loads
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(FULL, l[r], 1);
     l[r] += __shfl_xor_sync(FULL, l[r], 2);
     const float lc = fmaxf(l[r], 1e-30f);
-    const int qr = q0 + warp * 16 + g + 8 * r;
+    const int qr = q0 + 64 * c + 16 * w + g + 8 * r;
     if (qr < nq) {
-      bf16* dst = o + base + (size_t)qr * HD + 2 * t;
+      bf16* dst = o + ((size_t)bh * nq + qr) * HD + 2 * t;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
-            oacc[j][2 * r] / lc, oacc[j][2 * r + 1] / lc);
+            oacc[4 * j + 2 * r] / lc, oacc[4 * j + 2 * r + 1] / lc);
       if (lse != nullptr && t == 0) lse[(size_t)bh * nq + qr] = m[r] + logf(lc);
     }
   }
@@ -483,17 +590,28 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
       bh > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap kmap, vmap;
+  int err;
   if (is_bf16) {
-    const dim3 grid((nq + BQ - 1) / BQ, bh);
-    flash_fwd_bf16<<<grid, NTHREADS, SMEM_BF16, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o),
-        static_cast<float*>(lse), nq, nk, valid, scale);
+    // Q seen as nq rows and K/V as `valid` rows of each head: TMA zero-fills
+    // the rows past them
+    CUtensorMap qmap;
+    const CUtensorMapDataType bt = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    if ((err = make_rows_map(&qmap, q, bt, 2, bh, nq, nq, 64, 64)) != 0 ||
+        (err = make_rows_map(&kmap, k, bt, 2, bh, nk, valid, 64, FB_BK)) != 0 ||
+        (err = make_rows_map(&vmap, v, bt, 2, bh, nk, valid, 64, FB_BK)) != 0)
+      return err;
+    if ((err = (int)cudaFuncSetAttribute(
+             flash_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             SMEM_BF16)) != 0)
+      return err;
+    const dim3 grid((nq + FB_BQ - 1) / FB_BQ, bh);
+    flash_fwd_bf16<<<grid, FB_THREADS, SMEM_BF16, s>>>(
+        qmap, kmap, vmap, static_cast<bf16*>(o), static_cast<float*>(lse), nq,
+        valid, scale);
     return (int)cudaGetLastError();
   }
   // K/V seen as `valid` rows of each head: TMA zero-fills the ragged tile
-  CUtensorMap kmap, vmap;
-  int err;
   if ((err = make_rows_map(&kmap, k, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, bh,
                            nk, valid, 32, BK)) != 0 ||
       (err = make_rows_map(&vmap, v, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, bh,

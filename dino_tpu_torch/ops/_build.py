@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -47,7 +48,9 @@ _SIGNATURES = {
 
 _LIB: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of this process's build
-build_log = ""  # nvcc's output (ptxas register and shared-memory report)
+# nvcc's output (ptxas register and shared-memory report), kept beside the
+# library
+build_log = ""
 
 
 def build_dir() -> Path:
@@ -72,7 +75,7 @@ def _digest() -> str:
 
 
 def _build(target: Path) -> None:
-    global build_seconds, build_log
+    global build_seconds
     nvcc = _nvcc()
     target.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -95,18 +98,19 @@ def _build(target: Path) -> None:
                               capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+        target.with_suffix(".log").write_text("\n".join(logs))
         os.replace(so_tmp, target)
     build_seconds = time.perf_counter() - t0
-    build_log = "\n".join(logs)
 
 
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built from the sources on first call."""
-    global _LIB
+    global _LIB, build_log
     if _LIB is None:
         target = build_dir() / f"libdino_tpu_torch_{_digest()}.so"
         if not target.exists():
             _build(target)
+        build_log = target.with_suffix(".log").read_text()
         lib = ctypes.CDLL(str(target))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -114,6 +118,29 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def ptxas_report(log: str) -> dict:
+    """{entry function (mangled): {"registers", "spill_stores",
+    "spill_loads"}} from ptxas's -v report in ``log`` (nvcc's output)."""
+    report, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            report[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[entry].update(spill_stores=int(m.group(1)),
+                                 spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[entry]["registers"] = int(m.group(1))
+    return report
 
 
 def check_launch(name: str, rc: int) -> None:

@@ -11,7 +11,7 @@ import torch
 
 import chip_smoke
 from dino_tpu_torch import DINOSeg
-from dino_tpu_torch.models.vit import Block, ViTConfig
+from dino_tpu_torch.models.vit import Block, Mlp, ViTConfig
 from dino_tpu_torch.ops import attention as tatt
 from dino_tpu_torch.ops import fused_mlp as tfm
 from dino_tpu_torch.train import loop as tloop
@@ -255,3 +255,59 @@ def test_bwd_repeats_its_bits(cuda, dtype):
     a = tatt.flash_attention_bwd_dyn(q, do, lse, dsum, k, v, 0.125, 700)
     b = tatt.flash_attention_bwd_dyn(q, do, lse, dsum, k, v, 0.125, 700)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("n", [chip_smoke.FWD_BQ - 1, chip_smoke.FWD_BQ,
+                               chip_smoke.FWD_BQ + 1, 901])
+def test_bf16_fwd_at_tile_edges(cuda, n):
+    """The bf16 forward at query counts around its block rows, B*nh = 1,
+    static and dynamic-bound with bounds around its key tiles; each call
+    twice, the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(n + 3)
+    q, k, v = (torch.randn(1, 1, n, 64, generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(3))
+    atol, rtol = chip_smoke.FLASH_TOL[torch.bfloat16]
+    out, lse = tatt.flash_attention(q, k, v, 0.125, return_lse=True)
+    again = tatt.flash_attention(q, k, v, 0.125, return_lse=True)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse = tatt.attention_plain(q, k, v, 0.125)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=chip_smoke.LSE_ATOL, rtol=0)
+    for valid in sorted({0, 1, 63, 64, 65, 127, 128, 129, n}):
+        if valid > n:
+            continue
+        out, lse = tatt.flash_attention_with_lse_dyn(q, k, v, 0.125, valid)
+        again = tatt.flash_attention_with_lse_dyn(q, k, v, 0.125, valid)
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        ref, ref_lse = tatt.attention_dyn_plain(q, k, v, 0.125, valid)
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+        if valid:
+            torch.testing.assert_close(lse, ref_lse,
+                                       atol=chip_smoke.LSE_ATOL, rtol=0)
+        else:
+            assert float(lse.max()) <= -1e29
+
+
+@pytest.mark.parametrize("hidden", [64, 1536])
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 129, 3601])
+def test_fused_mlp_at_row_edges(cuda, m, hidden):
+    """The fused MLP on both sides of its 64-row blocks and cluster pairs,
+    with the model's own init (trunc-normal .02 weights), at hidden 64 and
+    1,536; twice, the same bits."""
+    gen = torch.Generator().manual_seed(m + hidden)
+    norm = torch.nn.LayerNorm(384, eps=1e-6)
+    mlp = Mlp(ViTConfig(mlp_ratio=hidden / 384))
+    with torch.no_grad():
+        for lin in (mlp.fc1, mlp.fc2):
+            torch.nn.init.trunc_normal_(lin.weight, std=0.02, a=-0.04, b=0.04,
+                                        generator=gen)
+            torch.nn.init.zeros_(lin.bias)
+    norm, mlp = norm.to(cuda), mlp.to(cuda)
+    x = (torch.randn(m, 384, generator=gen) * 0.5).to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        out = tfm.fused_ln_mlp_residual(norm, mlp, x, 1e-6)
+        again = tfm.fused_ln_mlp_residual(norm, mlp, x, 1e-6)
+        ref = tfm.fused_ln_mlp_residual_plain(norm, mlp, x, 1e-6)
+    assert torch.equal(out, again)
+    assert chip_smoke.mlp_err(out, ref, x)[2]

@@ -15,6 +15,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+import chip_smoke
 from dino_tpu.ops import attention as jatt
 from dino_tpu.ops import bicubic as jbic
 from dino_tpu.ops import fused_mlp as jfm
@@ -66,7 +67,7 @@ def _qkv(n, seed, b=1, nh=2, hd=64):
     return [rs.randn(b, nh, n, hd).astype(np.float32) for _ in range(3)]
 
 
-@pytest.mark.parametrize("n", [37, 226, 901])
+@pytest.mark.parametrize("n", [37, 226, 901, 127, 129, 191, 193])
 def test_attention_plain_matches_pallas_flash(n):
     q, k, v = _qkv(n, n)
     scale = 64 ** -0.5
@@ -189,6 +190,23 @@ def test_fused_mlp_plain_matches_pallas_kernel_bf16():
     out = tfm.fused_ln_mlp_residual_plain(norm, mlp, x, EPS)
     assert out.dtype == torch.bfloat16
     _assert_within_residual_ulps(out.detach().float(), ref, x.float())
+
+
+@pytest.mark.parametrize("m", [1, 63, 65, 129])
+def test_fused_mlp_plain_matches_pallas_kernel_at_tile_edges(m):
+    """Row counts on both sides of the CUDA kernel's 64-row blocks, the
+    Pallas kernel run on x padded with zero rows to its 32-row tile; under
+    the kernels' tolerance (chip_smoke.mlp_err: 2 bf16 ulps of the residual
+    add's operands plus one ulp of rms(h), where x + h cancels)."""
+    c = _mlp_case(m=m, seed=10 + m)
+    mp = -(-m // 32) * 32
+    cp = dict(c, x=np.concatenate([c["x"], np.zeros((mp - m, 384),
+                                                    np.float32)]))
+    ref = np.array(_pallas_fused(cp, jnp.bfloat16).astype(jnp.float32))[:m]
+    norm, mlp = _torch_mlp(c)
+    x = _t(c["x"]).to(torch.bfloat16)
+    out = tfm.fused_ln_mlp_residual_plain(norm, mlp, x, EPS)
+    assert chip_smoke.mlp_err(out.detach(), torch.from_numpy(ref), x)[2]
 
 
 def test_mlp_composition_matches_xla_reference_f32():
