@@ -9,14 +9,16 @@ each printing JSON lines:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds the kernels of dino_tpu_torch/csrc at first use;
-     ptxas's registers and spills per kernel, failing on a spill in the
-     bf16 forward or the fused MLP;
+     ptxas's registers and spills per kernel, failing on a spill (or
+     ptxas's C7512, wgmma serialized for want of registers) in the bf16
+     forward, the fused MLP or either backward kernel;
   3. kernels vs their plain PyTorch versions on the card, at the main
      path's shapes, each against its stated tolerance; every kernel run
      twice and held to the same bits; the bf16 forward at query counts
      around its 128-row blocks and key bounds around its key tiles, the
      fused MLP at row counts around its 64-row blocks (up to batch 16) and
-     at hidden widths 64 and 1,536;
+     at hidden widths 64 and 1,536; the f32 backward at query counts around
+     its tiles and blocks, static and with key bounds around them;
   4. main path: DINOSeg.predict / predict_batch on random ViT-S/8 weights
      (3 blocks, MLP head, 7 classes) at 240/480/960px in bf16 and fp32,
      with every kernel's launch count read before and after;
@@ -36,16 +38,17 @@ each printing JSON lines:
      predict at 1624px (N = 41,210, where dino_tpu runs its chunked kernel)
      and the kernel vs its plain version at that N;
   8. timing (CUDA events around bursts of back-to-back calls, median of
-     the bursts; the bf16 kernels also replayed from a CUDA graph, which
-     takes the host out) at the 480px predict shapes (batch 3; the fused
-     MLP also at one frame), the train bench's microbatch shapes for the
-     backward (and the fp32 240px step's for the f32 backward), the 2-rank
-     960px per-hop shape for the dynamic-bound kernels and the 1624px shape
-     (and the 960px fp32 predict's N) for the f32 forward: kernel, plain
-     version, one PyTorch library call (for the forwards also the device
-     kernels it runs), the fused MLP's eager bf16 composition, and the
-     card's bound (the f32 forward's on its route: three TF32 passes); the
-     fp32 predict latency at 480 and 960px; then the cli/bench line
+     the bursts; the bf16 kernels and the f32 backward also replayed from a
+     CUDA graph, which takes the host out) at the 480px predict shapes
+     (batch 3; the fused MLP also at one frame), the train bench's
+     microbatch shapes for the backward (and the fp32 step's at 240px and
+     at N = 3,601 for the f32 backward), the 2-rank 960px per-hop shape for
+     the dynamic-bound kernels and the 1624px shape (and the 960px fp32
+     predict's N) for the f32 forward: kernel, plain version, one PyTorch
+     library call (for the forwards also the device kernels it runs), the
+     fused MLP's eager bf16 composition, and the card's bound (the f32
+     forward's and backward's on their route: three TF32 passes); the fp32
+     predict latency at 480 and 960px; then the cli/bench line
      (predict and train);
   9. the per-kernel summary line, the card line, and the final status line.
 
@@ -143,12 +146,17 @@ SP_RANK_TIMEOUT = 600  # seconds for the rank processes, from their start
 CHUNKED_RES = 1624    # 203 x 203 + 1 = 41,210 tokens: dino_tpu's chunked
                       # kernel in f32 (past 8 resident K/V slices)
 FWD_BQ = 128          # query rows per block of the bf16 forward (csrc FB_BQ)
+# query counts of the f32 backward's edge checks: both sides of its 64-row
+# warpgroups and 128-row blocks (csrc B_ROWS), around its 32-row tiles
+BWD_EDGE_N = (63, 64, 65, 127, 128, 129)
 # row counts and hidden widths of the fused-MLP edge checks: both sides of
 # the 64-row blocks, one frame, 480px batch 3 and batch 16
 MLP_EDGE_M = (1, 63, 64, 65, 129, 3601, 10803, 57616)
 MLP_EDGE_H = (64, 1536)
-# the kernels whose ptxas report must show no spill
-NO_SPILL = ("flash_fwd_bf16", "fused_ln_mlp_kernel")
+# the kernels whose ptxas report must show no spill and no C7512 (wgmma
+# serialized for want of registers)
+NO_SPILL = ("flash_fwd_bf16", "fused_ln_mlp_kernel", "flash_bwd_bf16",
+            "flash_bwd_f32")
 
 
 _T0 = time.perf_counter()
@@ -407,9 +415,10 @@ def bwd_dyn_err(got, ref, dtype):
 
 
 def phase_bwd_kernel():
-    """The flash backward vs its plain version; returns the max error at
-    the train bench's microbatch shapes (bf16, B*nh = 12, N = 3,601)."""
-    worst = None
+    """The flash backward vs its plain version; returns the max errors at
+    the train bench's microbatch shapes (bf16, B*nh = 12, N = 3,601) and at
+    the fp32 240px step's (f32, B*nh = 12, N = 901)."""
+    worst = {}
     for dtype in (torch.bfloat16, torch.float32):
         for n in (37, 901, 3601, 14401):
             for bh in (6, 12, 18):
@@ -432,37 +441,89 @@ def phase_bwd_kernel():
                 check(ok, f"flash backward {rec}")
                 check(same, f"flash backward bits differ between runs {rec}")
                 if dtype == torch.bfloat16 and n == 3601 and bh == 12:
-                    worst = rec["max_abs_err"]
+                    worst["flash_attn_bwd"] = rec["max_abs_err"]
+                if dtype == torch.float32 and n == 901 and bh == 12:
+                    worst["flash_attn_bwd_f32"] = rec["max_abs_err"]
                 del q, k, v, do, out, lse, got, again, ref
     return worst
 
 
+def phase_bwd_edges():
+    """The f32 backward (flash_bwd_f32: 128-row blocks of two 64-row
+    warpgroups, 32-row streamed tiles) at query counts around its tiles,
+    B*nh = 1: the static entry, and the dynamic-bound one with key bounds
+    around its tiles; each call twice, held to the same bits, dead keys'
+    rows exact zeros."""
+    f32 = torch.float32
+    for n in BWD_EDGE_N:
+        g = torch.Generator(device="cuda").manual_seed(n + 3)
+        q, k, v, do = (torch.randn(1, 1, n, 64, generator=g, device="cuda")
+                       for _ in range(4))
+        out, lse = flash_attention(q, k, v, SCALE, return_lse=True)
+        dsum = (do * out).sum(-1).reshape(1, n)
+        calls = [("static", n, lambda: flash_attention_bwd(
+            q, k, v, out, lse, do, SCALE), lambda: attention_bwd_plain(
+                q, k, v, out, lse, do, SCALE))]
+        for valid in sorted({0, 1, 63, 64, 65, n}):
+            if valid <= n:
+                calls.append(("dyn", valid, functools.partial(
+                    flash_attention_bwd_dyn, q, do, lse, dsum, k, v, SCALE,
+                    valid), functools.partial(
+                        attention_bwd_dyn_plain, q, do, lse, dsum, k, v,
+                        SCALE, valid)))
+        for entry, valid, fn, plain in calls:
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            errs, ok = bwd_err(got, plain(), f32)
+            tail = max(t[:, :, valid:].abs().max().item() if valid < n
+                       else 0.0 for t in got[1:])
+            rec = {"phase": "kernel_check", "kernel": "flash_attn_bwd_edges",
+                   "dtype": "float32", "entry": entry, "bh": 1, "n": n,
+                   "valid": valid, "max_abs_err": max(errs),
+                   "dead_key_grad_max": tail,
+                   "same_bits_twice": all(torch.equal(a, b)
+                                          for a, b in zip(got, again)),
+                   "tol": list(BWD_F32_TOL)}
+            emit(rec)
+            check(ok, f"f32 backward edge {rec}")
+            check(tail == 0.0, f"f32 backward edge: dead keys not zero {rec}")
+            check(rec["same_bits_twice"], f"f32 backward edge bits {rec}")
+
+
 def counts():
+    """(flash forward, fused MLP, bf16 backward, f32 backward) launches."""
     c = all_counts()
-    return c["flash_attn_fwd"], c["fused_ln_mlp"], c["flash_attn_bwd"]
+    return (c["flash_attn_fwd"], c["fused_ln_mlp"], c["flash_attn_bwd"],
+            c["flash_attn_bwd_f32"])
 
 
 def zero_counts():
     flash_attention.launches = 0
     fused_ln_mlp_residual.launches = 0
-    flash_attention_bwd.launches = 0
+    flash_attention_bwd.launches = flash_attention_bwd.launches_f32 = 0
     flash_attention_with_lse_dyn.launches = 0
     flash_attention_bwd_dyn.launches = 0
+    flash_attention_bwd_dyn.launches_f32 = 0
 
 
 def all_counts():
-    """Launch counts of every kernel wrapper, by kernel name."""
+    """Launch counts of every kernel, by kernel name: the backward's bf16
+    kernel per entry (kernel 3, kernel 6) and its f32 kernel over both."""
+    bwd, dyn = flash_attention_bwd, flash_attention_bwd_dyn
     return {"flash_attn_fwd": flash_attention.launches,
             "fused_ln_mlp": fused_ln_mlp_residual.launches,
-            "flash_attn_bwd": flash_attention_bwd.launches,
+            "flash_attn_bwd": bwd.launches - bwd.launches_f32,
+            "flash_attn_bwd_f32": bwd.launches_f32 + dyn.launches_f32,
             "flash_attn_fwd_dyn": flash_attention_with_lse_dyn.launches,
-            "flash_attn_bwd_dyn": flash_attention_bwd_dyn.launches}
+            "flash_attn_bwd_dyn": dyn.launches - dyn.launches_f32}
 
 
-def sp_want(fwd_dyn, bwd_dyn):
-    """The counts an SP run must show: dyn kernels only."""
+def sp_want(fwd_dyn, bwd_dyn=0, bwd_f32=0):
+    """The counts an SP run must show: dyn entries only (the backward's
+    bf16 or f32 kernel)."""
     return {"flash_attn_fwd": 0, "fused_ln_mlp": 0, "flash_attn_bwd": 0,
-            "flash_attn_fwd_dyn": fwd_dyn, "flash_attn_bwd_dyn": bwd_dyn}
+            "flash_attn_bwd_f32": bwd_f32, "flash_attn_fwd_dyn": fwd_dyn,
+            "flash_attn_bwd_dyn": bwd_dyn}
 
 
 def phase_main_path(model, frame, frames3):
@@ -477,7 +538,7 @@ def phase_main_path(model, frame, frames3):
             t0 = time.perf_counter()
             out = model.predict(frame, precision=prec)
             dt = time.perf_counter() - t0
-            d_flash, d_mlp, _ = (a - b for a, b in zip(counts(), before))
+            d_flash, d_mlp = [a - b for a, b in zip(counts(), before)][:2]
             emit({"phase": "main_path", "call": "predict", "precision": prec,
                   "res": res, "shape": list(out.shape), "dtype": str(out.dtype),
                   "max_label": int(out.max()), "flash_launches": d_flash,
@@ -517,8 +578,8 @@ def phase_main_path(model, frame, frames3):
     total = counts()
     emit({"phase": "main_path", "total_flash_launches": total[0],
           "total_fused_mlp_launches": total[1],
-          "total_flash_bwd_launches": total[2]})
-    check(total[2] == 0, "predict launched the backward kernel")
+          "total_flash_bwd_launches": total[2] + total[3]})
+    check(total[2] + total[3] == 0, "predict launched a backward kernel")
     check(total[0] > 0 and total[1] > 0, "a kernel was never launched")
     return {"flash_attn_fwd": total[0], "fused_ln_mlp": total[1]}, per_call
 
@@ -530,7 +591,8 @@ def trainables(vit, head, frozen):
 def train_run(model, frozen, precision, res, batch, accum, steps, want,
               seed):
     """``steps`` train steps through make_train_step; checks the launches
-    of every step against ``want`` (flash fwd, fused MLP, flash bwd), a
+    of every step against ``want`` (flash fwd, fused MLP, flash bwd in bf16
+    and in f32), a
     finite loss, that the trained parameters moved and that a frozen
     backbone kept its bits.  Returns the last step's loss."""
     vit, head = model.model.dino, model.model.clf
@@ -559,7 +621,7 @@ def train_run(model, frozen, precision, res, batch, accum, steps, want,
                "accum_steps": accum, "step": i, "loss": loss.item(),
                "cm_total": int(cm.sum()), "flash_launches": got[0],
                "fused_mlp_launches": got[1], "flash_bwd_launches": got[2],
-               "host_s": dt}
+               "flash_bwd_f32_launches": got[3], "host_s": dt}
         emit(rec)
         check(got == list(want), f"train launches {got}, want {want}")
         check(bool(torch.isfinite(loss)), f"non-finite loss {rec}")
@@ -575,28 +637,27 @@ def train_run(model, frozen, precision, res, batch, accum, steps, want,
 
 
 def phase_train_path():
-    """make_train_step on the card; returns the total backward launches of
-    the phase and the launches per unfrozen bf16 step."""
+    """make_train_step on the card; returns the phase's launch counts and
+    the backward launches per unfrozen bf16 step."""
     zero_counts()
     model = DINOSeg(head="mlp", n_blocks=3, n_classes=7, precision="bf16",
                     random_init=True, seed=1, freeze_backbone=False)
     # unfrozen bf16 at the train bench's shapes: 8 microbatches x 3 blocks
-    train_run(model, False, "bf16", 480, 16, 8, 3, (24, 0, 24), seed=2)
+    train_run(model, False, "bf16", 480, 16, 8, 3, (24, 0, 24, 0), seed=2)
     model.freeze_bb()
-    train_run(model, True, "bf16", 480, 16, 8, 1, (24, 24, 0), seed=3)
+    train_run(model, True, "bf16", 480, 16, 8, 1, (24, 24, 0, 0), seed=3)
     model.unfreeze_bb()
     cpu = DINOSeg(head="mlp", n_blocks=3, n_classes=7, precision="fp32",
                   random_init=True, device="cpu", freeze_backbone=False)
     cpu.load_state_dict({k: v.cpu() for k, v in
                          model.model.state_dict().items()})
-    loss = train_run(model, False, "fp32", 240, 2, 1, 1, (3, 0, 3), seed=4)
-    total = counts()
-    emit({"phase": "train_path", "total_flash_launches": total[0],
-          "total_fused_mlp_launches": total[1],
-          "total_flash_bwd_launches": total[2]})
-    check(total[2] > 0, "the backward kernel was never launched")
+    loss = train_run(model, False, "fp32", 240, 2, 1, 1, (3, 0, 0, 3), seed=4)
+    total = all_counts()
+    emit({"phase": "train_path", "launches": total})
+    check(total["flash_attn_bwd"] > 0 and total["flash_attn_bwd_f32"] > 0,
+          "a backward kernel was never launched")
     phase_train_cpu_reference(model, cpu, loss.item(), seed=4)
-    return total[2], 24
+    return total, 24
 
 
 def phase_train_cpu_reference(card, cpu, card_loss, seed):
@@ -731,34 +792,41 @@ def phase_timing(block, per_call, bwd_per_step):
                  if name == "flash_attn_bwd" else "480px batch 3")
         emit(dict({"phase": "timing", "kernel": name, "shape": shape,
                    "kernel_ms": row["ms"]}, **row))
-    emit(f32_backward_row())
+    rows["flash_attn_bwd_f32"] = dict(f32_backward_row(901),
+                                      launches_per_train_step=3)
+    emit(dict({"phase": "timing", "kernel": "flash_attn_bwd_f32",
+               "kernel_ms": rows["flash_attn_bwd_f32"]["ms"]},
+              **rows["flash_attn_bwd_f32"]))
+    row = f32_backward_row(3601)
+    emit(dict({"phase": "timing", "kernel": "flash_attn_bwd_f32",
+               "kernel_ms": row["ms"]}, **row))
     return rows
 
 
-def f32_backward_row():
-    """The f32 backward route (flash_bwd_dkdv_f32 + flash_bwd_dq_f32, the
-    CUDA cores) at the fp32 240px train step's shape (batch 2 x 6 heads,
-    N = 901): kernel, plain version, SDPA's f32 backward on the same
-    inputs, and the bound on the f32 CUDA cores."""
-    q, k, v, do, out, lse = bwd_inputs(12, 901, torch.float32, seed=13)
-    b, nh, n, hd = q.shape
+def f32_backward_row(n):
+    """The f32 backward (flash_bwd_f32, three TF32 passes per product) at
+    the fp32 train step's shape at N tokens (batch 2 x 6 heads; 240px is
+    N = 901): kernel (graph replay and eager), plain version and SDPA's f32
+    backward on the same inputs in the same call; bound by three TF32
+    passes, and on the f32 CUDA cores beside it."""
+    q, k, v, do, out, lse = bwd_inputs(12, n, torch.float32, seed=13)
+    b, nh, _, hd = q.shape
     flops = 10 * n * n * hd * b * nh
     # q, k, v, dO in; lse, D in; dq, dk, dv out; all f32
     nbytes = (4 * 4 + 2 * 4 / hd + 3 * 4) * b * nh * n * hd
-    bnd, by = bound_ms(flops, nbytes, torch.float32)
+    bnd, by = bound_ms(flops, nbytes, "tf32")
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qs, ks, vs, scale=SCALE)
-    times = kernel_times(lambda: flash_attention_bwd(q, k, v, out, lse, do,
-                                                     SCALE))
-    return {"phase": "timing", "kernel": "flash_attn_bwd (f32)",
-            "shape": "240px fp32 train step (2 x 6 heads, N = 901)",
-            "kernel_ms": times["ms"], **times,
+    return {**kernel_times(lambda: flash_attention_bwd(q, k, v, out, lse, do,
+                                                       SCALE)),
             "plain_ms": median_ms(lambda: attention_bwd_plain(
                 q, k, v, out, lse, do, SCALE)),
             "library_ms": median_ms(lambda: sdpa.backward(
                 do, retain_graph=True)),
-            "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
-            "launches_per_train_step": 3}
+            "bound_ms": bnd, "bound_by": by,
+            "bound_f32_cores_ms": bound_ms(flops, nbytes, torch.float32)[0],
+            "flops": flops, "bytes": nbytes,
+            "shape": f"fp32 train step (2 x 6 heads, N = {n})"}
 
 
 def sp_shapes(n_real, d):
@@ -902,7 +970,7 @@ def phase_sp_world1(model, frames2):
                 check(out.shape == (batch, 480, 480) and out.dtype == np.int32,
                       "SP predict_batch output")
                 check(0 <= out.min() and out.max() < 7, "SP labels range")
-                check(got == sp_want(3, 0),
+                check(got == sp_want(3),
                       f"SP predict launches {got}, want 3 of kernel 5")
                 ref = model.predict_batch(imgs, precision=prec)
                 logp = model.log_probs(torch.from_numpy(imgs).cuda(),
@@ -1090,7 +1158,9 @@ def check_sp_step(res, prec, rs, total, world, backend):
                                          tol or 1.0)
     rec.update(grad_worst_rel_diff=worst, grad_worst_leaf=leaf, grad_tol=tol)
     emit(rec)
-    check(got == sp_want(3 * d, 3 * d), f"SP step launches {rec}")
+    want = (sp_want(3 * d, bwd_f32=3 * d) if prec == "fp32"
+            else sp_want(3 * d, bwd_dyn=3 * d))
+    check(got == want, f"SP step launches {rec}")
     check(bool(torch.isfinite(loss)), f"non-finite SP loss {rec}")
     if prec == "fp32":
         check(abs(loss.item() - ref_loss.item())
@@ -1125,7 +1195,7 @@ def sp_rank_main(rank, world, store, backend):
            "call": "predict", "res": SP_RES, "precision": "fp32",
            "launches": got, "patches_differing": n_diff}
     emit(rec)
-    check(got == sp_want(3 * world, 0), f"SP predict launches {rec}")
+    check(got == sp_want(3 * world), f"SP predict launches {rec}")
     check(n_far == 0, f"SP labels differ away from near ties {rec}")
     for res, prec in ((240, "fp32"), (SP_RES, "fp32"), (SP_RES, "bf16")):
         check_sp_step(res, prec, rs, total, world, backend)
@@ -1310,6 +1380,11 @@ KERNELS = {
         source="dino_tpu_torch/csrc/flash_attn_bwd.cu",
         replaces="dino_tpu/ops/attention.py:580",
         tpu_kernel="_flash_bwd_kernel"),
+    # kernels 3 and 6 in f32: flash_bwd_f32, behind both entries
+    "flash_attn_bwd_f32": dict(
+        source="dino_tpu_torch/csrc/flash_attn_bwd.cu",
+        replaces="dino_tpu/ops/attention.py:580",
+        tpu_kernel="_flash_bwd_kernel (f32; and _flash_bwd_kernel_dyn's)"),
     # kernel 4: the f32 K/V stream of entry dtt_flash_attn_fwd
     "flash_attn_fwd_chunked": dict(
         source="dino_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -1355,7 +1430,8 @@ def main():
     for name in NO_SPILL:
         rep = [r for k, r in ptxas.items() if name in k]
         check(rep and not any(r.get("spill_stores") or r.get("spill_loads")
-                              for r in rep), f"{name} spills: {rep}")
+                              or r.get("wgmma_serialized") for r in rep),
+              f"{name} spills: {rep}")
 
     ranks = start_sp_ranks()  # they share the card until the timing phase
     try:
@@ -1364,7 +1440,8 @@ def main():
         block = model.model.dino.blocks[0]
         errs = phase_kernels(block)
         phase_edges(block)
-        errs["flash_attn_bwd"] = phase_bwd_kernel()
+        errs.update(phase_bwd_kernel())
+        phase_bwd_edges()
         errs.update(phase_sp_kernels())
 
         rs = np.random.RandomState(0)
@@ -1372,16 +1449,23 @@ def main():
         frames3 = rs.randint(0, 256, (3, 480, 640, 3)).astype(np.uint8)
         launches, per_call = phase_main_path(model, frame, frames3)
         phase_cpu_reference(model, frame)
-        launches["flash_attn_bwd"], bwd_per_step = phase_train_path()
+        train, bwd_per_step = phase_train_path()
         sp_world1 = phase_sp_world1(model, frames3[:2])
         (launches["flash_attn_fwd_chunked"],
          errs["flash_attn_fwd_chunked"]) = phase_chunked(model, frame)
     finally:
         sp_ranks = join_sp_ranks(ranks)
-    for name in ("flash_attn_fwd_dyn", "flash_attn_bwd_dyn"):
-        launches[name] = sp_world1[name] + sp_ranks[name]
-        check(sp_world1[name] > 0 and sp_ranks[name] > 0,
-              f"{name} was never launched on an SP path")
+    for name in ("flash_attn_bwd", "flash_attn_bwd_f32", "flash_attn_fwd_dyn",
+                 "flash_attn_bwd_dyn"):
+        launches[name] = train[name] + sp_world1[name] + sp_ranks[name]
+    # the world of one runs fp32 steps only; the rank processes both dtypes
+    for name in ("flash_attn_fwd_dyn", "flash_attn_bwd_f32"):
+        check(sp_world1[name] > 0, f"{name} was never launched in SP's world "
+                                   f"of one")
+    for name in ("flash_attn_fwd_dyn", "flash_attn_bwd_dyn",
+                 "flash_attn_bwd_f32"):
+        check(sp_ranks[name] > 0, f"{name} was never launched by the SP "
+                                  f"ranks")
     emit({"phase": "sp_path", "world1_launches": sp_world1,
           "rank_launches_summed": sp_ranks})
     rows = phase_timing(block, per_call, bwd_per_step)

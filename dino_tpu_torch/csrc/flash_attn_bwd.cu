@@ -28,72 +28,56 @@
 // FlashAttention-2 style into two kinds of blocks that need no atomics and
 // give the same bits on every run (the remat contract and repeated SP steps
 // rely on it):
-//   (a) dkdv: one block per (bh, 128 keys; 64 in f32).  K and V stay in
-//       shared memory (in bf16 also as wgmma A fragments in registers); the
-//       block loops over the 64-query tiles, recomputes S^T and P^T from the
-//       saved lse, and accumulates dK and dV in registers.
-//   (b) dq:   one block per (bh, 128 queries; 64 in f32).  It loops over the
-//       64-key tiles below `valid`, recomputes S, P and dP, and accumulates
-//       dQ.
+//   (a) dkdv: one block per (bh, 128 keys).  K and V stay in shared memory
+//       (in bf16 also as wgmma A fragments in registers); the block loops
+//       over the query tiles, recomputes S^T and P^T from the saved lse, and
+//       accumulates dK and dV in registers.
+//   (b) dq:   one block per (bh, 128 queries).  It loops over the key tiles
+//       below `valid`, recomputes S, P and dP, and accumulates dQ.
 // (b) recomputes S and dP, so the pair executes 7 N^2 hd-sized products
-// where one kernel with atomic dQ would do 5.  The bf16 blocks of (a) and
-// (b) go out as one grid, (a)'s first: the shorter (b) blocks fill the last
-// wave of (a)'s.
+// where one kernel with atomic dQ would do 5.  The blocks of (a) and (b) go
+// out as one grid, (a)'s first: the shorter (b) blocks fill the last wave
+// of (a)'s.
 //
 // What bounds it: at the bench's microbatch shapes (B*nh = 12, N = 3,601,
 // hd = 64) the function is 10*N^2*hd*B*nh = 1.0e11 FLOP against ~18 MB of
 // inputs and outputs: bound by operations, on the tensor cores for the
 // products and on the f32 pipe for the exp and dS arithmetic between them
 // (about 15 instructions per score element, twice: once in each kernel).
-// The bf16 kernels therefore keep the tensor cores fed by Hopper's own
-// means: every product is wgmma (m64n64k16, bf16 in, f32 accumulate) over
-// 128-byte-swizzled tiles that a producer warp keeps in flight by TMA
-// (a 3-stage ring, mbarriers); two consumer warpgroups of 64 rows each take
-// 240 registers (setmaxnreg) so P, dP, dS and both accumulators stay in
-// registers; and each warpgroup issues tile j's gradient products and tile
+// Both dtypes therefore keep the tensor cores fed by Hopper's own means:
+// every product is wgmma over 128-byte-swizzled tiles that a producer warp
+// keeps in flight by TMA (a ring of stages, mbarriers), and two consumer
+// warpgroups of 64 rows each take 240 registers (setmaxnreg) so the score
+// tiles and the accumulators stay in registers.  bf16: m64n64k16, bf16 in,
+// f32 accumulate; each warpgroup issues tile j's gradient products and tile
 // j+1's score products back to back, so one wgmma wait per tile overlaps
-// the next tile's products.  The tensor maps are encoded on the host
-// (hopper.cuh make_rows_map) with K/V extents of `valid` rows and Q/dO
-// extents of nq rows: TMA's out-of-bounds fill supplies the zero rows.  The
-// f32 path (the parity mode) runs on the CUDA cores in full float32, with P
-// and dS staged through shared memory.
+// the next tile's products.  f32 (the parity mode): float32 on the CUDA
+// cores peaks at 67 TFLOP/s, the TF32 tensor cores at 495, so every
+// product runs as three TF32 products (hopper.cuh split_tf32), which keeps
+// about 22 bits of every operand, as the f32 forward does; one TF32 pass
+// would miss float32's tolerances (tests/test_torch_port_bwd_tf32x3.py).
+// See the f32 section for its operand layouts.  The tensor maps are encoded
+// on the host (hopper.cuh make_rows_map) with K/V extents of `valid` rows
+// and Q/dO extents of nq rows: TMA's out-of-bounds fill supplies the zero
+// rows.
 //
-// Layout: all tensors contiguous, (B*nh, nq|nk, 64) and (B*nh, nq).  bf16:
-// grid (ceil(nk/128) + ceil(nq/128), B*nh), 384 threads.  f32:
-// grids (ceil(nk/64), B*nh) and (ceil(nq/64), B*nh), 128 threads, rows
-// zero-filled on load.  Query rows past nq get P = 0 (a zero Q row gives
-// S = 0, which the padded lse of 0 would turn into P = 1) and are never
-// stored; key rows past valid get P = 0 and are stored as exact zeros.
+// Layout: all tensors contiguous, (B*nh, nq|nk, 64) and (B*nh, nq); grid
+// (ceil(nk/128) + ceil(nq/128), B*nh), 384 threads, in both dtypes.  Query
+// rows past nq get P = 0 (a zero Q row gives S = 0, which the padded lse of
+// 0 would turn into P = 1) and are never stored; key rows past valid get
+// P = 0 and are stored as exact zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
-#include "warp_mma.cuh"
 
 namespace {
 
 using namespace dtt;
 
 constexpr int HD = 64;          // head dim
-constexpr int BQ = 64;          // query rows per tile
-constexpr int BK = 64;          // keys per tile
-constexpr int NTHREADS = 128;   // 4 warps
-constexpr int KS = HD + 1;      // f32 smem row stride
-
-// lse and D of query rows [q0, q0+64) -> smem; 0 past n (those rows get
-// P = 0 anyway).  Threads 0..63 load lse, 64..127 load D.
-__device__ __forceinline__ void load_rowstats(float* ls, float* ds,
-                                              const float* lse,
-                                              const float* dsum, int q0,
-                                              int n) {
-  const int i = threadIdx.x % BQ, r = q0 + i;
-  if (threadIdx.x < BQ)
-    ls[i] = r < n ? lse[r] : 0.f;
-  else
-    ds[i] = r < n ? dsum[r] : 0.f;
-}
 
 // p = exp(s*scale - lse), ds = p*(dp - D)*scale, rounded as the plain
 // version's separate tensor ops round (no FMA contraction)
@@ -506,171 +490,487 @@ flash_bwd_bf16(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ----------------------------------------------------------------- f32 ---
-// Same two kernels on the CUDA cores.  Thread (row = tid/2, half = tid%2)
-// owns one key (dkdv) or query (dq) row of the tile, the tile columns
-// 2c + half of S/dP, and the output columns 2i + half.
+// The same two block kinds in one grid, every product on the TF32 tensor
+// cores as three passes (hopper.cuh split_tf32: a.b ~ lo_a.hi_b + hi_a.lo_b
+// + hi_a.hi_b, small terms first), as the f32 forward runs its products.
+// 128 rows per block (64 per consumer warpgroup), streamed tiles of F_T = 32
+// rows, 384 threads (2 consumer warpgroups at 240 registers, a producer
+// warp keeping an F_STAGES ring of raw f32 tiles in flight by TMA).
+//
+// TF32 wgmma takes only K-major operands, and A from registers or shared
+// memory, B from shared memory:
+//   score products (K = hd): S^T = K.Q^T, dP^T = V.dO^T (dkdv) and
+//     S = Q.K^T, dP = dO.V^T (dq), m64n32k8.  A is the block's own 64 rows
+//     of the warpgroup, resident in shared memory as hi and lo tiles; B the
+//     streamed [row][hd] tile as TMA lands it (its hi split in place) and
+//     its lo tile.
+//   gradient products (K = the streamed rows): dV += P^T.dO, dK += dS^T.Q
+//     (dkdv) and dQ += dS.K (dq), m64n64k8.  A is the score accumulator's
+//     registers split into hi/lo fragments (hopper.cuh acc_to_tf32_a); B the
+//     streamed tile transposed, [hd][row], its rows in the fragments' order
+//     (tf32_kpos).
+// So the split step writes, per streamed tile: the natural tile's hi in
+// place and its lo; and for Q, dO (dkdv) or K (dq) the transposed hi and lo
+// tiles.  V needs no transpose (dP = dO.V^T reads it as it is).  Shared
+// memory: resident hi/lo 128 KB, the ring 2 x 16 KB, the split tiles 48 KB
+// (dkdv) or 32 KB (dq): one split buffer, so the two warpgroups split each
+// tile together between two named barriers and then run its products.
+//
+// The tensor cores' f32 accumulation truncates (the f32 forward drifted
+// with it over long key loops), so every tile's gradient product goes into a fresh accumulator and
+// is added to the running dK, dV or dQ by the CUDA cores in f32; dV's tile
+// product runs before dK's so that they share one accumulator.
 
-constexpr int TILE_F32 = BQ * KS;  // floats per f32 smem tile
+constexpr int F_T = 32;                // streamed rows per tile
+constexpr int F_STAGES = 2;            // raw tiles in flight
+constexpr int F_RES = 64 * 64 * 4;     // a warpgroup's 64 resident rows x 64
+constexpr int F_ST = F_T * 64 * 4;     // a streamed 32 x 64 tile (or 64 x 32)
+constexpr int F_STAGE = 2 * F_ST;      // one ring stage: two raw tiles
 
-// K, V, Q, dO, P^T, dS^T tiles + lse, D rows
-constexpr int SMEM_DKDV_F32 = (6 * TILE_F32 + 2 * BQ) * (int)sizeof(float);
-
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ dsum, float* __restrict__ dk,
-                   float* __restrict__ dv, int nq, int nk, int valid,
-                   float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = Ks + TILE_F32;
-  float* Qs = Vs + TILE_F32;
-  float* Gs = Qs + TILE_F32;
-  float* Ps = Gs + TILE_F32;  // P^T  [key][query]
-  float* Ss = Ps + TILE_F32;  // dS^T [key][query]
-  float* Ls = Ss + TILE_F32;
-  float* Ds = Ls + BQ;
-
-  const int bh = blockIdx.y, k0 = blockIdx.x * BK;
-  const size_t qbase = (size_t)bh * nq * HD, kbase = (size_t)bh * nk * HD;
-  const int row = threadIdx.x / 2, half = threadIdx.x % 2;
-  const bool key_ok = k0 + row < valid;
-  float dka[HD / 2], dva[HD / 2];
+// the 128 resident rows [r0, r0+128) of a tensor map -> hi (two warpgroup
+// tiles of 64 rows x two 32-column atoms, as 32-row boxes)
+__device__ __forceinline__ void f32_resident_load(unsigned char* dst,
+                                                  const CUtensorMap* map,
+                                                  uint64_t* bar, int r0,
+                                                  int bh) {
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        tma_load_3d(dst + c * F_RES + a * (F_RES / 2) + h * (F_ST / 2), map,
+                    bar, 32 * a, r0 + 64 * c + F_T * h, bh);
+}
 
-  // a dead key tile (k0 >= valid) skips the loop and stores its zeros
-  const int ntiles = k0 < valid ? (nq + BQ - 1) / BQ : 0;
-  if (ntiles > 0) {
-    load_rows64_f32<BK, NTHREADS>(Ks, KS, k + kbase, k0, valid);
-    load_rows64_f32<BK, NTHREADS>(Vs, KS, v + kbase, k0, valid);
+// raw rows [r0, r0+32) of a tensor map -> one streamed tile (two atoms)
+__device__ __forceinline__ void f32_tile_load(unsigned char* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int r0, int bh) {
+  tma_load_3d(dst, map, bar, 0, r0, bh);
+  tma_load_3d(dst + F_ST / 2, map, bar, 32, r0, bh);
+}
+
+// split a resident tile pair (128 rows) in place: hi over the raw values,
+// lo into `lo`.  Thread ct of the 256 consumers takes 16-byte chunks with
+// consecutive rows in a warp's lanes (conflict-free under the swizzle)
+__device__ __forceinline__ void f32_split_resident(unsigned char* hi,
+                                                   unsigned char* lo, int ct) {
+  for (int i = ct; i < 2 * 64 * 16; i += 256) {
+    const int r = i % 64, chunk = (i / 64) % 16, c = i / (64 * 16);
+    const int off = c * F_RES + f32_tile_off(r, 4 * chunk, 64);
+    const float4 x = *reinterpret_cast<const float4*>(hi + off);
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
   }
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int q0 = tile * BQ;
-    load_rows64_f32<BQ, NTHREADS>(Qs, KS, q + qbase, q0, nq);
-    load_rows64_f32<BQ, NTHREADS>(Gs, KS, dout + qbase, q0, nq);
-    load_rowstats(Ls, Ds, lse + (size_t)bh * nq, dsum + (size_t)bh * nq, q0,
-                  nq);
-    __syncthreads();
+}
 
-    float s[BQ / 2], dp[BQ / 2];
+// split a landed stage (raw tiles a, b) in place: hi over the raw values;
+// lo of a, lo of b; for a, and for b when B_T, the transposed hi and lo
+// tiles.  Lane = the row (0..31) of the streamed tile; warp wv of the 8
+// consumer warps takes chunks wv, wv+8, wv+16, wv+24 of the 32 (tile,
+// 4-column chunk) pairs.  A transposed store of a warp fills one 128-byte
+// row (32 rows of one column), so it is conflict-free too.
+template <bool B_T>
+__device__ __forceinline__ void f32_split_stage(unsigned char* raw,
+                                                unsigned char* lo,
+                                                unsigned char* tr, int ct) {
+  const int r = ct % 32, wv = ct / 32, kp = tf32_kpos(r);
 #pragma unroll
-    for (int c = 0; c < BQ / 2; ++c) s[c] = dp[c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      const float kd = Ks[row * KS + d], vd = Vs[row * KS + d];
+  for (int i = 0; i < 4; ++i) {
+    const int pair = wv + 8 * i, which = pair >> 4, col = 4 * (pair & 15);
+    const int off = which * F_ST + f32_tile_off(r, col, F_T);
+    const float4 x = *reinterpret_cast<const float4*>(raw + off);
+    const float xv[4] = {x.x, x.y, x.z, x.w};
+    unsigned h[4], l[4];
 #pragma unroll
-      for (int c = 0; c < BQ / 2; ++c) {
-        const int qc = 2 * c + half;
-        s[c] = fmaf(kd, Qs[qc * KS + d], s[c]);
-        dp[c] = fmaf(vd, Gs[qc * KS + d], dp[c]);
+    for (int e = 0; e < 4; ++e) split_tf32(xv[e], h[e], l[e]);
+    *reinterpret_cast<uint4*>(raw + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+    if (which == 0 || B_T) {  // warp-uniform
+      unsigned char* t = tr + which * 2 * F_ST;  // [hd][row]: hi, then lo
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int to = f32_tile_off(col + e, kp, 64);  // one 32-column atom
+        *reinterpret_cast<unsigned*>(t + to) = h[e];
+        *reinterpret_cast<unsigned*>(t + F_ST + to) = l[e];
       }
-    }
-#pragma unroll
-    for (int c = 0; c < BQ / 2; ++c) {
-      const int qc = 2 * c + half;
-      float p = prob(s[c], scale, Ls[qc]);
-      if (!key_ok || q0 + qc >= nq) p = 0.f;
-      Ps[row * KS + qc] = p;
-      Ss[row * KS + qc] = dscore(p, dp[c], Ds[qc], scale);
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int qq = 0; qq < BQ; ++qq) {
-      const float p = Ps[row * KS + qq], ds = Ss[row * KS + qq];
-#pragma unroll
-      for (int i = 0; i < HD / 2; ++i) {
-        dva[i] = fmaf(p, Gs[qq * KS + 2 * i + half], dva[i]);
-        dka[i] = fmaf(ds, Qs[qq * KS + 2 * i + half], dka[i]);
-      }
-    }
-    __syncthreads();  // Q, dO, P, dS are refilled next tile
-  }
-  if (k0 + row < nk) {
-    float* dkr = dk + kbase + (size_t)(k0 + row) * HD + half;
-    float* dvr = dv + kbase + (size_t)(k0 + row) * HD + half;
-#pragma unroll
-    for (int i = 0; i < HD / 2; ++i) {
-      dkr[2 * i] = key_ok ? dka[i] : 0.f;
-      dvr[2 * i] = key_ok ? dva[i] : 0.f;
     }
   }
 }
 
-// Q, dO, K, V, dS tiles
-constexpr int SMEM_DQ_F32 = 5 * TILE_F32 * (int)sizeof(float);
+// descriptor of k-step kk (8 of hd) of a [rows][64] tile
+__device__ __forceinline__ uint64_t f32_hd_desc(const unsigned char* tile,
+                                                int rows, int kk) {
+  return sw128_desc(tile + (kk >> 2) * rows * 128 + (kk & 3) * 32);
+}
 
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ dsum, float* __restrict__ dq,
-                 int nq, int nk, int valid, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Gs = Qs + TILE_F32;
-  float* Ks = Gs + TILE_F32;
-  float* Vs = Ks + TILE_F32;
-  float* Ss = Vs + TILE_F32;  // dS [query][key]
-
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const size_t qbase = (size_t)bh * nq * HD, kbase = (size_t)bh * nk * HD;
-  const int row = threadIdx.x / 2, half = threadIdx.x % 2;
-  const bool row_ok = q0 + row < nq;
-  const float lse_r = row_ok ? lse[(size_t)bh * nq + q0 + row] : 0.f;
-  const float d_r = row_ok ? dsum[(size_t)bh * nq + q0 + row] : 0.f;
-
-  load_rows64_f32<BQ, NTHREADS>(Qs, KS, q + qbase, q0, nq);
-  load_rows64_f32<BQ, NTHREADS>(Gs, KS, dout + qbase, q0, nq);
-  float dqa[HD / 2];
+// s += a.b^T over hd in three TF32 passes: a (64 resident rows, hi/lo
+// tiles), b (32 streamed rows, hi/lo tiles)
+__device__ __forceinline__ void f32_score_passes(float (&s)[16],
+                                                 const unsigned char* a_hi,
+                                                 const unsigned char* a_lo,
+                                                 const unsigned char* b_hi,
+                                                 const unsigned char* b_lo) {
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
-
-  const int ntiles = (valid + BK - 1) / BK;
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int k0 = tile * BK;
-    load_rows64_f32<BK, NTHREADS>(Ks, KS, k + kbase, k0, valid);
-    load_rows64_f32<BK, NTHREADS>(Vs, KS, v + kbase, k0, valid);
-    __syncthreads();
-
-    float s[BK / 2], dp[BK / 2];
+  for (int kk = 0; kk < HD / 8; ++kk)
+    wgmma_tf32_ss(s, f32_hd_desc(a_lo, 64, kk), f32_hd_desc(b_hi, F_T, kk));
 #pragma unroll
-    for (int c = 0; c < BK / 2; ++c) s[c] = dp[c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      const float qd = Qs[row * KS + d], gd = Gs[row * KS + d];
+  for (int kk = 0; kk < HD / 8; ++kk)
+    wgmma_tf32_ss(s, f32_hd_desc(a_hi, 64, kk), f32_hd_desc(b_lo, F_T, kk));
 #pragma unroll
-      for (int c = 0; c < BK / 2; ++c) {
-        const int kc = 2 * c + half;
-        s[c] = fmaf(qd, Ks[kc * KS + d], s[c]);
-        dp[c] = fmaf(gd, Vs[kc * KS + d], dp[c]);
+  for (int kk = 0; kk < HD / 8; ++kk)
+    wgmma_tf32_ss(s, f32_hd_desc(a_hi, 64, kk), f32_hd_desc(b_hi, F_T, kk));
+}
+
+// acc = x.B over the tile's 32 streamed rows in three TF32 passes, into a
+// fresh accumulator: x's hi/lo fragments, B the transposed hi/lo tiles
+__device__ __forceinline__ void f32_grad_passes(float (&acc)[32],
+                                                const unsigned (&xh)[4][4],
+                                                const unsigned (&xl)[4][4],
+                                                const unsigned char* t_hi,
+                                                const unsigned char* t_lo) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  reg_fence(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < F_T / 8; ++j)
+    wgmma_tf32_rs(acc, xl[j], sw128_desc(t_hi + 32 * j));
+#pragma unroll
+  for (int j = 0; j < F_T / 8; ++j)
+    wgmma_tf32_rs(acc, xh[j], sw128_desc(t_lo + 32 * j));
+#pragma unroll
+  for (int j = 0; j < F_T / 8; ++j)
+    wgmma_tf32_rs(acc, xh[j], sw128_desc(t_hi + 32 * j));
+  wgmma_commit();
+}
+
+template <int N>
+__device__ __forceinline__ void f32_frags(unsigned (&h)[4][4],
+                                          unsigned (&l)[4][4],
+                                          const float (&x)[N]) {
+#pragma unroll
+  for (int j = 0; j < F_T / 8; ++j) acc_to_tf32_a(h[j], l[j], x, j);
+}
+
+// every consumer thread has finished with the split buffer, or has written
+// its part of it
+__device__ __forceinline__ void consumers_sync() { named_barrier(1, 256); }
+
+// K, V hi and lo (2 warpgroup tiles each); the ring; Q lo, dO lo, Q^T hi/lo,
+// dO^T hi/lo; lse, D rows per stage; barriers
+constexpr int SMEM_DKDV_F32 = 8 * F_RES + F_STAGES * F_STAGE + 6 * F_ST +
+                              F_STAGES * F_T * 2 * 4 +
+                              (1 + 2 * F_STAGES) * 8 + 1024;
+// Q, dO hi and lo; the ring; K lo, V lo, K^T hi/lo; barriers
+constexpr int SMEM_DQ_F32 = 8 * F_RES + F_STAGES * F_STAGE + 4 * F_ST +
+                            (1 + 2 * F_STAGES) * 8 + 1024;
+constexpr int SMEM_BWD_F32 =
+    SMEM_DKDV_F32 > SMEM_DQ_F32 ? SMEM_DKDV_F32 : SMEM_DQ_F32;
+
+// (a) dK/dV of the 128 keys of block kb, looping over 32-query tiles
+__device__ __forceinline__ void dkdv_f32_block(
+    const CUtensorMap& qmap, const CUtensorMap& kmap, const CUtensorMap& vmap,
+    const CUtensorMap& gmap, const float* __restrict__ lse,
+    const float* __restrict__ dsum, float* __restrict__ dk,
+    float* __restrict__ dv, int nq, int nk, int valid, float scale,
+    unsigned char* smem_raw, int kb) {
+  unsigned char* Kh = align1024(smem_raw);  // per warpgroup: keys k0+64c..
+  unsigned char* Kl = Kh + 2 * F_RES;
+  unsigned char* Vh = Kl + 2 * F_RES;
+  unsigned char* Vl = Vh + 2 * F_RES;
+  unsigned char* ring = Vl + 2 * F_RES;      // F_STAGES x (Q, dO)
+  unsigned char* lo = ring + F_STAGES * F_STAGE;  // Q lo, dO lo
+  unsigned char* tr = lo + 2 * F_ST;         // Q^T hi, lo, dO^T hi, lo
+  float* Ls = reinterpret_cast<float*>(tr + 4 * F_ST);
+  float* Ds = Ls + F_STAGES * F_T;
+  uint64_t* res_bar = reinterpret_cast<uint64_t*>(Ds + F_STAGES * F_T);
+  uint64_t* full = res_bar + 1;
+  uint64_t* empty = full + F_STAGES;
+
+  const int bh = blockIdx.y, k0 = kb * B_ROWS, tid = threadIdx.x;
+  const size_t kbase = (size_t)bh * nk * HD;
+  if (k0 >= valid) {  // a dead key block: exact zeros, no work
+    const int rows = min(B_ROWS, nk - k0);
+    for (int i = tid; i < rows * (HD / 4); i += B_THREADS) {
+      const size_t off = kbase + (size_t)(k0 + i / (HD / 4)) * HD + (i % (HD / 4)) * 4;
+      *reinterpret_cast<float4*>(dk + off) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(dv + off) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+  if (tid == 0) {
+    mbar_init(res_bar, 1);
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes
+      mbar_init(&empty[s], 8);  // one lane per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int ntiles = (nq + F_T - 1) / F_T;
+  const int warp = tid / 32, lane = tid % 32;
+  if (warp >= B_PRODUCER) {
+    setmaxnreg_dec<B_REGS_PRODUCER>();
+    if (warp != B_PRODUCER) return;
+    if (lane == 0) {  // K, V rows [k0, k0+128) once; rows >= valid are 0
+      mbar_arrive_expect_tx(res_bar, 4 * F_RES);
+      f32_resident_load(Kh, &kmap, res_bar, k0, bh);
+      f32_resident_load(Vh, &vmap, res_bar, k0, bh);
+    }
+    const float* lse_bh = lse + (size_t)bh * nq;
+    const float* d_bh = dsum + (size_t)bh * nq;
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int s = tile % F_STAGES, q = tile * F_T + lane;
+      mbar_wait(&empty[s], ((tile / F_STAGES) & 1) ^ 1);
+      Ls[s * F_T + lane] = q < nq ? lse_bh[q] : 0.f;  // P = 0 past nq
+      Ds[s * F_T + lane] = q < nq ? d_bh[q] : 0.f;
+      if (lane == 0) {  // Q, dO rows [q0, q0+32); rows >= nq are 0
+        unsigned char* st = ring + s * F_STAGE;
+        mbar_arrive_expect_tx(&full[s], F_STAGE);
+        f32_tile_load(st, &qmap, &full[s], tile * F_T, bh);
+        f32_tile_load(st + F_ST, &gmap, &full[s], tile * F_T, bh);
+      } else {
+        mbar_arrive(&full[s]);
       }
     }
+    return;
+  }
+  // consumer warpgroup c: keys k0 + 64c + [0, 64)
+  setmaxnreg_inc<B_REGS_CONSUMER>();
+  const int c = warp / 4, w = warp % 4, t = lane % 4;
+  const int krow = k0 + 64 * c + 16 * w + lane / 4;  // and krow + 8
+  const bool key_ok[2] = {krow < valid, krow + 8 < valid};
+  const bool keys_live = k0 + 64 * c + 64 <= valid;
+  const unsigned char *kh = Kh + c * F_RES, *kl = Kl + c * F_RES;
+  const unsigned char *vh = Vh + c * F_RES, *vl = Vl + c * F_RES;
+  float dka[32], dva[32], acc[32];
 #pragma unroll
-    for (int c = 0; c < BK / 2; ++c) {
-      const int kc = 2 * c + half;
-      float p = prob(s[c], scale, lse_r);
-      if (!row_ok || k0 + kc >= valid) p = 0.f;
-      Ss[row * KS + kc] = dscore(p, dp[c], d_r, scale);
-    }
-    __syncthreads();
+  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+  mbar_wait(res_bar, 0);
+  f32_split_resident(Kh, Kl, tid);
+  f32_split_resident(Vh, Vl, tid);  // seen by all after the first barrier
 
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float ds = Ss[row * KS + kk];
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int s = tile % F_STAGES, q0 = tile * F_T;
+    unsigned char* st = ring + s * F_STAGE;  // Q, dO: hi after the split
+    mbar_wait(&full[s], (tile / F_STAGES) & 1);
+    consumers_sync();  // the last tile's products are done
+    f32_split_stage<true>(st, lo, tr, tid);
+    fence_proxy_async();
+    consumers_sync();
+
+    // S^T = K.Q^T and dP^T = V.dO^T (64 keys x 32 queries); element 4j+e
+    // sits at key row krow + 8*(e>>1), query column 8j + 2t + (e&1)
+    float sc[16], dp[16];
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i)
-        dqa[i] = fmaf(ds, Ks[kk * KS + 2 * i + half], dqa[i]);
+    for (int i = 0; i < 16; ++i) sc[i] = dp[i] = 0.f;
+    reg_fence(sc);
+    reg_fence(dp);
+    wgmma_fence();
+    f32_score_passes(sc, kh, kl, st, lo);
+    f32_score_passes(dp, vh, vl, st + F_ST, lo + F_ST);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(sc);
+    reg_fence(dp);
+    const bool whole = keys_live && q0 + F_T <= nq;
+#pragma unroll
+    for (int j = 0; j < F_T / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * j + 2 * t + (e & 1);
+        float p = prob(sc[4 * j + e], scale, Ls[s * F_T + qc]);
+        if (!whole && (!key_ok[e >> 1] || q0 + qc >= nq)) p = 0.f;
+        dp[4 * j + e] = dscore(p, dp[4 * j + e], Ds[s * F_T + qc], scale);
+        sc[4 * j + e] = p;
+      }
     }
-    __syncthreads();  // K, V, dS are refilled next tile
-  }
-  if (row_ok) {
-    float* dqr = dq + qbase + (size_t)(q0 + row) * HD + half;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
+
+    // dV += P^T.dO, then dK += dS^T.Q, contracting the tile's queries
+    unsigned xh[4][4], xl[4][4];
+    f32_frags(xh, xl, sc);
+    f32_grad_passes(acc, xh, xl, tr + 2 * F_ST, tr + 3 * F_ST);
+    wgmma_wait<0>();
+    reg_fence(acc);
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) dqr[2 * i] = dqa[i];
+    for (int j = 0; j < 4; ++j) {
+      reg_fence(xh[j]);
+      reg_fence(xl[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dva[i] += acc[i];
+    f32_frags(xh, xl, dp);
+    f32_grad_passes(acc, xh, xl, tr, tr + F_ST);
+    wgmma_wait<0>();
+    reg_fence(acc);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      reg_fence(xh[j]);
+      reg_fence(xl[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[i] += acc[i];
   }
+  const int row0 = k0 + 64 * c + 16 * w;
+  store_acc(dk + kbase, dka, row0, nk, valid, lane);
+  store_acc(dv + kbase, dva, row0, nk, valid, lane);
+}
+
+// (b) dQ of the 128 queries of block qb, looping over the 32-key tiles
+// below `valid`
+__device__ __forceinline__ void dq_f32_block(
+    const CUtensorMap& qmap, const CUtensorMap& kmap, const CUtensorMap& vmap,
+    const CUtensorMap& gmap, const float* __restrict__ lse,
+    const float* __restrict__ dsum, float* __restrict__ dq, int nq, int valid,
+    float scale, unsigned char* smem_raw, int qb) {
+  unsigned char* Qh = align1024(smem_raw);  // per warpgroup: queries q0+64c..
+  unsigned char* Ql = Qh + 2 * F_RES;
+  unsigned char* Gh = Ql + 2 * F_RES;       // dO, the same rows
+  unsigned char* Gl = Gh + 2 * F_RES;
+  unsigned char* ring = Gl + 2 * F_RES;     // F_STAGES x (K, V)
+  unsigned char* lo = ring + F_STAGES * F_STAGE;  // K lo, V lo
+  unsigned char* tr = lo + 2 * F_ST;        // K^T hi, lo
+  uint64_t* res_bar = reinterpret_cast<uint64_t*>(tr + 2 * F_ST);
+  uint64_t* full = res_bar + 1;
+  uint64_t* empty = full + F_STAGES;
+
+  const int bh = blockIdx.y, q0 = qb * B_ROWS, tid = threadIdx.x;
+  const int ntiles = (valid + F_T - 1) / F_T;  // valid = 0: no tile, dQ = 0
+  if (tid == 0) {
+    mbar_init(res_bar, 1);
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32;
+  if (warp >= B_PRODUCER) {
+    setmaxnreg_dec<B_REGS_PRODUCER>();
+    if (warp == B_PRODUCER && lane == 0 && ntiles > 0) {
+      mbar_arrive_expect_tx(res_bar, 4 * F_RES);
+      f32_resident_load(Qh, &qmap, res_bar, q0, bh);
+      f32_resident_load(Gh, &gmap, res_bar, q0, bh);
+      for (int tile = 0; tile < ntiles; ++tile) {
+        const int s = tile % F_STAGES;
+        unsigned char* st = ring + s * F_STAGE;
+        mbar_wait(&empty[s], ((tile / F_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], F_STAGE);
+        f32_tile_load(st, &kmap, &full[s], tile * F_T, bh);
+        f32_tile_load(st + F_ST, &vmap, &full[s], tile * F_T, bh);
+      }
+    }
+    return;
+  }
+  // consumer warpgroup c: queries q0 + 64c + [0, 64)
+  setmaxnreg_inc<B_REGS_CONSUMER>();
+  const int c = warp / 4, w = warp % 4, t = lane % 4;
+  const int qrow = q0 + 64 * c + 16 * w + lane / 4;  // and qrow + 8
+  const bool rows_live = q0 + 64 * c + 64 <= nq;
+  bool row_ok[2];
+  float lse_r[2], d_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + 8 * r;
+    row_ok[r] = row < nq;
+    lse_r[r] = row_ok[r] ? lse[(size_t)bh * nq + row] : 0.f;
+    d_r[r] = row_ok[r] ? dsum[(size_t)bh * nq + row] : 0.f;
+  }
+  const unsigned char *qh = Qh + c * F_RES, *ql = Ql + c * F_RES;
+  const unsigned char *gh = Gh + c * F_RES, *gl = Gl + c * F_RES;
+  float dqa[32], acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+  if (ntiles > 0) {
+    mbar_wait(res_bar, 0);
+    f32_split_resident(Qh, Ql, tid);
+    f32_split_resident(Gh, Gl, tid);
+  }
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int s = tile % F_STAGES, k0 = tile * F_T;
+    unsigned char* st = ring + s * F_STAGE;  // K, V: hi after the split
+    mbar_wait(&full[s], (tile / F_STAGES) & 1);
+    consumers_sync();  // the last tile's products are done
+    f32_split_stage<false>(st, lo, tr, tid);
+    fence_proxy_async();
+    consumers_sync();
+
+    // S = Q.K^T and dP = dO.V^T (64 queries x 32 keys); element 4j+e sits
+    // at query row qrow + 8*(e>>1), key column 8j + 2t + (e&1)
+    float sc[16], dp[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sc[i] = dp[i] = 0.f;
+    reg_fence(sc);
+    reg_fence(dp);
+    wgmma_fence();
+    f32_score_passes(sc, qh, ql, st, lo);
+    f32_score_passes(dp, gh, gl, st + F_ST, lo + F_ST);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(sc);
+    reg_fence(dp);
+    const bool whole = rows_live && k0 + F_T <= valid;
+#pragma unroll
+    for (int j = 0; j < F_T / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = prob(sc[4 * j + e], scale, lse_r[r]);
+        if (!whole && (!row_ok[r] || k0 + 8 * j + 2 * t + (e & 1) >= valid))
+          p = 0.f;
+        dp[4 * j + e] = dscore(p, dp[4 * j + e], d_r[r], scale);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
+
+    // dQ += dS.K, contracting the tile's keys
+    unsigned xh[4][4], xl[4][4];
+    f32_frags(xh, xl, dp);
+    f32_grad_passes(acc, xh, xl, tr, tr + F_ST);
+    wgmma_wait<0>();
+    reg_fence(acc);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      reg_fence(xh[j]);
+      reg_fence(xl[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[i] += acc[i];
+  }
+  store_acc(dq + (size_t)bh * nq * HD, dqa, q0 + 64 * c + 16 * w, nq, nq,
+            lane);
+}
+
+// (a) and (b) in one grid, as flash_bwd_bf16
+__global__ void __launch_bounds__(B_THREADS, 1)
+flash_bwd_f32(const __grid_constant__ CUtensorMap qmap,
+              const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap,
+              const __grid_constant__ CUtensorMap gmap,
+              const float* __restrict__ lse, const float* __restrict__ dsum,
+              float* __restrict__ dq, float* __restrict__ dk,
+              float* __restrict__ dv, int nq, int nk, int valid, int nkb,
+              float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  if ((int)blockIdx.x < nkb)
+    dkdv_f32_block(qmap, kmap, vmap, gmap, lse, dsum, dk, dv, nq, nk, valid,
+                   scale, smem_raw, blockIdx.x);
+  else
+    dq_f32_block(qmap, kmap, vmap, gmap, lse, dsum, dq, nq, valid, scale,
+                 smem_raw, blockIdx.x - nkb);
 }
 
 int launch(const void* q, const void* k, const void* v, const void* dout,
@@ -681,56 +981,39 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       bh > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid_k((nk + BK - 1) / BK, bh), grid_q((nq + BQ - 1) / BQ, bh);
-  const float* L = static_cast<const float*>(lse);
-  const float* D = static_cast<const float*>(dsum);
-  float *dQ = static_cast<float*>(dq), *dK = static_cast<float*>(dk),
-        *dV = static_cast<float*>(dv);
-  cudaError_t err;
-  if (is_bf16) {
-    // Q/dO seen as nq rows and K/V as `valid` rows of each head: TMA
-    // zero-fills the rows past them
-    CUtensorMap qm, km, vm, gm;
-    int rc;
-    const CUtensorMapDataType bt = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-    if ((rc = make_rows_map(&qm, q, bt, 2, bh, nq, nq, 64, 64)) != 0 ||
-        (rc = make_rows_map(&gm, dout, bt, 2, bh, nq, nq, 64, 64)) != 0 ||
-        (rc = make_rows_map(&km, k, bt, 2, bh, nk, valid, 64, 64)) != 0 ||
-        (rc = make_rows_map(&vm, v, bt, 2, bh, nk, valid, 64, 64)) != 0)
-      return rc;
-    // above 48 KB, dynamic shared memory needs an opt-in per kernel
-    if ((err = cudaFuncSetAttribute(flash_bwd_bf16,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    SMEM_BWD_BF16)) != cudaSuccess)
-      return (int)err;
-    const int nkb = (nk + B_ROWS - 1) / B_ROWS, nqb = (nq + B_ROWS - 1) / B_ROWS;
-    flash_bwd_bf16<<<dim3(nkb + nqb, bh), B_THREADS, SMEM_BWD_BF16, s>>>(
-        qm, km, vm, gm, L, D, dQ, dK, dV, nq, nk, valid, nkb, scale);
-  } else {
-    if ((err = cudaFuncSetAttribute(flash_bwd_dkdv_f32,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    SMEM_DKDV_F32)) != cudaSuccess ||
-        (err = cudaFuncSetAttribute(flash_bwd_dq_f32,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    SMEM_DQ_F32)) != cudaSuccess)
-      return (int)err;
-    const float *Q = static_cast<const float*>(q),
-                *K = static_cast<const float*>(k),
-                *V = static_cast<const float*>(v),
-                *G = static_cast<const float*>(dout);
-    flash_bwd_dkdv_f32<<<grid_k, NTHREADS, SMEM_DKDV_F32, s>>>(
-        Q, K, V, G, L, D, dK, dV, nq, nk, valid, scale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    flash_bwd_dq_f32<<<grid_q, NTHREADS, SMEM_DQ_F32, s>>>(
-        Q, K, V, G, L, D, dQ, nq, nk, valid, scale);
-  }
+  // Q/dO seen as nq rows and K/V as `valid` rows of each head: TMA
+  // zero-fills the rows past them.  Boxes of 128 bytes by 64 rows (bf16)
+  // or 32 columns by F_T rows (f32)
+  const bool b16 = is_bf16 != 0;
+  const CUtensorMapDataType dt =
+      b16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const int el = b16 ? 2 : 4, box_cols = 128 / el, box_rows = b16 ? 64 : F_T;
+  CUtensorMap qm, km, vm, gm;
+  int rc;
+  if ((rc = make_rows_map(&qm, q, dt, el, bh, nq, nq, box_cols, box_rows)) ||
+      (rc = make_rows_map(&gm, dout, dt, el, bh, nq, nq, box_cols, box_rows)) ||
+      (rc = make_rows_map(&km, k, dt, el, bh, nk, valid, box_cols, box_rows)) ||
+      (rc = make_rows_map(&vm, v, dt, el, bh, nk, valid, box_cols, box_rows)))
+    return rc;
+  auto kernel = b16 ? flash_bwd_bf16 : flash_bwd_f32;
+  const int smem = b16 ? SMEM_BWD_BF16 : SMEM_BWD_F32;
+  // above 48 KB, dynamic shared memory needs an opt-in per kernel
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nkb = (nk + B_ROWS - 1) / B_ROWS, nqb = (nq + B_ROWS - 1) / B_ROWS;
+  kernel<<<dim3(nkb + nqb, bh), B_THREADS, smem, s>>>(
+      qm, km, vm, gm, static_cast<const float*>(lse),
+      static_cast<const float*>(dsum), static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), nq, nk, valid, nkb,
+      scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// _flash_bwd_kernel: every tensor of n rows, every key valid.  Launches (a)
-// and (b) on one stream; dq, dk, dv are f32 (B*nh, N, 64).
+// _flash_bwd_kernel: every tensor of n rows, every key valid; dq, dk, dv
+// are f32 (B*nh, N, 64).
 extern "C" int dtt_flash_attn_bwd(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* dsum, void* dq, void* dk,

@@ -342,12 +342,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
 // its products on the split tile.  The split tiles are double buffered:
 // tile j+1 is split while no warp still reads tile j-1's buffer.
 //
-// P.V without shuffles: the accumulator holds row g's scores at columns
-// 2t, 2t+1 of each 8-key slice, the tf32 A fragment wants columns t, t+4.
-// The values are used where they sit, read as keys in the order
-// 0,2,4,6,1,3,5,7 of each group of 8, and V^T is written in that same key
-// order (key p at column (p&1)*4 + (p>>1)); P.V sums over keys, so the
-// order does not change the sum's terms.
+// P.V without shuffles: P's accumulator registers are the A fragments as
+// they sit, and V^T is written with its keys in the order they read them
+// (hopper.cuh tf32_kpos).
 
 constexpr int F_BQ = 128;                  // query rows per block
 constexpr int F_THREADS = 256;             // 2 consumer warpgroups
@@ -357,16 +354,9 @@ constexpr int F_RAW = 2 * F_TILE;          // one stage: raw K, raw V
 constexpr int F_SPLIT = 4 * F_TILE;        // hi(K), lo(K), hi(V^T), lo(V^T)
 constexpr int SMEM_F32 = 2 * F_RAW + 2 * F_SPLIT + 2 * 8 + 1024;  // + align
 
-// the position of key r (0..63) in V^T's key order
-__device__ __forceinline__ int vt_col(int r) {
-  return (r & ~7) | ((r & 1) << 2) | ((r >> 1) & 3);
-}
-
-// byte offset of element (row, col) of a 64 x 64 f32 tile held as two
-// 128-byte-swizzled atoms (cols 0-31, 32-63)
+// byte offset of element (row, col) of a 64 x 64 f32 tile
 __device__ __forceinline__ int f32_off(int row, int col) {
-  return (col >> 5) * F_ATOM + row * 128 +
-         ((((col & 31) >> 2) ^ (row & 7)) << 4) + (col & 3) * 4;
+  return f32_tile_off(row, col, 64);
 }
 
 // split one landed raw stage into hi/lo K and V^T tiles.  Thread tid takes
@@ -375,7 +365,7 @@ __device__ __forceinline__ int f32_off(int row, int col) {
 // one 128-byte row (32 keys of one hd column)
 __device__ __forceinline__ void split_stage(const unsigned char* raw,
                                             unsigned char* sp, int tid) {
-  const int r = tid & 63, vc = vt_col(r);
+  const int r = tid & 63, vc = tf32_kpos(r);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int col = 4 * ((tid >> 6) + 4 * i);  // first of 4 columns

@@ -283,6 +283,23 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 32) += A (64 x 8, tf32, K-major descriptor) . B (8 x 32, tf32,
+// K-major descriptor).  The accumulator's layout is DTT_ACC32's at N = 32:
+// d[4j + e] at row 16w + g + 8*(e>>1), column 8j + 2t + (e&1), j < 4.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}"
+      ", %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 // d (64 x 64) += A (64 x 16, bf16 pairs in registers) . B (16 x 64, bf16,
 // descriptor: K-major, or MN-major with TRANS_B = 1, the tile's rows then
 // running along K).  A fragment of warp w: a[0] (row 16w+g, cols 2t, 2t+1),
@@ -459,6 +476,38 @@ __device__ __forceinline__ void split_tf32(float x, unsigned& hi,
                                            unsigned& lo) {
   hi = to_tf32(x);
   lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// f32 tiles of `rows` rows x 64 columns as two 128-byte-swizzled atoms
+// (columns 0-31, then 32-63; each rows * 128 bytes): the byte offset of
+// element (row, col)
+__device__ __forceinline__ int f32_tile_off(int row, int col, int rows) {
+  return (col >> 5) * rows * 128 + row * 128 +
+         ((((col & 31) >> 2) ^ (row & 7)) << 4) + (col & 3) * 4;
+}
+
+// A TF32 A fragment from a warpgroup accumulator without shuffles: lane
+// (g, t) holds row g's values at columns 2t, 2t+1 of each 8-column slice,
+// and the fragment wants them at k-indices t, t+4.  So the values are used
+// where they sit, read as columns in the order 0,2,4,6,1,3,5,7 of each
+// group of 8, and the B operand is written in that order: column r of the
+// accumulator at k-position tf32_kpos(r).  A product sums over k, so the
+// order does not change its terms.
+__device__ __forceinline__ int tf32_kpos(int r) {
+  return (r & ~7) | ((r & 1) << 2) | ((r >> 1) & 3);
+}
+
+// hi/lo A fragments of k-step j (columns 8j..8j+7) of an accumulator x in
+// the layout above, at any width
+template <int NR>
+__device__ __forceinline__ void acc_to_tf32_a(unsigned (&hi)[4],
+                                              unsigned (&lo)[4],
+                                              const float (&x)[NR], int j) {
+  // a[0], a[1]: rows g, g+8 at column 2t; a[2], a[3]: at column 2t+1
+  split_tf32(x[4 * j], hi[0], lo[0]);
+  split_tf32(x[4 * j + 2], hi[1], lo[1]);
+  split_tf32(x[4 * j + 1], hi[2], lo[2]);
+  split_tf32(x[4 * j + 3], hi[3], lo[3]);
 }
 
 }  // namespace dtt

@@ -30,7 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from dino_tpu_torch.models.heads import affine
+from dino_tpu_torch.models.heads import affine, dense
 from dino_tpu_torch.ops.attention import multi_head_attention
 from dino_tpu_torch.ops.bicubic import bicubic_resize_matrix
 from dino_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual
@@ -227,9 +227,8 @@ def prepare_tokens(model: VisionTransformer, x: torch.Tensor,
             f"dino_tpu_torch.ops.preprocess")
     b, h, w, _ = x.shape
     proj = model.patch_embed.proj
-    patches = F.linear(patchify(x, cfg.patch_size),
-                       proj.weight.reshape(proj.weight.shape[0], -1).to(x.dtype),
-                       proj.bias.to(x.dtype))
+    patches = dense(patchify(x, cfg.patch_size),
+                    proj.weight.reshape(proj.weight.shape[0], -1), proj.bias)
     cls = model.cls_token.to(x.dtype).expand(b, 1, cfg.embed_dim)
     tokens = torch.cat([cls, patches], dim=1)
     pos = interpolate_pos_encoding(model.pos_embed, h, w, cfg.patch_size)
@@ -241,13 +240,12 @@ def mlp_residual(norm: nn.LayerNorm, mlp: Mlp, x: torch.Tensor,
     """x + fc2(gelu(fc1(LN(x)))) as a differentiable composition with the
     numerics of ``dino_tpu/ops/fused_mlp.py:_xla_reference``: LN in float32
     -> cast -> fc1 + f32 bias -> true-erf GELU in float32 -> cast -> fc2 +
-    f32 bias -> cast -> residual add in the input dtype.  (In bf16 the
-    product is rounded to bf16 before its f32 bias add; the JAX side adds
-    the bias to the f32 accumulator.)"""
+    f32 bias -> cast -> residual add in the input dtype.  Each product is
+    accumulated in float32 and takes its bias unrounded (:func:`affine`)."""
     dt = x.dtype
     h = layer_norm(norm, x, eps)
     h = F.gelu(affine(mlp.fc1, h), approximate="none").to(dt)
-    return x + affine(mlp.fc2, h).to(dt)
+    return x + affine(mlp.fc2, h, dt)
 
 
 def _needs_grad(blk: Block, x: torch.Tensor) -> bool:

@@ -122,13 +122,20 @@ def library() -> ctypes.CDLL:
 
 def ptxas_report(log: str) -> dict:
     """{entry function (mangled): {"registers", "spill_stores",
-    "spill_loads"}} from ptxas's -v report in ``log`` (nvcc's output)."""
+    "spill_loads", and "wgmma_serialized" where ptxas warned C7512}} from
+    ptxas's -v report in ``log`` (nvcc's output).  C7512 ("wgmma ...
+    serialized due to insufficient register resources") names its function
+    and came with spills in every build of this repository."""
     report, entry = {}, None
     for line in log.splitlines():
+        m = re.search(r"C7512.*'(\w+)'", line)
+        if m:
+            report.setdefault(m.group(1), {})["wgmma_serialized"] = True
+            continue
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             entry = m.group(1)
-            report[entry] = {}
+            report.setdefault(entry, {})
             continue
         if entry is None:
             continue

@@ -26,8 +26,8 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
+from dino_tpu_torch.models.heads import dense
 from dino_tpu_torch.ops import _build
 
 _HEAD_DIM = 64
@@ -199,8 +199,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float):
     """Float32 (dq, dk, dv) of flash attention, each (B, nh, N, hd).
 
-    A CUDA tensor launches the backward kernel; a CPU tensor takes
-    :func:`attention_bwd_plain`; any other device raises.
+    A CUDA tensor launches the backward kernel (``flash_bwd_bf16`` or, for
+    float32, ``flash_bwd_f32``); a CPU tensor takes
+    :func:`attention_bwd_plain`; any other device raises.  ``.launches``
+    counts every launch, ``.launches_f32`` those of the float32 kernel.
     """
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, out, lse, g, scale)
@@ -222,10 +224,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("flash_attn_bwd", rc)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_f32 += q.dtype == torch.float32
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_f32 = 0
 
 
 def flash_attention_with_lse_dyn(q: torch.Tensor, k: torch.Tensor,
@@ -270,8 +274,10 @@ def flash_attention_bwd_dyn(q: torch.Tensor, g: torch.Tensor,
     caller, k, v (B, nh, Nk, hd); keys >= ``valid_k`` are dead and their dk,
     dv rows are exact zeros.
 
-    A CUDA tensor launches the dynamic-bound backward kernels; a CPU tensor
+    A CUDA tensor launches the dynamic-bound backward kernel; a CPU tensor
     takes :func:`attention_bwd_dyn_plain`; any other device raises.
+    ``.launches`` counts every launch, ``.launches_f32`` those of the
+    float32 kernel.
     """
     valid_k = _check_valid(valid_k, k.shape[2])
     if q.device.type == "cpu":
@@ -296,10 +302,12 @@ def flash_attention_bwd_dyn(q: torch.Tensor, g: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("flash_attn_bwd_dyn", rc)
     flash_attention_bwd_dyn.launches += 1
+    flash_attention_bwd_dyn.launches_f32 += q.dtype == torch.float32
     return dq, dk, dv
 
 
 flash_attention_bwd_dyn.launches = 0
+flash_attention_bwd_dyn.launches_f32 = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -348,15 +356,15 @@ def multi_head_attention(attn, x: torch.Tensor, *, num_heads: int,
                          scale: float) -> torch.Tensor:
     """MHSA: qkv projection -> flash attention -> out projection.
 
-    ``attn`` holds ``qkv`` and ``proj`` (nn.Linear, reference names).  q, k,
-    v come out head-major, (B, nh, N, hd) each and contiguous.
+    ``attn`` holds ``qkv`` and ``proj`` (nn.Linear, reference names); both
+    are :func:`~dino_tpu_torch.models.heads.dense` layers.  q, k, v come out
+    head-major, (B, nh, N, hd) each and contiguous.
     """
     b, n, c = x.shape
     hd = c // num_heads
-    qkv = F.linear(x, attn.qkv.weight.to(x.dtype), attn.qkv.bias.to(x.dtype))
+    qkv = dense(x, attn.qkv.weight, attn.qkv.bias)
     qkv = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
     qkv = qkv.contiguous()
     out = flash_attention(qkv[0], qkv[1], qkv[2], scale)
     out = out.permute(0, 2, 1, 3).reshape(b, n, c)
-    return F.linear(out, attn.proj.weight.to(x.dtype),
-                    attn.proj.bias.to(x.dtype))
+    return dense(out, attn.proj.weight, attn.proj.bias)

@@ -25,7 +25,6 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
-import torch.nn as nn
 import torch.nn.functional as F
 
 from dino_tpu_torch.models.heads import affine, head_apply
@@ -150,12 +149,6 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Sequence-parallel ViT blocks / forward
 # ---------------------------------------------------------------------------
 
-def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """The JAX package's ``dense``: x @ W in the input dtype, + f32 bias,
-    cast back to the input dtype."""
-    return affine(lin, x).to(x.dtype)
-
-
 def _block_seq_parallel(blk: Block, tokens: torch.Tensor, cfg: ViTConfig,
                         n_real: int, group) -> torch.Tensor:
     """One transformer block on a token shard; only attention communicates.
@@ -164,14 +157,14 @@ def _block_seq_parallel(blk: Block, tokens: torch.Tensor, cfg: ViTConfig,
     h = layer_norm(blk.norm1, tokens, cfg.ln_eps)
     b, n_local, c = h.shape
     nh, hd = cfg.num_heads, cfg.head_dim
-    qkv = dense(blk.attn.qkv, h).reshape(b, n_local, 3, nh, hd)
+    qkv = affine(blk.attn.qkv, h, h.dtype).reshape(b, n_local, 3, nh, hd)
     qkv = qkv.permute(2, 0, 3, 1, 4).contiguous()
     out = ring_attention(qkv[0], qkv[1], qkv[2], cfg.scale, n_real, group)
     out = out.permute(0, 2, 1, 3).reshape(b, n_local, c)
-    tokens = tokens + dense(blk.attn.proj, out)
+    tokens = tokens + affine(blk.attn.proj, out, out.dtype)
     h = layer_norm(blk.norm2, tokens, cfg.ln_eps)
-    h = F.gelu(dense(blk.mlp.fc1, h), approximate="none")
-    return tokens + dense(blk.mlp.fc2, h)
+    h = F.gelu(affine(blk.mlp.fc1, h, h.dtype), approximate="none")
+    return tokens + affine(blk.mlp.fc2, h, h.dtype)
 
 
 def _local_tokens(vit: VisionTransformer, x: torch.Tensor, cfg: ViTConfig,

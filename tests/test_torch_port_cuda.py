@@ -11,6 +11,7 @@ import torch
 
 import chip_smoke
 from dino_tpu_torch import DINOSeg
+from dino_tpu_torch.models import heads
 from dino_tpu_torch.models.vit import Block, Mlp, ViTConfig
 from dino_tpu_torch.ops import attention as tatt
 from dino_tpu_torch.ops import fused_mlp as tfm
@@ -311,3 +312,64 @@ def test_fused_mlp_at_row_edges(cuda, m, hidden):
         ref = tfm.fused_ln_mlp_residual_plain(norm, mlp, x, 1e-6)
     assert torch.equal(out, again)
     assert chip_smoke.mlp_err(out, ref, x)[2]
+
+
+@pytest.mark.parametrize("n", chip_smoke.BWD_EDGE_N)
+def test_f32_bwd_at_tile_edges(cuda, n):
+    """The f32 backward (flash_bwd_f32) at query counts around its 32-row
+    tiles, 64-row warpgroups and 128-row blocks, B*nh = 1: static, and
+    dynamic-bound with key bounds around its tiles; each call twice, the
+    same bits; dead keys' rows exact zeros; every launch counted as f32."""
+    g = torch.Generator(device=cuda).manual_seed(n + 3)
+    q, k, v, do = (torch.randn(1, 1, n, 64, generator=g, device=cuda)
+                   for _ in range(4))
+    out, lse = tatt.flash_attention(q, k, v, 0.125, return_lse=True)
+    before = (tatt.flash_attention_bwd.launches_f32,
+              tatt.flash_attention_bwd_dyn.launches_f32)
+    got = tatt.flash_attention_bwd(q, k, v, out, lse, do, 0.125)
+    again = tatt.flash_attention_bwd(q, k, v, out, lse, do, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = tatt.attention_bwd_plain(q, k, v, out, lse, do, 0.125)
+    assert chip_smoke.bwd_err(got, ref, torch.float32)[1]
+    dsum = (do * out).sum(-1).reshape(1, n)
+    bounds = sorted(b for b in {0, 1, 63, 64, 65, n} if b <= n)
+    for valid in bounds:
+        got = tatt.flash_attention_bwd_dyn(q, do, lse, dsum, k, v, 0.125,
+                                           valid)
+        again = tatt.flash_attention_bwd_dyn(q, do, lse, dsum, k, v, 0.125,
+                                             valid)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), valid
+        want = tatt.attention_bwd_dyn_plain(q, do, lse, dsum, k, v, 0.125,
+                                            valid)
+        assert chip_smoke.bwd_err(got, want, torch.float32)[1], valid
+        for t in got[1:]:
+            assert torch.count_nonzero(t[:, :, valid:]) == 0, valid
+    assert (tatt.flash_attention_bwd.launches_f32,
+            tatt.flash_attention_bwd_dyn.launches_f32) == (
+                before[0] + 2, before[1] + 2 * len(bounds))
+
+
+def test_bf16_dense_on_card_matches_the_cpu(cuda):
+    """heads.linear_once on the card (mm with a float32 result, then the
+    float32 bias and one rounding) against its CPU form on the same bf16 operands: the
+    float32 sums within float32 rounding of their terms, and under autograd
+    the same gradients up to bf16 rounding."""
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(300, 384).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rs.randn(1152, 384).astype(np.float32) / 20
+                         ).bfloat16()
+    b = torch.from_numpy(rs.uniform(-0.5, 0.5, 1152).astype(np.float32))
+    g = torch.from_numpy(rs.randn(300, 1152).astype(np.float32))
+    grads = []
+    for dev in ("cpu", cuda):
+        xs, ws, bs = (t.detach().clone().to(dev).requires_grad_()
+                      for t in (x, w, b))
+        y = heads.linear_once(xs, ws, bs, torch.float32)
+        assert y.dtype == torch.float32
+        y.backward(g.to(dev))
+        grads.append([t.detach().cpu().float() for t in (y, xs.grad,
+                                                           ws.grad, bs.grad)])
+    terms = x.float().abs() @ w.float().abs().t() + b.abs()
+    assert bool(((grads[0][0] - grads[1][0]).abs() <= 1e-6 * terms).all())
+    for a, c in zip(grads[0][1:], grads[1][1:]):
+        torch.testing.assert_close(c, a, rtol=1e-2, atol=1e-2)
