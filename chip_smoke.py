@@ -37,7 +37,17 @@ each printing JSON lines:
   7. the streaming forward past dino_tpu's 8 resident K/V slices: an fp32
      predict at 1624px (N = 41,210, where dino_tpu runs its chunked kernel)
      and the kernel vs its plain version at that N;
-  8. timing (CUDA events around bursts of back-to-back calls, median of
+  8. attention maps (attention_maps) on the main path's model: at 240px
+     get_last_selfattention (full and CLS-row only, with and without 4
+     masks), forward_mask and get_intermediate_layers (fp32 and bf16)
+     against the port's own CPU run, with their launches; at 480px batch 3
+     the full matrix's row sums and its row 0 against the CLS-row call; at
+     960px the CLS-row call and 8 masks under 1 GiB of peak memory (an
+     N x N matrix: 4.98 GB); the visualization CLIs' arrays; predict_stream
+     (10 frames, batch 4) equal to predict_batch on the padded batches, bit
+     for bit; its host frame rate over 256 frames against a loop of
+     predict_batch, after an untimed run of each, two readings in turns;
+  9. timing (CUDA events around bursts of back-to-back calls, median of
      the bursts; the bf16 kernels and the f32 backward also replayed from a
      CUDA graph, which takes the host out) at the 480px predict shapes
      (batch 3; the fused MLP also at one frame), the train bench's
@@ -50,7 +60,8 @@ each printing JSON lines:
      forward's and backward's on their route: three TF32 passes); the fp32
      predict latency at 480 and 960px; then the cli/bench line
      (predict and train);
-  9. the per-kernel summary line, the card line, and the final status line.
+  10. the per-kernel summary line, the card line, and the final status
+      line.
 
 ``python3 chip_smoke.py --sp-world W`` (W cards) runs only phase 6's rank
 checks with one rank per card over NCCL.  ``--sp-rank R --sp-world W
@@ -75,7 +86,9 @@ import torch.nn.functional as F
 
 from dino_tpu_torch import DINOSeg
 from dino_tpu_torch.cli import bench
-from dino_tpu_torch.models.vit import Mlp, ViTConfig
+from dino_tpu_torch.cli.visualize import overlay
+from dino_tpu_torch.cli.visualize_attention import attention_maps
+from dino_tpu_torch.models.vit import Mlp, ViTConfig, get_intermediate_layers
 from dino_tpu_torch.ops import _build
 from dino_tpu_torch.ops import attention as tatt
 from dino_tpu_torch.ops.attention import (attention_bwd_dyn_plain,
@@ -86,10 +99,14 @@ from dino_tpu_torch.ops.attention import (attention_bwd_dyn_plain,
                                           flash_attention_with_lse_dyn)
 from dino_tpu_torch.ops.fused_mlp import (fused_ln_mlp_residual,
                                           fused_ln_mlp_residual_plain)
+from dino_tpu_torch.ops.preprocess import preprocess
+from dino_tpu_torch.ops.resize import resize_nearest
 from dino_tpu_torch.parallel import dist as pdist
 from dino_tpu_torch.parallel.ring_attention import make_sp_train_step
+from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.train.loop import (init_opt_state, make_optimizer,
                                        make_train_step)
+from dino_tpu_torch.utils.frames import process_attentions
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 CUDA cores, TF32
 # tensor cores (the f32 forward's route: three TF32 products per product),
@@ -157,6 +174,25 @@ MLP_EDGE_H = (64, 1536)
 # serialized for want of registers)
 NO_SPILL = ("flash_fwd_bf16", "fused_ln_mlp_kernel", "flash_bwd_bf16",
             "flash_bwd_f32")
+# attention maps (phase 8): card f32 outputs vs the CPU's, max |err| against
+# each output's largest |ref|; bf16 intermediate layers by FLASH_TOL's bf16
+# rates, also against the tensor's largest |ref| (atol + rtol x max|ref|):
+# each token is LayerNorm'd, so an element near 0 carries the rounding of
+# the token's large elements, scaled by 1/std (measured on the card: 0.039
+# at max|ref| 4.75, 5 bf16 ulps of a unit-size element, where the card runs
+# the fused MLP and the CPU the composition); the full matrix's rows sum to
+# 1, and the CLS row of cls_only equals the full matrix's row 0, within
+# ATTN_ROWSUM_ATOL and ATTN_CLS_ROW_ATOL
+ATTN_F32_REL = 1e-5
+ATTN_ROWSUM_ATOL = 1e-5
+ATTN_CLS_ROW_ATOL = 1e-6
+ATTN_MASKS = 4
+ATTN_960_MASKS = 8
+ATTN_PEAK_LIMIT = 1 << 30   # bytes the 960px CLS-row and mask calls may add
+STREAM_FRAMES, STREAM_BATCH = 10, 4
+# predict_stream's frame rate: 64 batches of 4, two readings in turns with
+# the predict_batch loop
+STREAM_TIMED_FRAMES, STREAM_READINGS = 256, 2
 
 
 _T0 = time.perf_counter()
@@ -498,7 +534,7 @@ def counts():
 
 
 def zero_counts():
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention.launches_f32 = 0
     fused_ln_mlp_residual.launches = 0
     flash_attention_bwd.launches = flash_attention_bwd.launches_f32 = 0
     flash_attention_with_lse_dyn.launches = 0
@@ -508,9 +544,12 @@ def zero_counts():
 
 def all_counts():
     """Launch counts of every kernel, by kernel name: the backward's bf16
-    kernel per entry (kernel 3, kernel 6) and its f32 kernel over both."""
+    kernel per entry (kernel 3, kernel 6) and its f32 kernel over both; the
+    forward entry's launches in both dtypes, and of them the f32 kernel's
+    (flash_fwd_f32)."""
     bwd, dyn = flash_attention_bwd, flash_attention_bwd_dyn
     return {"flash_attn_fwd": flash_attention.launches,
+            "flash_attn_fwd_f32": flash_attention.launches_f32,
             "fused_ln_mlp": fused_ln_mlp_residual.launches,
             "flash_attn_bwd": bwd.launches - bwd.launches_f32,
             "flash_attn_bwd_f32": bwd.launches_f32 + dyn.launches_f32,
@@ -521,8 +560,9 @@ def all_counts():
 def sp_want(fwd_dyn, bwd_dyn=0, bwd_f32=0):
     """The counts an SP run must show: dyn entries only (the backward's
     bf16 or f32 kernel)."""
-    return {"flash_attn_fwd": 0, "fused_ln_mlp": 0, "flash_attn_bwd": 0,
-            "flash_attn_bwd_f32": bwd_f32, "flash_attn_fwd_dyn": fwd_dyn,
+    return {"flash_attn_fwd": 0, "flash_attn_fwd_f32": 0, "fused_ln_mlp": 0,
+            "flash_attn_bwd": 0, "flash_attn_bwd_f32": bwd_f32,
+            "flash_attn_fwd_dyn": fwd_dyn,
             "flash_attn_bwd_dyn": bwd_dyn}
 
 
@@ -1369,6 +1409,273 @@ def phase_fp32_latency(model, frame):
     model.set_resolution(480)
 
 
+def attention_twins(model):
+    """(card fp32, CPU fp32, CPU bf16) copies of a card DINOSeg's
+    weights."""
+    sd = model.model.state_dict()
+    kw = dict(head=model.head, n_blocks=model.n_blocks,
+              n_classes=model.n_classes, random_init=True)
+    twins = (DINOSeg(precision="fp32", **kw),
+             DINOSeg(precision="fp32", device="cpu", **kw),
+             DINOSeg(precision="bf16", device="cpu", **kw))
+    for twin in twins:
+        twin.load_state_dict({k: v.to(twin.device) for k, v in sd.items()})
+    return twins
+
+
+def attention_masks(n, grid, seed):
+    """n binary region masks (n, grid, grid): n horizontal bands, each
+    thinned at random."""
+    rs = np.random.RandomState(seed)
+    masks = np.zeros((n, grid, grid), np.float32)
+    for i, rows in enumerate(np.array_split(np.arange(grid), n)):
+        masks[i, rows] = rs.rand(len(rows), grid) > 0.2
+    return masks
+
+
+def inter_composition(model, img):
+    """get_intermediate_layers(n=2) of a bf16 card DINOSeg as the API runs
+    it, but with a gradient asked of the input, so that every block takes
+    the MLP composition (mlp_residual) where the API takes the fused
+    kernel; the attention stays the bf16 flash forward."""
+    with torch.enable_grad(), matmul_ctx(torch.bfloat16):
+        x = preprocess(model._frames(img), model.resolution)
+        x = x.to(torch.bfloat16).requires_grad_()
+        outs = get_intermediate_layers(model.model.dino, x, model.cfg, n=2)
+    return np.stack([t.detach().float().cpu().numpy() for t in outs])
+
+
+def attention_checks(model, twins, frame, masks, res=240):
+    """The attention-map calls on the card against the port's own CPU run
+    at ``res``: get_last_selfattention (full and CLS-row only, with and
+    without ``masks``) and forward_mask on the card's bf16 ``model`` (which
+    run f32: depth - 1 launches of the f32 forward, no fused MLP), and
+    get_intermediate_layers(n=2) on the fp32 twin (depth f32 forwards) and
+    on ``model`` (depth bf16 forwards and fused MLPs).  f32 outputs within
+    ATTN_F32_REL of each output's largest magnitude, bf16 within FLASH_TOL's
+    rates of it; returns the summed launch counts."""
+    card32, cpu32, cpu16 = twins
+    depth = model.n_blocks
+    for m in (model, *twins):
+        m.set_resolution(res)
+    img = frame[None]
+    glsa = "get_last_selfattention"
+    calls = [
+        (glsa, "full", lambda m: m.get_last_selfattention(img)),
+        (glsa, "cls_only", lambda m: m.get_last_selfattention(
+            img, cls_only=True)),
+        (glsa, "full, masks", lambda m: m.get_last_selfattention(img, masks)),
+        (glsa, "cls_only, masks", lambda m: m.get_last_selfattention(
+            img, masks, cls_only=True)),
+        ("forward_mask", "masks", lambda m: m.forward_mask(frame, masks)),
+    ]
+    def inter(m):
+        return np.stack(m.get_intermediate_layers(img, n=2))
+
+    runs = ([(name, form, "fp32", model, cpu32, fn, (depth - 1,) * 2 + (0,))
+             for name, form, fn in calls]
+            + [("get_intermediate_layers", "n=2", "fp32", card32, cpu32,
+                inter, (depth, depth, 0)),
+               ("get_intermediate_layers", "n=2", "bf16", model, cpu16,
+                inter, (depth, 0, depth))])
+    total = {}
+    for name, form, prec, card, cpu, fn, want in runs:
+        out, got = counted(lambda: fn(card))
+        add_counts(total, got)
+        ref = fn(cpu)
+        err = np.abs(out - ref)
+        top = float(np.abs(ref).max())
+        if prec == "fp32":
+            ok = err.max() <= ATTN_F32_REL * top
+            tol = f"{ATTN_F32_REL} x max|ref|"
+        else:
+            atol, rtol = FLASH_TOL[torch.bfloat16]
+            ok = err.max() <= atol + rtol * top
+            tol = f"{atol} + {rtol} x max|ref|"
+        have = (got["flash_attn_fwd"], got["flash_attn_fwd_f32"],
+                got["fused_ln_mlp"])
+        rec = {"phase": "attention_maps", "res": res, "call": name,
+               "form": form, "precision": prec, "shape": list(out.shape),
+               "max_abs_err_card_vs_cpu": float(err.max()), "max_abs_ref": top,
+               "tol": tol, "flash_fwd_launches": have[0],
+               "flash_fwd_f32_launches": have[1],
+               "flash_fwd_bf16_launches": have[0] - have[1],
+               "fused_mlp_launches": have[2]}
+        if prec == "bf16":
+            # the fused kernel's share of the error: the same call on the
+            # card with the MLP as its composition, against the CPU and
+            # against the fused run (a record, not a check)
+            comp = inter_composition(card, img)
+            rec["composition_max_abs_err_vs_cpu"] = float(
+                np.abs(comp - ref).max())
+            rec["fused_vs_composition_max_abs_err"] = float(
+                np.abs(out - comp).max())
+        emit(rec)
+        check(bool(np.isfinite(out).all()), f"non-finite {rec}")
+        check(out.shape == ref.shape, f"shape {rec}")
+        check(ok, f"card {name} disagrees with the CPU {rec}")
+        check(have == want, f"{name} launches {have}, want {want}")
+    return total
+
+
+def attention_large(model, frame, frames3):
+    """480px batch 3: the full matrix's rows sum to 1 and its row 0 is the
+    CLS-row call's, which process_attentions and the CLIs' compute
+    functions take on the first frame; 960px: the CLS-row call and
+    forward_mask with ATTN_960_MASKS masks, each adding under
+    ATTN_PEAK_LIMIT bytes of peak memory.  Returns the summed launch
+    counts."""
+    total = {}
+    model.set_resolution(480)
+    full, got = counted(lambda: model.get_last_selfattention(frames3))
+    add_counts(total, got)
+    row, got = counted(lambda: model.get_last_selfattention(frames3,
+                                                            cls_only=True))
+    add_counts(total, got)
+    rec = {"phase": "attention_maps", "res": 480, "batch": 3,
+           "shape_full": list(full.shape), "shape_cls_only": list(row.shape),
+           "row_sum_max_abs_err": float(np.abs(full.sum(-1) - 1).max()),
+           "cls_row_max_abs_err": float(np.abs(row[:, :, 0]
+                                               - full[:, :, 0]).max()),
+           "tol": [ATTN_ROWSUM_ATOL, ATTN_CLS_ROW_ATOL]}
+    del full
+    emit(rec)
+    check(rec["row_sum_max_abs_err"] <= ATTN_ROWSUM_ATOL, f"row sums {rec}")
+    check(rec["cls_row_max_abs_err"] <= ATTN_CLS_ROW_ATOL, f"CLS row {rec}")
+    maps = process_attentions(row[:1], resolution=480)
+    kept = process_attentions(row[:1], threshold=0.6, resolution=480)
+    check(maps.shape == kept.shape == (6, 60, 60), "process_attentions")
+    first = frames3[0]
+    viz, got = counted(lambda: overlay(model, first,
+                                       resize_nearest(first, 480, 480)))
+    add_counts(total, got)
+    check(viz.shape == (480, 480, 3) and viz.dtype == np.uint8, "overlay")
+    heads, got = counted(lambda: attention_maps(model, first))
+    add_counts(total, got)
+    err = float(np.abs(heads[:, ::8, ::8] - maps).max())
+    emit({"phase": "attention_maps", "res": 480,
+          "call": "cli.visualize_attention.attention_maps",
+          "shape": list(heads.shape),
+          "max_abs_err_vs_batch3_cls_row": err, "tol": ATTN_CLS_ROW_ATOL})
+    check(heads.shape == (6, 480, 480) and err <= ATTN_CLS_ROW_ATOL,
+          "attention_maps vs the CLS row")
+
+    model.set_resolution(SP_RES)
+    masks = attention_masks(ATTN_960_MASKS, SP_RES // 8, seed=2)
+    n = SP_N_REAL
+    for name, fn, shape in (
+            ("get_last_selfattention cls_only",
+             lambda: model.get_last_selfattention(frame[None],
+                                                  cls_only=True),
+             (1, 6, 1, n)),
+            ("forward_mask", lambda: model.forward_mask(frame, masks),
+             (ATTN_960_MASKS, 384))):
+        zero_counts()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        add_counts(total, all_counts())
+        rec = {"phase": "attention_maps", "res": SP_RES, "call": name,
+               "n_tokens": n, "shape": list(out.shape),
+               "peak_bytes_over_start": peak,
+               "n_by_n_bytes": 6 * n * n * 4, "limit": ATTN_PEAK_LIMIT}
+        emit(rec)
+        check(out.shape == shape and bool(np.isfinite(out).all()),
+              f"960px {rec}")
+        check(peak < ATTN_PEAK_LIMIT, f"960px peak memory {rec}")
+    model.set_resolution(480)
+    return total
+
+
+def stream_check(model, frames, batch_size, precision):
+    """predict_stream over ``frames`` against predict_batch on the same
+    padded batches: the same bits.  Returns the stream's launch counts."""
+    padded = []
+    for i in range(0, len(frames), batch_size):
+        part = frames[i:i + batch_size]
+        padded.append((np.concatenate([part, np.repeat(
+            part[-1:], batch_size - len(part), axis=0)]), len(part)))
+    outs, got = counted(lambda: list(model.predict_stream(
+        iter(frames), batch_size=batch_size, precision=precision)))
+    want = np.concatenate([model.predict_batch(b, precision=precision)[:n]
+                           for b, n in padded])
+    same = len(outs) == len(frames) and all(
+        np.array_equal(a, b) for a, b in zip(outs, want))
+    rec = {"phase": "attention_maps", "call": "predict_stream",
+           "precision": precision, "res": model.resolution,
+           "frames": len(frames), "batch_size": batch_size,
+           "maps_equal_predict_batch": same, "launches": got}
+    emit(rec)
+    check(same, f"predict_stream != predict_batch {rec}")
+    return got
+
+
+def stream_rates(model, frames, batch_size, precision):
+    """Host frames/s over a camera trace of STREAM_TIMED_FRAMES frames
+    (``frames`` in a cycle): predict_stream, and a loop that stacks each
+    batch of the same trace and calls predict_batch.  One untimed run of
+    each first (it allocates the stream's pinned buffers, which the host
+    allocator's cache then serves again), then STREAM_READINGS readings of
+    each in turns.  Timing runs: their launches are not counted."""
+    n = STREAM_TIMED_FRAMES
+
+    def trace(count):
+        return (frames[i % len(frames)] for i in range(count))
+
+    def stream(count):
+        for _ in model.predict_stream(trace(count), batch_size=batch_size,
+                                      precision=precision):
+            pass
+
+    def loop(count):
+        for s in range(0, count, batch_size):
+            model.predict_batch([frames[i % len(frames)] for i in
+                                 range(s, min(s + batch_size, count))],
+                                precision=precision)
+
+    stream(2 * batch_size)
+    loop(2 * batch_size)
+    fps = {"stream": [], "loop": []}
+    for _ in range(STREAM_READINGS):
+        for name, fn in (("stream", stream), ("loop", loop)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(n)
+            fps[name].append(n / (time.perf_counter() - t0))
+    emit({"phase": "attention_maps", "call": "predict_stream rates",
+          "precision": precision, "res": model.resolution, "frames": n,
+          "distinct_frames": len(frames), "batch_size": batch_size,
+          "stream_host_fps": fps["stream"],
+          "predict_batch_loop_host_fps": fps["loop"]})
+
+
+def phase_attention_maps(model, frame, frames3):
+    """Phase 8 on the main path's bf16 model: returns its launch counts
+    (every count zeroed before each call and read after it)."""
+    twins = attention_twins(model)
+    total = attention_checks(model, twins, frame,
+                             attention_masks(ATTN_MASKS, 30, seed=1))
+    add_counts(total, attention_large(model, frame, frames3))
+    frames = np.random.RandomState(3).randint(
+        0, 256, (STREAM_FRAMES, 480, 640, 3)).astype(np.uint8)
+    model.set_resolution(480)
+    for prec in ("fp32", "bf16"):
+        add_counts(total, stream_check(model, frames, STREAM_BATCH, prec))
+    for prec in ("fp32", "bf16"):
+        stream_rates(model, frames, STREAM_BATCH, prec)
+    emit({"phase": "attention_maps", "launches": total,
+          "flash_fwd_bf16_launches": (total["flash_attn_fwd"]
+                                      - total["flash_attn_fwd_f32"])})
+    for name in ("flash_attn_fwd_f32", "fused_ln_mlp"):
+        check(total[name] > 0, f"{name} never launched by attention_maps")
+    check(total["flash_attn_fwd"] > total["flash_attn_fwd_f32"],
+          "the bf16 forward never launched by attention_maps")
+    return total
+
+
 KERNELS = {
     "flash_attn_fwd": dict(
         source="dino_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -1468,10 +1775,18 @@ def main():
                                   f"ranks")
     emit({"phase": "sp_path", "world1_launches": sp_world1,
           "rank_launches_summed": sp_ranks})
+    attn = phase_attention_maps(model, frame, frames3)
     rows = phase_timing(block, per_call, bwd_per_step)
     rows.update(phase_timing_sp(launches))
     phase_fp32_latency(model, frame)
     emit(dict({"phase": "bench"}, **bench.run()))
+    # phase 8's launches, each in one row: its bf16 forwards in row 1
+    # (flash_fwd_bf16), its f32 forwards in row 4 (flash_fwd_f32), and the
+    # fused MLP's
+    launches["flash_attn_fwd"] += (attn["flash_attn_fwd"]
+                                   - attn["flash_attn_fwd_f32"])
+    launches["fused_ln_mlp"] += attn["fused_ln_mlp"]
+    launches["flash_attn_fwd_chunked"] += attn["flash_attn_fwd_f32"]
 
     emit({"kernels": [
         dict(name=name, route="cuda", launches=launches[name],

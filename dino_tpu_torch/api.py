@@ -1,11 +1,17 @@
-"""DINOSeg: the public task API of the port (predict surface).
+"""DINOSeg: the public task API of the port (inference surface).
 
-The counterpart of ``dino_tpu/api.py``'s ``DINOSeg`` for serving:
+The counterpart of ``dino_tpu/api.py``'s ``DINOSeg`` for inference:
 
   * ``predict`` / ``predict_batch`` return 480x480 int32 label maps whatever
     the inference resolution.  Resize, normalize, the ViT forward, the head,
     argmax and the kron upsample run on the model's device; labels cross
     back to the host as uint8 and are widened to int32 there.
+  * ``predict_stream`` runs a frame iterator through one batch shape,
+    enqueuing batch k+1 before it reads batch k's labels.
+  * ``get_intermediate_layers`` (in the model's precision),
+    ``forward_mask`` and ``get_last_selfattention`` (float32 whatever the
+    precision, as in ``dino_tpu``) are the backbone's feature and
+    attention-map surface.
   * ``precision='bf16'`` runs matmuls in bf16 with f32 accumulation (LN,
     softmax and log_softmax in f32) and, on CUDA, the flash and fused-MLP
     kernels; ``'fp32'`` runs true float32 (TF32 off inside the call).
@@ -25,7 +31,7 @@ from __future__ import annotations
 
 import os
 import warnings
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -38,6 +44,8 @@ from dino_tpu_torch.checkpointing.convert import (from_jax_params,
 from dino_tpu_torch.checkpointing.io import load_checkpoint, save_checkpoint
 from dino_tpu_torch.models.heads import head_apply, init_head
 from dino_tpu_torch.models.vit import (ViTConfig, VisionTransformer,
+                                       forward_mask, get_intermediate_layers,
+                                       get_last_selfattention,
                                        init_vit_params)
 from dino_tpu_torch.ops.preprocess import normalize_imagenet, preprocess
 from dino_tpu_torch.ops.upsample import kron_upsample
@@ -141,7 +149,7 @@ class DINOSeg:
     def forward(self, images_u8) -> torch.Tensor:
         """uint8 (B,res,res,3) -> (B*N, n_classes) log-probs."""
         cdt = self._compute_dtype_for(None)
-        x = torch.as_tensor(np.asarray(images_u8), device=self.device)
+        x = self._frames(images_u8)
         with matmul_ctx(cdt):
             return seg_forward(self.model.dino, self.model.clf, self.cfg,
                                self.head, pre_normalized=normalize_imagenet(x),
@@ -218,6 +226,138 @@ class DINOSeg:
         imgs = torch.from_numpy(self._as_uint8(images)).to(self.device)
         labels = self.predict_device(imgs, precision, parallelism)
         return labels.cpu().numpy().astype(np.int32, copy=False)
+
+    def predict_stream(self, frames, batch_size: int = 8,
+                       precision: Optional[str] = None,
+                       parallelism: Optional[str] = None):
+        """Continuous inference over an iterable of frames (a camera
+        trace): yields one (480, 480) int32 map per frame, in order.
+
+        ``precision`` and ``parallelism`` mean what they do on
+        :meth:`predict_batch`.  The host stacks each batch into one of two
+        pinned buffers and enqueues it (copy in, forward, labels copied out
+        into a pinned buffer, an event) before it reads the previous
+        batch's labels, so stacking batch k+1 overlaps the card's work on
+        batch k.  A ragged tail is padded by repeating its last frame and
+        cut on yield, so the stream runs one batch shape.  The options are
+        checked here, before the first frame is read.
+        """
+        self._check_parallelism(parallelism)
+        self._compute_dtype_for(precision)
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        return self._stream(iter(frames), batch_size, precision, parallelism)
+
+    def _stream(self, frames, batch_size, precision, parallelism):
+        cuda = self.device.type == "cuda"
+        staged = [None, None]   # pinned uint8 input batches, by parity
+        labels = [None, None]   # pinned label batches, by parity
+
+        def submit(k, n_valid):
+            """Pad batch k's buffer past ``n_valid`` frames and enqueue
+            it; returns (its label buffer, its event, n_valid)."""
+            buf = staged[k % 2]
+            buf[n_valid:] = buf[n_valid - 1]
+            out = self.predict_device(buf.to(self.device, non_blocking=True),
+                                      precision, parallelism)
+            if labels[k % 2] is None or labels[k % 2].shape != out.shape:
+                labels[k % 2] = torch.empty(out.shape, dtype=out.dtype,
+                                            pin_memory=cuda)
+            host = labels[k % 2]
+            host.copy_(out, non_blocking=True)
+            done = torch.cuda.Event() if cuda else None
+            if done is not None:
+                done.record()
+            return host, done, n_valid
+
+        def read(pending):
+            host, done, n_valid = pending
+            if done is not None:
+                done.synchronize()
+            return host[:n_valid].numpy().astype(np.int32)
+
+        pending, k, n = None, 0, 0
+        for frame in frames:
+            img = torch.from_numpy(self._as_uint8(frame))
+            buf = staged[k % 2]
+            if buf is None or buf.shape[1:] != img.shape:
+                if n:
+                    raise ValueError(f"frame of shape {tuple(img.shape)} in "
+                                     f"a batch of {tuple(buf.shape[1:])}")
+                buf = staged[k % 2] = torch.empty(
+                    (batch_size,) + tuple(img.shape), dtype=torch.uint8,
+                    pin_memory=cuda)
+            buf[n] = img
+            n += 1
+            if n == batch_size:
+                fut = submit(k, n)
+                if pending is not None:
+                    yield from read(pending)
+                pending, k, n = fut, k + 1, 0
+        if n:
+            fut = submit(k, n)
+            if pending is not None:
+                yield from read(pending)
+            pending = fut
+        if pending is not None:
+            yield from read(pending)
+
+    def _frames(self, images_u8) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(images_u8), device=self.device)
+
+    def _mask(self, cls_mask) -> torch.Tensor:
+        """(n_masks, res/8, res/8) masks on the model's device."""
+        mask = torch.as_tensor(np.asarray(cls_mask), device=self.device)
+        grid = self.resolution // self.cfg.patch_size
+        if mask.dim() != 3 or tuple(mask.shape[1:]) != (grid, grid):
+            raise ValueError(f"cls_mask must be (n_masks, {grid}, {grid}) at "
+                             f"resolution {self.resolution}, got "
+                             f"{tuple(mask.shape)}")
+        return mask
+
+    @torch.no_grad()
+    def get_intermediate_layers(self, images_u8,
+                                n: int = 1) -> List[np.ndarray]:
+        """The final-LayerNorm'd tokens (B, 1+N, D) after each of the last
+        ``n`` backbone blocks at the current resolution, as float32 arrays
+        (bf16 values widened exactly).  Runs in the model's compute dtype:
+        on the card a bf16 model takes the bf16 flash forward and the fused
+        MLP."""
+        cdt = self._compute_dtype_for(None)
+        with matmul_ctx(cdt):
+            x = preprocess(self._frames(images_u8), self.resolution)
+            if cdt is not None:
+                x = x.to(cdt)
+            outs = get_intermediate_layers(self.model.dino, x, self.cfg, n=n)
+        return [t.float().cpu().numpy() for t in outs]
+
+    @torch.no_grad()
+    def forward_mask(self, image_u8, cls_mask) -> np.ndarray:
+        """Embed region masks by masked CLS attention in the last block:
+        image (H, W, 3) uint8, cls_mask (n_masks, res/8, res/8) binary ->
+        (n_masks, D) float32.  Float32 with TF32 off whatever the model's
+        precision, as in ``dino_tpu``; O(n_masks * N) memory."""
+        with matmul_ctx(None):
+            x = preprocess(self._frames(image_u8)[None], self.resolution)
+            out = forward_mask(self.model.dino, x, self._mask(cls_mask),
+                               self.cfg)
+        return out.cpu().numpy()
+
+    @torch.no_grad()
+    def get_last_selfattention(self, images_u8, cls_mask=None,
+                               cls_only: bool = False) -> np.ndarray:
+        """Last-block attention probabilities at the current resolution,
+        float32 with TF32 off whatever the model's precision: (B, nh, N, N),
+        or with ``cls_only`` the CLS query's row, (B, nh, 1, N) in O(N)
+        memory (the row the attention-map consumers read; the full matrix
+        is ~5 GB per frame at 960px).  A ``cls_mask`` gives the masked CLS
+        rows of the first frame, (1, nh, n_masks, N)."""
+        with matmul_ctx(None):
+            x = preprocess(self._frames(images_u8), self.resolution)
+            mask = None if cls_mask is None else self._mask(cls_mask)
+            attn = get_last_selfattention(self.model.dino, x, self.cfg,
+                                          cls_mask=mask, cls_only=cls_only)
+        return attn.cpu().numpy()
 
     def fit(self, *args, **kwargs):
         raise NotImplementedError(_roadmap("DINOSeg.fit", 5))

@@ -16,14 +16,18 @@ modules, one per function of ``dino_tpu/models/vit.py``:
     runs the fused LN+MLP+residual kernel, and under autograd or in float32
     the MLP is a composition with true erf;
   * ``vit_forward(..., remat=True)`` recomputes each block in the backward
-    pass (``torch.utils.checkpoint``), trading FLOPs for activation memory.
+    pass (``torch.utils.checkpoint``), trading FLOPs for activation memory;
+  * ``get_last_selfattention`` (full, masked or CLS-row only),
+    ``forward_mask`` and ``get_intermediate_layers`` run the earlier blocks
+    as ``vit_forward`` does and the last block's attention through its
+    materialized probabilities (``ops.attention.attention_probs``).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
@@ -31,7 +35,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from dino_tpu_torch.models.heads import affine, dense
-from dino_tpu_torch.ops.attention import multi_head_attention
+from dino_tpu_torch.ops.attention import (attention_probs,
+                                          multi_head_attention)
 from dino_tpu_torch.ops.bicubic import bicubic_resize_matrix
 from dino_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual
 
@@ -47,6 +52,14 @@ class ViTConfig:
     qk_scale: Optional[float] = None
     ln_eps: float = 1e-6
     img_size: int = 224
+    # Train-mode regularization, 0 in every reference config.  block_apply
+    # reads drop_rate and attn_drop_rate, and takes each block's drop-path
+    # rate as an argument; vit_forward passes no generator, so none of the
+    # three acts until a train loop draws them (the fit path, ROADMAP
+    # item 5).  drop_path_rate is kept for that loop, as dino_tpu keeps it.
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
+    drop_path_rate: float = 0.0
 
     @property
     def head_dim(self) -> int:
@@ -235,17 +248,49 @@ def prepare_tokens(model: VisionTransformer, x: torch.Tensor,
     return tokens + pos.to(tokens.dtype)
 
 
-def mlp_residual(norm: nn.LayerNorm, mlp: Mlp, x: torch.Tensor,
-                 eps: float) -> torch.Tensor:
+def drop_path(x: torch.Tensor, rate: float,
+              generator: torch.Generator) -> torch.Tensor:
+    """Stochastic depth: zero the residual branch per sample with
+    probability ``rate`` and scale the kept ones by 1/(1 - rate): mask =
+    floor(keep + U[0, 1)) per sample, drawn from ``generator``."""
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    mask = torch.floor(keep + u).to(x.device)
+    return (x / keep) * mask.to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability 1 - rate and
+    scaled by 1/(1 - rate), the mask drawn from ``generator``."""
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    return torch.where(u.to(x.device) < keep, x / keep, 0.0).to(x.dtype)
+
+
+def mlp_residual(norm: nn.LayerNorm, mlp: Mlp, x: torch.Tensor, eps: float,
+                 drop_rate: float = 0.0, drop_path_rate: float = 0.0,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """x + fc2(gelu(fc1(LN(x)))) as a differentiable composition with the
     numerics of ``dino_tpu/ops/fused_mlp.py:_xla_reference``: LN in float32
     -> cast -> fc1 + f32 bias -> true-erf GELU in float32 -> cast -> fc2 +
     f32 bias -> cast -> residual add in the input dtype.  Each product is
-    accumulated in float32 and takes its bias unrounded (:func:`affine`)."""
+    accumulated in float32 and takes its bias unrounded (:func:`affine`).
+    With a ``generator``, train-mode dropout after the GELU and after fc2,
+    then drop-path on the branch, each where its rate is > 0."""
     dt = x.dtype
     h = layer_norm(norm, x, eps)
     h = F.gelu(affine(mlp.fc1, h), approximate="none").to(dt)
-    return x + affine(mlp.fc2, h, dt)
+    drop = generator is not None and drop_rate > 0
+    if drop:
+        h = dropout(h, drop_rate, generator)
+    h = affine(mlp.fc2, h, dt)
+    if drop:
+        h = dropout(h, drop_rate, generator)
+    if generator is not None and drop_path_rate > 0:
+        h = drop_path(h, drop_path_rate, generator)
+    return x + h
 
 
 def _needs_grad(blk: Block, x: torch.Tensor) -> bool:
@@ -253,19 +298,47 @@ def _needs_grad(blk: Block, x: torch.Tensor) -> bool:
         x.requires_grad or any(p.requires_grad for p in blk.parameters()))
 
 
-def block_apply(blk: Block, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
-    """One pre-LN transformer block.
+def block_apply(blk: Block, x: torch.Tensor, cfg: ViTConfig,
+                cls_mask: Optional[torch.Tensor] = None,
+                need_probs: bool = False, drop_path_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None):
+    """One pre-LN transformer block; returns (x_out, probs or None).
+
+    ``need_probs`` or a ``cls_mask`` (n_masks, gh, gw) take attention
+    through the materialized probabilities; with a mask the block's output
+    is one token per mask, (1, n_masks, D), over the CLS residual repeated
+    per mask.  Train-mode regularization (``cfg.drop_rate``,
+    ``cfg.attn_drop_rate``, ``drop_path_rate``; 0 in every reference
+    config) engages only when a ``generator`` is passed and a rate is > 0.
 
     The fused MLP kernel runs only on the bf16 CUDA path when no gradient
-    is needed (the kernel has no backward); otherwise the MLP is the
-    differentiable composition :func:`mlp_residual`.
+    is needed and no regularization is on (the kernel has no backward);
+    otherwise the MLP is the differentiable composition
+    :func:`mlp_residual`.
     """
-    x = x + multi_head_attention(blk.attn, layer_norm(blk.norm1, x, cfg.ln_eps),
-                                 num_heads=cfg.num_heads, scale=cfg.scale)
-    if (x.is_cuda and x.dtype == torch.bfloat16
+    train = generator is not None and (cfg.drop_rate > 0
+                                       or cfg.attn_drop_rate > 0
+                                       or drop_path_rate > 0)
+    gen = generator if train else None
+    y, probs = multi_head_attention(
+        blk.attn, layer_norm(blk.norm1, x, cfg.ln_eps),
+        num_heads=cfg.num_heads, scale=cfg.scale, cls_mask=cls_mask,
+        need_probs=need_probs,
+        attn_drop=(cfg.attn_drop_rate, gen) if train
+        and cfg.attn_drop_rate > 0 else None)
+    if train and cfg.drop_rate > 0:
+        y = dropout(y, cfg.drop_rate, gen)  # proj_drop
+    if cls_mask is not None:
+        # the CLS residual, once per mask
+        x = x[:, :1, :].expand(x.shape[0], cls_mask.shape[0], x.shape[-1])
+    if train and drop_path_rate > 0:
+        y = drop_path(y, drop_path_rate, gen)
+    x = x + y
+    if (not train and x.is_cuda and x.dtype == torch.bfloat16
             and not _needs_grad(blk, x)):
-        return fused_ln_mlp_residual(blk.norm2, blk.mlp, x, cfg.ln_eps)
-    return mlp_residual(blk.norm2, blk.mlp, x, cfg.ln_eps)
+        return fused_ln_mlp_residual(blk.norm2, blk.mlp, x, cfg.ln_eps), probs
+    return mlp_residual(blk.norm2, blk.mlp, x, cfg.ln_eps, cfg.drop_rate,
+                        drop_path_rate, gen), probs
 
 
 def vit_forward(model: VisionTransformer, x: torch.Tensor, cfg: ViTConfig, *,
@@ -282,13 +355,74 @@ def vit_forward(model: VisionTransformer, x: torch.Tensor, cfg: ViTConfig, *,
     for i, blk in enumerate(model.blocks):
         if remat:
             tokens = torch.utils.checkpoint.checkpoint(
-                block_apply, blk, tokens, cfg, use_reentrant=False)
+                block_apply, blk, tokens, cfg, use_reentrant=False)[0]
         else:
-            tokens = block_apply(blk, tokens, cfg)
+            tokens = block_apply(blk, tokens, cfg)[0]
         if intermediate and i == intermediate - 1:
             return layer_norm(model.norm, tokens, cfg.ln_eps)
     tokens = layer_norm(model.norm, tokens, cfg.ln_eps)
     return tokens if all_tokens else tokens[:, 0]
+
+
+def _tokens_before_last(model: VisionTransformer, x: torch.Tensor,
+                        cfg: ViTConfig) -> torch.Tensor:
+    tokens = prepare_tokens(model, x, cfg)
+    for blk in list(model.blocks)[:-1]:
+        tokens = block_apply(blk, tokens, cfg)[0]
+    return tokens
+
+
+def get_last_selfattention(model: VisionTransformer, x: torch.Tensor,
+                           cfg: ViTConfig,
+                           cls_mask: Optional[torch.Tensor] = None,
+                           cls_only: bool = False) -> torch.Tensor:
+    """Attention probabilities of the last block, float32.
+
+    By default the full (B, nh, N, N) matrix, as the reference returns it;
+    with a ``cls_mask`` (n_masks, gh, gw) the masked CLS rows, (1, nh,
+    n_masks, N).  ``cls_only=True`` projects q for the CLS token alone and
+    returns (B, nh, 1, N) (or the masked rows): O(N) memory, which makes
+    960px maps (N = 14,401; the full matrix is ~5 GB) cheap.
+    """
+    tokens = _tokens_before_last(model, x, cfg)
+    last = model.blocks[-1]
+    if not cls_only:
+        return block_apply(last, tokens, cfg, cls_mask=cls_mask,
+                           need_probs=True)[1]
+    h = layer_norm(last.norm1, tokens, cfg.ln_eps)
+    b, n, c = h.shape
+    nh, hd = cfg.num_heads, cfg.head_dim
+    # the (3C, C) weight's rows are (3, nh, hd): the q and k thirds
+    w = last.attn.qkv.weight.reshape(3, c, c)
+    bias = last.attn.qkv.bias.reshape(3, c)
+    q_cls = dense(h[:, :1, :], w[0], bias[0])  # q of the CLS token only
+    q_cls = q_cls.reshape(b, 1, nh, hd).permute(0, 2, 1, 3)
+    k = dense(h, w[1], bias[1]).reshape(b, n, nh, hd).permute(0, 2, 1, 3)
+    return attention_probs(q_cls, k, cfg.scale, cls_mask)
+
+
+def forward_mask(model: VisionTransformer, x: torch.Tensor,
+                 cls_mask: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+    """Embed n_masks region masks by masked CLS attention in the last
+    block: x (1, H, W, 3), cls_mask (n_masks, H/P, W/P) binary -> (n_masks,
+    D), in O(n_masks * N) memory (reference ``forward_mask``)."""
+    tokens = _tokens_before_last(model, x, cfg)
+    tokens = block_apply(model.blocks[-1], tokens, cfg, cls_mask=cls_mask)[0]
+    return layer_norm(model.norm, tokens, cfg.ln_eps)[0]
+
+
+def get_intermediate_layers(model: VisionTransformer, x: torch.Tensor,
+                            cfg: ViTConfig, n: int = 1) -> List[torch.Tensor]:
+    """The final-LayerNorm'd tokens after each of the last ``n`` blocks,
+    (B, 1+N, D) each (reference ``get_intermediate_layers``)."""
+    tokens = prepare_tokens(model, x, cfg)
+    depth = len(model.blocks)
+    out = []
+    for i, blk in enumerate(model.blocks):
+        tokens = block_apply(blk, tokens, cfg)[0]
+        if depth - i <= n:
+            out.append(layer_norm(model.norm, tokens, cfg.ln_eps))
+    return out
 
 
 def truncate_blocks(model: VisionTransformer,

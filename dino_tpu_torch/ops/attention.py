@@ -10,6 +10,9 @@ any N) and, under autograd, its backward (``_flash_bwd_kernel``, through
 ``valid_k``, a host int, are masked.  On CUDA tensors they launch
 ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``; on CPU tensors
 they run the plain PyTorch versions of the same functions.
+``attention_probs`` and ``attention_with_probs`` are the materialized
+probabilities path (attention maps, the masked-CLS forward, attention
+dropout): plain matmuls and a softmax on every device, as in ``dino_tpu``.
 
 Forward numerics (kernel and plain version): scores S = Q.K^T accumulate in
 float32 and are scaled after the product; P is rounded to the input dtype
@@ -24,6 +27,7 @@ dq, dk, dv in float32, cast to the input dtype by the autograd rule.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -191,6 +195,7 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("flash_attn_fwd", rc)
     flash_attention.launches += 1
+    flash_attention.launches_f32 += q.dtype == torch.float32
     return out, lse
 
 
@@ -339,7 +344,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     A CUDA tensor launches the kernel; a CPU tensor takes
     :func:`attention_plain`; any other device raises.  When autograd needs a
     gradient of q, k or v, the call goes through :class:`FlashAttention`,
-    whose backward is the flash backward on both devices.
+    whose backward is the flash backward on both devices.  ``.launches``
+    counts every launch, ``.launches_f32`` those of the float32 kernel
+    (``flash_fwd_f32``).
     """
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -350,21 +357,75 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.launches_f32 = 0
+
+
+def attention_probs(q: torch.Tensor, k: torch.Tensor, scale: float,
+                    cls_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Softmax probabilities (B, nh, Nq, N), float32: the counterpart of
+    ``dino_tpu``'s ``attention_probs_xla``, a plain matmul and softmax (no
+    kernel: the JAX package runs XLA here, not Pallas).
+
+    With ``cls_mask`` (n_masks, gh, gw), binary: q is cut to the CLS query
+    of the first image BEFORE the product, the flattened masks get a zero
+    column prepended for the CLS key and MULTIPLY the logits (no -inf), so
+    the result is (1, nh, n_masks, N) and no (N, N) matrix is formed.
+    """
+    if cls_mask is not None:
+        q = q[0:1, :, 0:1, :]
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if cls_mask is not None:
+        n_masks = cls_mask.shape[0]
+        flat = cls_mask.reshape(n_masks, -1).to(torch.float32)
+        flat = torch.cat([flat.new_zeros(n_masks, 1), flat], dim=1)
+        logits = logits * flat.to(logits.device)
+    return torch.softmax(logits, dim=-1)
+
+
+def attention_with_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float, cls_mask: Optional[torch.Tensor] = None,
+                         attn_drop=None):
+    """(out, probs): :func:`attention_probs`, then P.V with P cast to v's
+    dtype and the product summed in float32, out in v's dtype (``dino_tpu``'s
+    ``attention_xla``).  ``attn_drop``, a (rate, torch.Generator) pair, drops
+    probabilities (inverted dropout) before P.V; the returned probs are the
+    undropped ones."""
+    probs = attention_probs(q, k, scale, cls_mask)
+    applied = probs
+    if attn_drop is not None:
+        rate, generator = attn_drop
+        keep = 1.0 - rate
+        mask = torch.rand(probs.shape, generator=generator,
+                          device=generator.device).to(probs.device) < keep
+        applied = torch.where(mask, probs / keep, 0.0)
+    out = torch.matmul(applied.to(v.dtype).float(), v.float()).to(v.dtype)
+    return out, probs
 
 
 def multi_head_attention(attn, x: torch.Tensor, *, num_heads: int,
-                         scale: float) -> torch.Tensor:
-    """MHSA: qkv projection -> flash attention -> out projection.
+                         scale: float, cls_mask: Optional[torch.Tensor] = None,
+                         need_probs: bool = False, attn_drop=None):
+    """MHSA: qkv projection -> attention -> out projection; returns (out,
+    probs or None).
 
     ``attn`` holds ``qkv`` and ``proj`` (nn.Linear, reference names); both
     are :func:`~dino_tpu_torch.models.heads.dense` layers.  q, k, v come out
-    head-major, (B, nh, N, hd) each and contiguous.
+    head-major, (B, nh, N, hd) each and contiguous.  Unless probabilities
+    are asked for (``need_probs``), a ``cls_mask`` is given or ``attn_drop``
+    (rate, generator) drops them, the attention is :func:`flash_attention`;
+    otherwise :func:`attention_with_probs`, and with a ``cls_mask`` the
+    output holds one token per mask, (1, n_masks, C).
     """
     b, n, c = x.shape
     hd = c // num_heads
     qkv = dense(x, attn.qkv.weight, attn.qkv.bias)
     qkv = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
     qkv = qkv.contiguous()
-    out = flash_attention(qkv[0], qkv[1], qkv[2], scale)
-    out = out.permute(0, 2, 1, 3).reshape(b, n, c)
-    return dense(out, attn.proj.weight, attn.proj.bias)
+    probs = None
+    if need_probs or cls_mask is not None or attn_drop is not None:
+        out, probs = attention_with_probs(qkv[0], qkv[1], qkv[2], scale,
+                                          cls_mask, attn_drop)
+    else:
+        out = flash_attention(qkv[0], qkv[1], qkv[2], scale)
+    out = out.permute(0, 2, 1, 3).reshape(out.shape[0], out.shape[2], c)
+    return dense(out, attn.proj.weight, attn.proj.bias), probs

@@ -1,4 +1,5 @@
-"""cv2-compatible bilinear image resize.
+"""cv2-compatible bilinear image resize, and a nearest-neighbour resize of
+host arrays (label masks, attention maps).
 
 The reference resizes uint8 camera frames with ``albumentations.Resize`` (cv2
 ``INTER_LINEAR``) before normalizing.  The same half-pixel bilinear semantics
@@ -88,3 +89,19 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int,
     if round_uint8:
         x = torch.clamp(torch.floor(x + 0.5), 0.0, 255.0)
     return x
+
+
+@functools.lru_cache(maxsize=None)
+def nearest_resize_indices(n_in: int, n_out: int) -> np.ndarray:
+    """Source index per output index of torchvision's NEAREST resize:
+    floor(dst * n_in / n_out), clipped to the input."""
+    dst = np.arange(n_out, dtype=np.float64)
+    src = np.floor(dst * (n_in / n_out)).astype(np.int64)
+    return np.clip(src, 0, n_in - 1)
+
+
+def resize_nearest(mask: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Nearest-neighbour resize of an (H, W) array on the host (numpy)."""
+    ri = nearest_resize_indices(mask.shape[0], out_h)
+    ci = nearest_resize_indices(mask.shape[1], out_w)
+    return mask[np.ix_(ri, ci)]

@@ -257,5 +257,7 @@ def test_unported_methods_raise(pair):
     _, pm = pair
     with pytest.raises(NotImplementedError, match="item 11"):
         pm.predict(_frames(1)[0], parallelism="tp")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        pm.predict_stream(iter(_frames(2)), batch_size=2, parallelism="tp")
     with pytest.raises(NotImplementedError, match="item 5"):
         pm.fit()

@@ -373,3 +373,32 @@ def test_bf16_dense_on_card_matches_the_cpu(cuda):
     assert bool(((grads[0][0] - grads[1][0]).abs() <= 1e-6 * terms).all())
     for a, c in zip(grads[0][1:], grads[1][1:]):
         torch.testing.assert_close(c, a, rtol=1e-2, atol=1e-2)
+
+
+def test_attention_maps_on_card_match_the_cpu(cuda):
+    """chip_smoke's 240px attention-map checks on a 2-block model: the card
+    against the port's CPU run, with the launches of each call (the f32
+    forward depth - 1 times per attention call, bf16 intermediate layers on
+    the bf16 forward and the fused MLP)."""
+    model = DINOSeg(head="mlp", n_blocks=2, precision="bf16", random_init=True)
+    frame = np.random.RandomState(0).randint(0, 256, (240, 320, 3)).astype(
+        np.uint8)
+    total = chip_smoke.attention_checks(
+        model, chip_smoke.attention_twins(model), frame,
+        chip_smoke.attention_masks(chip_smoke.ATTN_MASKS, 30, seed=1))
+    assert total["flash_attn_fwd_f32"] == 5 * 1 + 2
+    assert total["flash_attn_fwd"] - total["flash_attn_fwd_f32"] == 2
+    assert total["fused_ln_mlp"] == 2
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_predict_stream_on_card_equals_predict_batch(cuda, precision):
+    """predict_stream (6 frames, batch 4: a ragged tail of 2) gives
+    predict_batch's maps on the padded batches, bit for bit."""
+    model = DINOSeg(head="mlp", n_blocks=1, precision="bf16", random_init=True)
+    model.set_resolution(240)
+    frames = np.random.RandomState(1).randint(
+        0, 256, (6, 240, 320, 3)).astype(np.uint8)
+    got = chip_smoke.stream_check(model, frames, 4, precision)
+    assert got["flash_attn_fwd"] == 2
+    assert got["fused_ln_mlp"] == (2 if precision == "bf16" else 0)
