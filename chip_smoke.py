@@ -47,7 +47,19 @@ each printing JSON lines:
      (10 frames, batch 4) equal to predict_batch on the padded batches, bit
      for bit; its host frame rate over 256 frames against a loop of
      predict_batch, after an untimed run of each, two readings in turns;
-  9. timing (CUDA events around bursts of back-to-back calls, median of
+  9. fit: DINOSeg.fit on an in-memory split (the colour bands of
+     tests/test_train_smoke.py at 480x640, 7 classes; 12 train, 4 val, 4
+     test frames), handed in through a subclass's _make_dataset: (a) the
+     unfrozen bf16 fit at the train bench's config (480px, batch 16, 8
+     microbatches, Adam 1e-5, augmented, 64 samples an epoch, 2 epochs),
+     with the loader alone over one epoch's samples, each epoch's host
+     frames/s, loader wait, mean step time and core share, and the bare
+     step's rate of phase 5; (b) the frozen bf16 fit over the feature
+     cache (no flash launch in its epochs); (c) the fp32 fit at 240px
+     (batch 2) against the same fit on the CPU, a resumed fit against the
+     uninterrupted one (the same bits) and evaluate against fit's test
+     metrics; exact launch counts for each;
+  10. timing (CUDA events around bursts of back-to-back calls, median of
      the bursts; the bf16 kernels and the f32 backward also replayed from a
      CUDA graph, which takes the host out) at the 480px predict shapes
      (batch 3; the fused MLP also at one frame), the train bench's
@@ -60,7 +72,7 @@ each printing JSON lines:
      forward's and backward's on their route: three TF32 passes); the fp32
      predict latency at 480 and 960px; then the cli/bench line
      (predict and train);
-  10. the per-kernel summary line, the card line, and the final status
+  11. the per-kernel summary line, the card line, and the final status
       line.
 
 ``python3 chip_smoke.py --sp-world W`` (W cards) runs only phase 6's rank
@@ -88,6 +100,9 @@ from dino_tpu_torch import DINOSeg
 from dino_tpu_torch.cli import bench
 from dino_tpu_torch.cli.visualize import overlay
 from dino_tpu_torch.cli.visualize_attention import attention_maps
+from dino_tpu_torch.data import native_loader
+from dino_tpu_torch.data.dataset import (DuckieSegDataset, batched_loader,
+                                         loader_route)
 from dino_tpu_torch.models.vit import Mlp, ViTConfig, get_intermediate_layers
 from dino_tpu_torch.ops import _build
 from dino_tpu_torch.ops import attention as tatt
@@ -634,7 +649,8 @@ def train_run(model, frozen, precision, res, batch, accum, steps, want,
     of every step against ``want`` (flash fwd, fused MLP, flash bwd in bf16
     and in f32), a
     finite loss, that the trained parameters moved and that a frozen
-    backbone kept its bits.  Returns the last step's loss."""
+    backbone kept its bits.  Returns the last step's loss and every
+    step's host time."""
     vit, head = model.model.dino, model.model.clf
     cdt = torch.bfloat16 if precision == "bf16" else None
     opt = make_optimizer("adam", 1e-5)
@@ -649,12 +665,14 @@ def train_run(model, frozen, precision, res, batch, accum, steps, want,
         np.uint8)).cuda()
     before_p = [p.detach().clone() for p in trainables(vit, head, frozen)]
     before_bb = [p.detach().clone() for p in vit.parameters()]
+    times = []
     for i in range(steps):
         before = counts()
         t0 = time.perf_counter()
         loss, cm = step(vit, head, opt_state, imgs, labels)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        times.append(dt)
         got = [a - b for a, b in zip(counts(), before)]
         rec = {"phase": "train_path", "frozen": frozen,
                "precision": precision, "res": res, "batch": batch,
@@ -673,17 +691,19 @@ def train_run(model, frozen, precision, res, batch, accum, steps, want,
         check(all(torch.equal(a, b) for a, b in
                   zip(before_bb, vit.parameters())),
               "a frozen backbone parameter changed")
-    return loss
+    return loss, times
 
 
 def phase_train_path():
-    """make_train_step on the card; returns the phase's launch counts and
-    the backward launches per unfrozen bf16 step."""
+    """make_train_step on the card; returns the phase's launch counts, the
+    backward launches per unfrozen bf16 step and that step's host frames/s
+    (the median of the steps after the first)."""
     zero_counts()
     model = DINOSeg(head="mlp", n_blocks=3, n_classes=7, precision="bf16",
                     random_init=True, seed=1, freeze_backbone=False)
     # unfrozen bf16 at the train bench's shapes: 8 microbatches x 3 blocks
-    train_run(model, False, "bf16", 480, 16, 8, 3, (24, 0, 24, 0), seed=2)
+    _, times = train_run(model, False, "bf16", 480, 16, 8, 3,
+                         (24, 0, 24, 0), seed=2)
     model.freeze_bb()
     train_run(model, True, "bf16", 480, 16, 8, 1, (24, 24, 0, 0), seed=3)
     model.unfreeze_bb()
@@ -691,13 +711,14 @@ def phase_train_path():
                   random_init=True, device="cpu", freeze_backbone=False)
     cpu.load_state_dict({k: v.cpu() for k, v in
                          model.model.state_dict().items()})
-    loss = train_run(model, False, "fp32", 240, 2, 1, 1, (3, 0, 0, 3), seed=4)
+    loss, _ = train_run(model, False, "fp32", 240, 2, 1, 1, (3, 0, 0, 3),
+                        seed=4)
     total = all_counts()
     emit({"phase": "train_path", "launches": total})
     check(total["flash_attn_bwd"] > 0 and total["flash_attn_bwd_f32"] > 0,
           "a backward kernel was never launched")
     phase_train_cpu_reference(model, cpu, loss.item(), seed=4)
-    return total, 24
+    return total, 24, 16 / float(np.median(times[1:]))
 
 
 def phase_train_cpu_reference(card, cpu, card_loss, seed):
@@ -1676,6 +1697,319 @@ def phase_attention_maps(model, frame, frames3):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: DINOSeg.fit and evaluate on an in-memory split
+# ---------------------------------------------------------------------------
+
+FIT_CLASSES = 7
+FIT_FRAMES = {"train": 12, "val": 4, "test": 4}  # 480x640 frames per split
+FIT_RES, FIT_BLOCKS = 480, 3
+FIT_BATCH, FIT_ACCUM, FIT_SAMPLES, FIT_LR = 16, 8, 64, 1e-5
+FIT_EPOCHS = 2
+PARITY_RES, PARITY_BATCH, PARITY_SAMPLES = 240, 2, 4
+# Adam moves an entry by up to lr a step whatever its gradient's size, so
+# where card and CPU gradients differ in sign near 0 the parameters part by
+# 2 * lr a step: at 1e-6 over the parity fit's 4 steps 8e-6, under
+# FIT_PARAM_TOL's atol
+PARITY_LR = 1e-6
+FIT_LOSS_RTOL = 1e-5
+FIT_PARAM_TOL = dict(atol=1e-5, rtol=1e-4)
+FIT_DEVICE = None  # the card
+
+
+def memory_split(n, seed, h=480, w=640, n_classes=FIT_CLASSES):
+    """n colour-band frames as tests/test_train_smoke.py:_make_split makes
+    them (vertical bands of class colours plus noise), with 7 classes at
+    480x640: uint8 frames and int32 masks."""
+    rs = np.random.RandomState(seed)
+    colors = np.array([[200, 40, 40], [40, 200, 40], [40, 40, 200],
+                       [200, 200, 40], [200, 40, 200], [40, 200, 200],
+                       [120, 120, 120]], np.float32)
+    frames = np.empty((n, h, w, 3), np.uint8)
+    masks = np.empty((n, h, w), np.int32)
+    for i in range(n):
+        cuts = np.sort(rs.choice(np.arange(16, w - 16), n_classes - 1,
+                                 replace=False))
+        bounds = [0, *cuts, w]
+        order = rs.permutation(n_classes)
+        img = np.empty((h, w, 3), np.float32)
+        for b in range(n_classes):
+            band = slice(bounds[b], bounds[b + 1])
+            masks[i, :, band] = order[b]
+            img[:, band] = colors[order[b]]
+        img += rs.randn(h, w, 3).astype(np.float32) * 10
+        frames[i] = np.clip(img, 0, 255).astype(np.uint8)
+    return frames, masks
+
+
+class MemorySplit(DuckieSegDataset):
+    """A split held in memory (frames and masks, no JPEG files): always
+    the numpy rung of the loader."""
+    from_jpeg_files = False
+
+    def __init__(self, frames, masks, augmented, resolution,
+                 backend="auto"):
+        super().__init__("in-memory", augmented=augmented,
+                         resolution=resolution, backend=backend)
+        self.frames, self.masks = frames, masks
+
+    def __len__(self):
+        return len(self.frames)
+
+    def _load_mask(self, idx):
+        return self.masks[idx]
+
+    def _load_raw(self, idx):
+        return self.frames[idx], self.masks[idx]
+
+
+class MemoryDINOSeg(DINOSeg):
+    """DINOSeg whose train/val/test splits are in-memory arrays, handed to
+    fit, evaluate and the dataloaders through _make_dataset."""
+
+    def __init__(self, splits, **kw):
+        super().__init__(data_path="in-memory", **kw)
+        self.splits = splits
+
+    def _make_dataset(self, path, augmented, resolution, backend="auto"):
+        frames, masks = self.splits[path.rsplit("_", 1)[-1]]
+        return MemorySplit(frames, masks, augmented, resolution, backend)
+
+
+class FitLog:
+    """What fit logs: per-epoch metrics and val confusion matrices."""
+
+    def __init__(self):
+        self.metrics, self.cms = [], []
+
+    def log_metrics(self, metrics, step):
+        self.metrics.append((step, dict(metrics)))
+
+    def log_confusion_matrix(self, cm, title, step, labels=None,
+                             file_name=None):
+        self.cms.append(np.asarray(cm))
+
+
+def fit_model(splits, write_path, **kw):
+    base = dict(head="mlp", n_blocks=FIT_BLOCKS, n_classes=FIT_CLASSES,
+                random_init=True, seed=5, optimizer="adam",
+                max_epochs=FIT_EPOCHS, write_path=write_path,
+                logger=FitLog(), device=FIT_DEVICE)
+    base.update(kw)
+    return MemoryDINOSeg(splits, **base)
+
+
+def epoch_metrics(model):
+    return [(s, m) for s, m in model.logger.metrics if s >= 0]
+
+
+def pipeline_stats(model):
+    """Per epoch, the host pipeline's numbers from fit's metrics: train
+    frames/s with eval excluded, the step loop's wait on the loader, the
+    mean step time and the share of the host's cores the process used."""
+    cores = os.cpu_count() or 1
+    return [{"epoch": s, "train_frames_per_s": m["train_frames_per_s"],
+             "loader_wait_s": m["loader_wait_s"],
+             "train_time_s": m["train_time_s"],
+             "mean_step_s": m["train_time_s"] / m["train_steps"],
+             "host_core_share": m["host_cpu_s"] / (m["train_time_s"] * cores),
+             "train_loss": m["train_loss"], "val_acc": m["val_acc"]}
+            for s, m in epoch_metrics(model)]
+
+
+def launches_want(fwd=0, mlp=0, bwd=0, fwd_f32=0, bwd_f32=0):
+    return {"flash_attn_fwd": fwd + fwd_f32, "flash_attn_fwd_f32": fwd_f32,
+            "fused_ln_mlp": mlp, "flash_attn_bwd": bwd,
+            "flash_attn_bwd_f32": bwd_f32, "flash_attn_fwd_dyn": 0,
+            "flash_attn_bwd_dyn": 0}
+
+
+def batches(n, batch):
+    return -(-n // batch)
+
+
+def same_weights(a, b):
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    return sa.keys() == sb.keys() and all(
+        torch.equal(sa[k].cpu(), sb[k].cpu()) for k in sa)
+
+
+def fit_unfrozen(splits, tmp, bare_fps):
+    """(a) the unfrozen bf16 fit at the train bench's config."""
+    model = fit_model(splits, os.path.join(tmp, "a"), precision="bf16",
+                      freeze_backbone=False, batch_size=FIT_BATCH, lr=FIT_LR,
+                      augmented=True, train_resolution=FIT_RES)
+    train_ds = model._make_dataset(model.train_path, True, FIT_RES)
+    route = loader_route(train_ds)
+    # the loader alone over one epoch's samples: the host pipeline's rate
+    # with no step to wait for
+    t0 = time.perf_counter()
+    n = sum(len(x) for x, _ in batched_loader(
+        train_ds, np.arange(FIT_SAMPLES) % len(train_ds), FIT_BATCH,
+        rng=np.random.default_rng(0)))
+    loader_fps = n / (time.perf_counter() - t0)
+    out, got = counted(lambda: model.fit(samples_per_epoch=FIT_SAMPLES,
+                                         accum_steps=FIT_ACCUM))
+    steps = FIT_EPOCHS * batches(FIT_SAMPLES, FIT_BATCH)
+    evals = (FIT_EPOCHS * batches(FIT_FRAMES["val"], FIT_BATCH)
+             + batches(FIT_FRAMES["test"], FIT_BATCH))
+    per_step = 3 * FIT_ACCUM
+    want = launches_want(fwd=per_step * steps + 3 * evals, mlp=3 * evals,
+                         bwd=per_step * steps)
+    stats = pipeline_stats(model)
+    best = DINOSeg.load_from_checkpoint(model.best_ck, device=FIT_DEVICE)
+    rec = {"phase": "fit", "part": "a unfrozen bf16", "res": FIT_RES,
+           "blocks": FIT_BLOCKS, "batch": FIT_BATCH,
+           "accum_steps": FIT_ACCUM, "samples_per_epoch": FIT_SAMPLES,
+           "epochs": FIT_EPOCHS, "optimizer_steps": steps,
+           "decode": "in-memory split", "loader_route": route,
+           "augment_rung": ("native warp and blur"
+                            if native_loader.get_lib() is not None
+                            else "numpy"),
+           "native_library_error": (native_loader.build_error or "")[:200],
+           "launches": got, "want": want,
+           "launches_per_step": {"flash_fwd_bf16_with_lse": per_step,
+                                 "flash_bwd_bf16": per_step,
+                                 "fused_mlp": 0},
+           "launches_per_eval_batch": {"flash_fwd_bf16": 3, "fused_mlp": 3},
+           "epochs_host": stats, "bare_step_frames_per_s": bare_fps,
+           "loader_alone_frames_per_s": loader_fps, "host_cores":
+               os.cpu_count(),
+           "test": out, "best_checkpoint_reloads_equal":
+               same_weights(best, model)}
+    emit(rec)
+    check(got == want, f"fit (a) launches {got}, want {want}")
+    check(all(np.isfinite(e["train_loss"]) for e in stats),
+          f"fit (a) non-finite loss {rec}")
+    check(rec["best_checkpoint_reloads_equal"], "fit (a) best checkpoint")
+    return got
+
+
+def fit_frozen_cached(splits, tmp):
+    """(b) the frozen bf16 fit over the feature cache: the backbone runs in
+    the precompute and the test pass only."""
+    model = fit_model(splits, os.path.join(tmp, "b"), precision="bf16",
+                      freeze_backbone=True, batch_size=FIT_BATCH, lr=1e-3,
+                      augmented=False, train_resolution=FIT_RES)
+    out, got = counted(lambda: model.fit(samples_per_epoch=FIT_SAMPLES,
+                                         cache_features="auto"))
+    evals = (batches(FIT_FRAMES["train"], FIT_BATCH)
+             + batches(FIT_FRAMES["val"], FIT_BATCH)
+             + batches(FIT_FRAMES["test"], FIT_BATCH))
+    want = launches_want(fwd=3 * evals, mlp=3 * evals)
+    tokens = (FIT_RES // 8) ** 2
+    want_bytes = ((FIT_FRAMES["train"] + FIT_FRAMES["val"]) * tokens
+                  * model.cfg.embed_dim * 2)
+    cache = [m.get("feature_cache_bytes") for _, m in epoch_metrics(model)]
+    rec = {"phase": "fit", "part": "b frozen bf16 feature cache",
+           "res": FIT_RES, "feature_cache_bytes": cache[0],
+           "feature_cache_bytes_want": want_bytes, "launches": got,
+           "want": want, "flash_launches_in_epochs": got["flash_attn_fwd"]
+           - want["flash_attn_fwd"], "epochs_host": pipeline_stats(model),
+           "test": out}
+    emit(rec)
+    check(got == want, f"fit (b) launches {got}, want {want}")
+    check(cache == [want_bytes] * FIT_EPOCHS, f"fit (b) cache bytes {rec}")
+    return got
+
+
+def cm_patches_moved(a, b):
+    return int(np.abs(np.asarray(a, np.int64) - np.asarray(b, np.int64)
+                      ).sum() // 2)
+
+
+def fit_parity(splits, tmp):
+    """(c) the fp32 fit at 240px on the card against the same fit on the
+    CPU, a resumed card fit against the uninterrupted one, and evaluate
+    against fit's test metrics."""
+    kw = dict(precision="fp32", freeze_backbone=False,
+              batch_size=PARITY_BATCH, lr=PARITY_LR, augmented=True,
+              train_resolution=PARITY_RES)
+    fit_kw = dict(samples_per_epoch=PARITY_SAMPLES, resume=True)
+    card = fit_model(splits, os.path.join(tmp, "c_card"), **kw)
+    start = {k: v.detach().cpu().clone()
+             for k, v in card.model.state_dict().items()}
+    cpu = fit_model(splits, os.path.join(tmp, "c_cpu"), **dict(
+        kw, device="cpu"))
+    cpu.load_state_dict(start)
+    out_card, got = counted(lambda: card.fit(**fit_kw))
+    out_cpu = cpu.fit(**fit_kw)
+    steps = FIT_EPOCHS * batches(PARITY_SAMPLES, PARITY_BATCH)
+    evals = (FIT_EPOCHS * batches(FIT_FRAMES["val"], PARITY_BATCH)
+             + batches(FIT_FRAMES["test"], PARITY_BATCH))
+    want = launches_want(fwd_f32=3 * (steps + evals), bwd_f32=3 * steps)
+    losses = [(a["train_loss"], b["train_loss"]) for (_, a), (_, b) in
+              zip(epoch_metrics(card), epoch_metrics(cpu), strict=True)]
+    moved = [cm_patches_moved(a, b) for a, b in
+             zip(card.logger.cms, cpu.logger.cms, strict=True)]
+    near = 0
+    if any(moved):  # patches near a tie of the CPU's final weights
+        ds = cpu._make_dataset(cpu.val_path, False, PARITY_RES)
+        logp = cpu.forward(np.stack([ds.get(i)[0] for i in range(len(ds))]))
+        near = int(near_ties(logp).sum())
+    worst, worst_name, params_ok = 0.0, None, True
+    card_params = dict(card.model.named_parameters())
+    for name, p in cpu.model.named_parameters():
+        d = (card_params[name].detach().cpu() - p.detach()).abs()
+        lim = FIT_PARAM_TOL["atol"] + FIT_PARAM_TOL["rtol"] * p.detach().abs()
+        params_ok &= bool((d <= lim).all())
+        if d.max().item() >= worst:
+            worst, worst_name = d.max().item(), name
+    # resume: one epoch, then resume=True up to two, in another folder
+    part = fit_model(splits, os.path.join(tmp, "c_part"), **dict(
+        kw, max_epochs=1))
+    part.load_state_dict(start)
+    resumed = fit_model(splits, os.path.join(tmp, "c_part"), **kw)
+    resumed.load_state_dict(start)
+    _, got_part = counted(lambda: part.fit(**fit_kw))
+    out_resumed, got_resumed = counted(lambda: resumed.fit(**fit_kw))
+    with np.load(card.best_ck + ".resume.npz") as a, \
+            np.load(resumed.best_ck + ".resume.npz") as b:
+        resume_same = a.files == b.files and all(
+            np.array_equal(a[k], b[k]) for k in a.files)
+    evaluated, got_eval = counted(lambda: card.evaluate(card.test_path))
+    rec = {"phase": "fit", "part": "c fp32 parity", "res": PARITY_RES,
+           "batch": PARITY_BATCH, "samples_per_epoch": PARITY_SAMPLES,
+           "lr": PARITY_LR, "train_loss_card_cpu": losses,
+           "val_cm_patches_moved": moved, "val_near_tie_patches": near,
+           "param_max_abs_diff": worst, "param_worst_leaf": worst_name,
+           "params_within_tol": params_ok, "tol": {
+               "loss_rtol": FIT_LOSS_RTOL, **FIT_PARAM_TOL},
+           "test_card": out_card, "test_cpu": out_cpu,
+           "resumed_equals_uninterrupted": resume_same
+           and out_resumed == out_card and same_weights(resumed, card),
+           "evaluate_equals_fit_test": evaluated == out_card,
+           "launches": got, "want": want}
+    emit(rec)
+    check(got == want, f"fit (c) launches {got}, want {want}")
+    check(all(abs(a - b) <= FIT_LOSS_RTOL * abs(b) for a, b in losses),
+          f"fit (c) card loss disagrees with the CPU {rec}")
+    check(max(moved) <= near, f"fit (c) confusion matrices {rec}")
+    check(params_ok, f"fit (c) parameters disagree with the CPU {rec}")
+    check(rec["resumed_equals_uninterrupted"], f"fit (c) resume {rec}")
+    check(rec["evaluate_equals_fit_test"], f"fit (c) evaluate {rec}")
+    total = {}
+    for c in (got, got_part, got_resumed, got_eval):
+        add_counts(total, c)
+    return total
+
+
+def phase_fit(bare_fps):
+    """Phase 9 (fit): (a) the unfrozen bf16 fit at the bench config, (b) the
+    frozen bf16 fit over the feature cache, (c) the fp32 parity fit; returns
+    the phase's launch counts (every count zeroed before each card run and
+    read after it)."""
+    splits = {name: memory_split(n, seed) for seed, (name, n) in
+              enumerate(FIT_FRAMES.items())}
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        add_counts(total, fit_unfrozen(splits, tmp, bare_fps))
+        add_counts(total, fit_frozen_cached(splits, tmp))
+        add_counts(total, fit_parity(splits, tmp))
+    emit({"phase": "fit", "launches": total})
+    return total
+
+
 KERNELS = {
     "flash_attn_fwd": dict(
         source="dino_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -1756,7 +2090,7 @@ def main():
         frames3 = rs.randint(0, 256, (3, 480, 640, 3)).astype(np.uint8)
         launches, per_call = phase_main_path(model, frame, frames3)
         phase_cpu_reference(model, frame)
-        train, bwd_per_step = phase_train_path()
+        train, bwd_per_step, bare_fps = phase_train_path()
         sp_world1 = phase_sp_world1(model, frames3[:2])
         (launches["flash_attn_fwd_chunked"],
          errs["flash_attn_fwd_chunked"]) = phase_chunked(model, frame)
@@ -1776,6 +2110,7 @@ def main():
     emit({"phase": "sp_path", "world1_launches": sp_world1,
           "rank_launches_summed": sp_ranks})
     attn = phase_attention_maps(model, frame, frames3)
+    fit = phase_fit(bare_fps)
     rows = phase_timing(block, per_call, bwd_per_step)
     rows.update(phase_timing_sp(launches))
     phase_fp32_latency(model, frame)
@@ -1787,6 +2122,14 @@ def main():
                                    - attn["flash_attn_fwd_f32"])
     launches["fused_ln_mlp"] += attn["fused_ln_mlp"]
     launches["flash_attn_fwd_chunked"] += attn["flash_attn_fwd_f32"]
+    # phase 9's launches: its bf16 forwards in row 1, f32 forwards in row 4
+    # and both backward kernels in their rows
+    launches["flash_attn_fwd"] += (fit["flash_attn_fwd"]
+                                   - fit["flash_attn_fwd_f32"])
+    launches["fused_ln_mlp"] += fit["fused_ln_mlp"]
+    launches["flash_attn_fwd_chunked"] += fit["flash_attn_fwd_f32"]
+    launches["flash_attn_bwd"] += fit["flash_attn_bwd"]
+    launches["flash_attn_bwd_f32"] += fit["flash_attn_bwd_f32"]
 
     emit({"kernels": [
         dict(name=name, route="cuda", launches=launches[name],

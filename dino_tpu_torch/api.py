@@ -17,8 +17,14 @@ The counterpart of ``dino_tpu/api.py``'s ``DINOSeg`` for inference:
     kernels; ``'fp32'`` runs true float32 (TF32 off inside the call).
   * checkpoints: ``dino_tpu`` ``.npz`` files and reference PL ``.ckpt``
     files load; ``save`` writes the ``.npz`` format.
-  * ``freeze_backbone`` / ``freeze_bb`` / ``unfreeze_bb`` choose what the
-    train step (``train/loop.py``) updates; ``fit`` is not ported yet.
+  * ``fit`` trains on a VOC-style data folder (optional sim pretraining,
+    best-val checkpoint, resume, early stopping, the frozen-feature cache,
+    a final test pass on the reloaded best checkpoint); ``evaluate`` gives
+    the metrics of a checkpoint on one split.  The host loads and augments
+    batch k+1 on a prefetch thread into pinned memory while the card runs
+    step k; losses and confusion matrices stay on the device until the
+    epoch ends.  ``freeze_backbone`` / ``freeze_bb`` / ``unfreeze_bb``
+    choose what the train step (``train/loop.py``) updates.
   * ``parallelism='sp'`` shards the token axis over the ranks of the default
     ``torch.distributed`` process group (ring attention,
     ``parallel/ring_attention.py``); every rank calls with the same frames
@@ -30,6 +36,7 @@ raises when there is none.  Pass ``device="cpu"`` to run on the CPU.
 from __future__ import annotations
 
 import os
+import time
 import warnings
 from typing import Any, Dict, List, Optional
 
@@ -37,11 +44,19 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from dino_tpu_torch.checkpointing.convert import (from_jax_params,
+from dino_tpu_torch.checkpointing.async_writer import AsyncCheckpointer
+from dino_tpu_torch.checkpointing.convert import (export_pl_checkpoint,
+                                                  from_jax_params,
                                                   load_backbone_state_dict,
                                                   load_pl_checkpoint,
                                                   to_jax_params)
 from dino_tpu_torch.checkpointing.io import load_checkpoint, save_checkpoint
+from dino_tpu_torch.checkpointing.resume import (load_optimizer_arrays,
+                                                 optimizer_arrays,
+                                                 restart_from_checkpoint)
+from dino_tpu_torch.data.dataset import (DuckieSegDataset, batched_loader,
+                                         epoch_indices)
+from dino_tpu_torch.data.prefetch import prefetched
 from dino_tpu_torch.models.heads import head_apply, init_head
 from dino_tpu_torch.models.vit import (ViTConfig, VisionTransformer,
                                        forward_mask, get_intermediate_layers,
@@ -52,10 +67,22 @@ from dino_tpu_torch.ops.upsample import kron_upsample
 from dino_tpu_torch.parallel.dist import is_dist_avail_and_initialized
 from dino_tpu_torch.parallel.ring_attention import vit_forward_seq_parallel
 from dino_tpu_torch.precision import matmul_ctx
-from dino_tpu_torch.train.loop import seg_forward
+from dino_tpu_torch.train.loop import (init_opt_state,
+                                       make_cached_head_eval_step,
+                                       make_cached_head_train_step,
+                                       make_eval_step, make_feature_fn,
+                                       make_optimizer, make_train_step,
+                                       seg_forward)
+from dino_tpu_torch.train.metrics import (per_class_metrics_from_cm,
+                                          segmentation_metrics)
+from dino_tpu_torch.utils.logging import hbm_stats
 
-_HPARAM_KEYS = ("head", "n_blocks", "n_classes", "precision", "random_init",
-                "backbone", "freeze_backbone")
+_HPARAM_KEYS = ("data_path", "write_path", "class_names", "head", "n_blocks",
+                "batch_size", "lr", "optimizer", "freeze_backbone",
+                "max_epochs", "patience", "grayscale", "n_classes",
+                "pretrain_on_sim", "augmented", "random_init", "backbone",
+                "train_resolution", "precision", "n_experts", "moe_dispatch",
+                "moe_capacity")
 
 
 def _roadmap(what: str, item: int) -> str:
@@ -74,6 +101,20 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def _pad_tail(arrs, b: int):
+    """Pad each array's leading axis to ``b`` by repeating its last row;
+    returns (padded arrays, per-row mask), the mask 1 on the real rows.
+    The train steps leave the padded rows out of the loss, the gradients and
+    the confusion matrix."""
+    n_real = arrs[0].shape[0]
+    mask = np.zeros((b,), np.float32)
+    mask[:n_real] = 1.0
+    if n_real != b:
+        arrs = [np.concatenate([a, np.repeat(a[-1:], b - n_real, axis=0)])
+                for a in arrs]
+    return arrs, mask
+
+
 class SegModel(nn.Module):
     """Backbone + head under the reference's ``dino.``/``clf.`` names."""
 
@@ -86,12 +127,22 @@ class SegModel(nn.Module):
 class DINOSeg:
     """DINO ViT-S/8 backbone + per-patch segmentation head."""
 
-    def __init__(self, head: str = "linear", n_blocks: int = 1,
-                 n_classes: int = 7, precision: str = "bf16",
-                 random_init: bool = False,
-                 pretrained_path: Optional[str] = None, seed: int = 0,
-                 device=None, backbone: str = "vit",
-                 freeze_backbone: bool = True):
+    def __init__(self, data_path: Optional[str] = None,
+                 write_path: Optional[str] = None,
+                 class_names=None, head: str = "linear", n_blocks: int = 1,
+                 batch_size: int = 1, lr: float = 1e-6,
+                 optimizer: str = "adamw", freeze_backbone: bool = True,
+                 max_epochs: int = 200, patience: int = 10,
+                 grayscale: bool = False, n_classes: int = 7,
+                 pretrain_on_sim: bool = False, logger=None,
+                 augmented: bool = True, random_init: bool = False,
+                 backbone: str = "vit", pretrained_path: Optional[str] = None,
+                 seed: int = 0, train_resolution: int = 480,
+                 precision: str = "bf16", n_experts: int = 4,
+                 moe_dispatch: str = "dense", moe_capacity: float = 1.25,
+                 comet_logger=None, device=None):
+        if logger is None and comet_logger is not None:
+            logger = comet_logger  # the reference's keyword
         if backbone != "vit":
             raise NotImplementedError(_roadmap(f"backbone {backbone!r}", 8))
         if precision == "int8":
@@ -100,15 +151,37 @@ class DINOSeg:
             raise ValueError(f"unsupported precision {precision!r}")
         if head == "moe":
             raise NotImplementedError(_roadmap("head='moe'", 8))
+        if moe_dispatch not in ("dense", "sparse"):
+            raise ValueError(f"unsupported moe_dispatch {moe_dispatch!r}")
+        if isinstance(optimizer, type):  # a torch.optim class
+            optimizer = optimizer.__name__
+        optimizer = optimizer.lower()
         self.device = resolve_device(device)
         self.hparams: Dict[str, Any] = dict(
-            head=head, n_blocks=n_blocks, n_classes=n_classes,
-            precision=precision, random_init=random_init, backbone=backbone,
-            freeze_backbone=freeze_backbone)
-        self.head, self.n_blocks, self.n_classes = head, n_blocks, n_classes
-        self.precision = precision
+            data_path=data_path, write_path=write_path,
+            class_names=list(class_names) if class_names else None,
+            head=head, n_blocks=n_blocks, batch_size=batch_size, lr=lr,
+            optimizer=optimizer, freeze_backbone=freeze_backbone,
+            max_epochs=max_epochs, patience=patience, grayscale=grayscale,
+            n_classes=n_classes, pretrain_on_sim=pretrain_on_sim,
+            augmented=augmented, random_init=random_init, backbone=backbone,
+            train_resolution=train_resolution, precision=precision,
+            n_experts=n_experts, moe_dispatch=moe_dispatch,
+            moe_capacity=float(moe_capacity))
+        self.__dict__.update(self.hparams)
+        self.class_names = tuple(class_names) if class_names else None
+        self.logger = logger
         self.cfg = ViTConfig(patch_size=8)  # ViT-S/8
+        self.compute_dtype = torch.bfloat16 if precision == "bf16" else None
         self.resolution = 480
+        self.best_ck: Optional[str] = None
+        if data_path is not None:
+            self.train_path = os.path.join(data_path, "dt_real_voc_train")
+            self.val_path = os.path.join(data_path, "dt_real_voc_val")
+            self.test_path = os.path.join(data_path, "dt_real_voc_test")
+            self.train_path_sim = os.path.join(data_path, "dt_sim_voc_train")
+            self.val_path_sim = os.path.join(data_path, "dt_sim_voc_val")
+            self.test_path_sim = os.path.join(data_path, "dt_sim_voc_test")
 
         gen = torch.Generator().manual_seed(seed)
         vit = init_vit_params(VisionTransformer(self.cfg, depth=n_blocks), gen)
@@ -125,7 +198,6 @@ class DINOSeg:
                               "$DINO_TPU_PRETRAINED)")
         clf = init_head(head, n_classes, self.cfg.embed_dim, generator=gen)
         self.model = SegModel(vit, clf).to(self.device).eval()
-        self.freeze_backbone = freeze_backbone
         self.model.dino.requires_grad_(not freeze_backbone)
 
     # ------------------------------------------------------------------
@@ -359,9 +431,6 @@ class DINOSeg:
                                           cls_mask=mask, cls_only=cls_only)
         return attn.cpu().numpy()
 
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError(_roadmap("DINOSeg.fit", 5))
-
     def freeze_bb(self) -> None:
         """Train only the head (the reference's requires_grad flip)."""
         self.freeze_backbone = True
@@ -375,6 +444,374 @@ class DINOSeg:
         self.model.dino.requires_grad_(True)
 
     # ------------------------------------------------------------------
+    # Data: the three dataloaders, evaluate
+    # ------------------------------------------------------------------
+
+    def _make_dataset(self, path: str, augmented: bool, resolution: int,
+                      backend: str = "auto") -> DuckieSegDataset:
+        """The one place where fit, evaluate and the dataloaders build a
+        dataset (a subclass may hand in another source of frames)."""
+        return DuckieSegDataset(path, augmented=augmented,
+                                resolution=resolution, backend=backend)
+
+    def train_dataloader(self, sim: bool = False, seed: int = 0,
+                         samples_per_epoch: int = 1000):
+        """Host batches (uint8 images, int32 grid labels) of one epoch of
+        the train split (or the sim train split)."""
+        ds = self._make_dataset(self.train_path_sim if sim else
+                                self.train_path, self.augmented,
+                                self.train_resolution)
+        rng = np.random.default_rng(seed)
+        idx = epoch_indices(rng, len(ds), samples_per_epoch)
+        return batched_loader(ds, idx, self.batch_size, rng=rng)
+
+    def val_dataloader(self, sim: bool = False):
+        ds = self._make_dataset(self.val_path_sim if sim else self.val_path,
+                                False, self.train_resolution)
+        return batched_loader(ds, np.arange(len(ds)), self.batch_size)
+
+    def test_dataloader(self):
+        ds = self._make_dataset(self.test_path, False, self.train_resolution)
+        return batched_loader(ds, np.arange(len(ds)), self.batch_size)
+
+    def _feed(self, loader, pad_to: Optional[int] = None,
+              stats: Optional[Dict[str, float]] = None):
+        """Device batches (images, labels, mask or None) from a host
+        loader.  A prefetch thread runs the loader, pads a ragged batch to
+        ``pad_to`` rows (with its mask) and copies each batch into pinned
+        memory while the card works on the previous one; the copy to the
+        card is non-blocking.  ``stats["loader_wait_s"]`` adds up the time
+        the caller waited for a batch."""
+        cuda = self.device.type == "cuda"
+
+        def stage(batch):
+            arrs, mask = list(batch), None
+            if pad_to is not None:
+                arrs, mask = _pad_tail(arrs, pad_to)
+                arrs.append(mask)
+            host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs]
+            return [h.pin_memory() for h in host] if cuda else host
+
+        batches = prefetched(loader, stage)
+        while True:
+            t0 = time.perf_counter()
+            got = next(batches, None)
+            if stats is not None:
+                stats["loader_wait_s"] += time.perf_counter() - t0
+            if got is None:
+                return
+            dev = [h.to(self.device, non_blocking=True) for h in got[1]]
+            yield dev[0], dev[1], (dev[2] if pad_to is not None else None)
+
+    def evaluate(self, data_path: str, resolution: Optional[int] = None,
+                 batch_size: Optional[int] = None, prefix: str = "test",
+                 per_class: bool = False) -> Dict[str, Any]:
+        """Metrics of the current weights over one VOC-style split
+        directory (``JPEGImages/`` + ``SegmentationClass/*.npy``):
+        ``{prefix}_acc/_F1/_iou/_support``, and with ``per_class`` a
+        ``{prefix}_per_class`` list of rows."""
+        res = resolution or self.train_resolution
+        if res % 8 != 0:
+            raise ValueError("Resolution should be a multiple of 8.")
+        ds = self._make_dataset(data_path, False, res)
+        if len(ds) == 0:
+            raise FileNotFoundError(f"no images under {data_path}")
+        eval_step = make_eval_step(self.cfg, self.head, self.n_classes,
+                                   compute_dtype=self.compute_dtype)
+        cm = self._run_eval(eval_step, ds, batch_size or self.batch_size)
+        metrics = segmentation_metrics(cm, prefix=prefix)
+        if per_class:
+            metrics[f"{prefix}_per_class"] = per_class_metrics_from_cm(
+                cm, self.class_names)
+        return metrics
+
+    def _run_eval(self, eval_step, dataset, batch_size: int) -> np.ndarray:
+        """The confusion matrix of ``dataset`` (ragged last batch kept), read
+        from the card once."""
+        cm = torch.zeros((self.n_classes, self.n_classes), dtype=torch.int64,
+                         device=self.device)
+        loader = batched_loader(dataset, np.arange(len(dataset)), batch_size)
+        for x, y, _ in self._feed(loader):
+            cm += eval_step(self.model.dino, self.model.clf, x, y)
+        return cm.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+
+    def _cache_plan(self, cache_features, n_train: int, n_val: int):
+        """(cache_train, cache_val) for the frozen-feature cache: on with a
+        frozen backbone; the train cache also needs un-augmented frames.  A
+        budget over both caches' device bytes
+        ($DINO_TPU_FEATURE_CACHE_BYTES, default 2 GB) drops the train cache
+        first, then the val cache."""
+        if cache_features is False or not self.freeze_backbone:
+            return False, False
+        n_patches = (self.train_resolution // 8) ** 2
+        cap = int(os.environ.get("DINO_TPU_FEATURE_CACHE_BYTES",
+                                 2_000_000_000))
+        itemsize = 2 if self.compute_dtype == torch.bfloat16 else 4
+
+        def nbytes(n_items):
+            return n_items * n_patches * self.cfg.embed_dim * itemsize
+
+        want_train = (not self.augmented) and n_train > 0
+        want_val = n_val > 0
+        total = ((nbytes(n_train) if want_train else 0)
+                 + (nbytes(n_val) if want_val else 0))
+        if total > cap and want_train:
+            want_train = False
+            total = nbytes(n_val) if want_val else 0
+        if total > cap:
+            want_val = False
+        return want_train, want_val
+
+    def _precompute_features(self, ds, feature_fn):
+        """Every image of ``ds`` through the frozen backbone once: ((M, N, D)
+        features, (M, N) labels), on the card."""
+        feats, labels = [], []
+        loader = batched_loader(ds, np.arange(len(ds)), self.batch_size)
+        for x, y, _ in self._feed(loader):
+            feats.append(feature_fn(self.model.dino, x))
+            labels.append(y)
+        return torch.cat(feats), torch.cat(labels)
+
+    def fit(self, ck_file_name: Optional[str] = None,
+            samples_per_epoch: int = 1000, seed: int = 0,
+            resume: bool = False, cache_features="auto",
+            parallelism: Optional[str] = None,
+            accum_steps: int = 1, zero: bool = False, fsdp: bool = False,
+            early_stopping: bool = False,
+            augment_backend: str = "auto") -> Dict[str, float]:
+        """Train on ``data_path``'s splits, keep the best-val checkpoint in
+        ``write_path`` and return the test metrics of that checkpoint.
+
+        Each epoch draws ``samples_per_epoch`` training samples with
+        replacement from ``np.random.default_rng([seed, epoch])``, so a
+        ``resume=True`` run that restarts after a finished epoch continues
+        on the same batches (parameters, optimizer state and counters come
+        from ``<ckpt>.resume.npz``).  ``early_stopping`` stops after
+        ``max(patience, 1)`` epochs without a strict val_acc improvement.
+        ``cache_features`` ('auto'/True/False): with a frozen backbone the
+        backbone runs once per image and the epochs train the head on the
+        cached features (the train cache needs ``augmented=False``).
+        ``accum_steps`` splits each batch into equal microbatches summed
+        into one update.  ``augment_backend`` picks the host rung that
+        computes the augmentation ('auto': native when built, else numpy;
+        'native'; 'cv2': numpy); the drawn parameters are the same on
+        every rung.  A ragged last batch is padded and masked.
+        ``parallelism`` ('sp', 'pp'), ``zero``, ``fsdp`` and
+        ``augment_backend='device'`` are not ported."""
+        if parallelism not in (None, "sp", "pp"):
+            raise ValueError(f"unsupported train parallelism {parallelism!r}")
+        if parallelism is not None:
+            raise NotImplementedError(_roadmap(
+                f"fit(parallelism={parallelism!r})", 11))
+        if zero or fsdp:
+            raise NotImplementedError(_roadmap("fit(zero=..., fsdp=...)", 11))
+        if augment_backend == "device":
+            raise NotImplementedError(_roadmap("augment_backend='device'", 7))
+        if accum_steps < 1 or self.batch_size % accum_steps:
+            raise ValueError(f"batch_size {self.batch_size} must divide "
+                             f"by accum_steps {accum_steps}")
+        if ck_file_name is None:
+            ck_file_name = (str(self.n_blocks) + "_" + self.head
+                            + ("_frozen" if self.freeze_backbone
+                               else "_finetuned")
+                            + ("_grayscale" if self.grayscale else ""))
+        os.makedirs(self.write_path, exist_ok=True)
+        ck_path = os.path.join(self.write_path, ck_file_name + ".ckpt.npz")
+        if self.pretrain_on_sim:
+            print("Pretraining on simulation data...")
+            self._fit_phase(self.train_path_sim, self.val_path, ck_path,
+                            samples_per_epoch, seed, log=False,
+                            cache_features=cache_features,
+                            accum_steps=accum_steps,
+                            augment_backend=augment_backend)
+        self._fit_phase(self.train_path, self.val_path, ck_path,
+                        samples_per_epoch, seed, log=True, resume=resume,
+                        cache_features=cache_features,
+                        accum_steps=accum_steps,
+                        early_stopping=early_stopping,
+                        augment_backend=augment_backend)
+        # the test pass runs on the reloaded best checkpoint
+        params, _ = load_checkpoint(ck_path)
+        self.model.load_state_dict(from_jax_params(params["vit"],
+                                                   params["head"]))
+        eval_step = make_eval_step(self.cfg, self.head, self.n_classes,
+                                   compute_dtype=self.compute_dtype)
+        test_cm = self._run_eval(eval_step, self._make_dataset(
+            self.test_path, False, self.train_resolution), self.batch_size)
+        metrics = segmentation_metrics(test_cm, prefix="test")
+        self._log(metrics, step=-1)
+        self.best_ck = ck_path
+        if self.logger is not None and hasattr(self.logger, "log_asset"):
+            self.logger.log_asset(ck_path)
+        return metrics
+
+    def _fit_phase(self, train_path: str, val_path: str, ck_path: str,
+                   samples_per_epoch: int, seed: int, log: bool,
+                   resume: bool = False, cache_features="auto",
+                   accum_steps: int = 1, early_stopping: bool = False,
+                   augment_backend: str = "auto") -> None:
+        res, bs = self.train_resolution, self.batch_size
+        train_ds = self._make_dataset(train_path, self.augmented, res,
+                                      augment_backend)
+        val_ds = self._make_dataset(val_path, False, res)
+        if len(train_ds) == 0:
+            raise FileNotFoundError(f"no training images under {train_path}")
+        vit, head = self.model.dino, self.model.clf
+        optimizer = make_optimizer(self.optimizer, self.lr)
+        opt_state = init_opt_state(optimizer, vit, head, self.freeze_backbone)
+        cache_train, cache_val = self._cache_plan(cache_features,
+                                                  len(train_ds), len(val_ds))
+        train_feats = val_feats = None
+        cache_bytes = 0
+        if cache_train or cache_val:
+            feature_fn = make_feature_fn(self.cfg, self.compute_dtype)
+            if cache_val:
+                val_feats, val_labels = self._precompute_features(
+                    val_ds, feature_fn)
+                cached_eval_step = make_cached_head_eval_step(
+                    self.head, self.n_classes)
+            if cache_train:
+                train_feats, train_labels = self._precompute_features(
+                    train_ds, feature_fn)
+                cached_train_step = make_cached_head_train_step(
+                    self.head, self.n_classes, optimizer)
+            cache_bytes = sum(f.numel() * f.element_size() for f in
+                              (train_feats, val_feats) if f is not None)
+            print(f"feature cache: train={cache_train} val={cache_val} "
+                  f"({cache_bytes / 1e6:.0f} MB on the device; the frozen "
+                  f"backbone runs once per image)")
+        if not cache_train:
+            train_step = make_train_step(self.cfg, self.head, self.n_classes,
+                                         optimizer, self.freeze_backbone,
+                                         compute_dtype=self.compute_dtype,
+                                         accum_steps=accum_steps)
+        eval_step = make_eval_step(self.cfg, self.head, self.n_classes,
+                                   compute_dtype=self.compute_dtype)
+
+        # saves go through the writer thread; the copy to the host stays
+        # synchronous (the loop updates the tensors in place)
+        ck_writer = AsyncCheckpointer(name="fit-ckpt")
+        resume_path = ck_path + ".resume.npz"
+        start_epoch, best_acc, since_improve = 0, -1.0, 0
+        if resume and os.path.exists(resume_path):
+            run_vars = {"epoch": 0, "best_acc": -1.0, "since_improve": 0}
+            vit_p, head_p = to_jax_params(self.model.state_dict())
+            restored = restart_from_checkpoint(
+                resume_path, run_vars, vit=vit_p, head=head_p,
+                opt_state=optimizer_arrays(opt_state))
+            self.model.load_state_dict(from_jax_params(restored["vit"],
+                                                       restored["head"]))
+            load_optimizer_arrays(opt_state, restored["opt_state"])
+            start_epoch = int(run_vars["epoch"]) + 1
+            best_acc = float(run_vars["best_acc"])
+            since_improve = int(run_vars["since_improve"])
+
+        patience = max(self.patience, 1)
+        for epoch in range(start_epoch, self.max_epochs):
+            # a resumed run that had already run out of patience stops here
+            if early_stopping and since_improve >= patience:
+                print(f"[early stopping] resumed with since_improve="
+                      f"{since_improve} >= patience {self.patience}; not "
+                      f"training further")
+                break
+            t0, cpu0 = time.time(), time.process_time()
+            rng = np.random.default_rng([seed, epoch])
+            idx = epoch_indices(rng, len(train_ds), samples_per_epoch)
+            # losses and confusion matrices stay on the card until the
+            # epoch ends: reading one per step would stall the pipeline
+            losses, cms = [], []
+            stats = {"loader_wait_s": 0.0}
+            if train_feats is not None:
+                n_steps = -(-len(idx) // bs)
+                ids, masks = zip(*[
+                    _pad_tail([idx[i * bs:(i + 1) * bs].astype(np.int64)],
+                              bs) for i in range(n_steps)])
+                ids = torch.from_numpy(np.stack([i[0] for i in ids])).to(
+                    self.device)
+                masks = torch.from_numpy(np.stack(masks)).to(self.device)
+                for i in range(n_steps):
+                    loss, cm = cached_train_step(head, opt_state, train_feats,
+                                                 train_labels, ids[i],
+                                                 masks[i])
+                    losses.append(loss)
+                    cms.append(cm)
+            else:
+                loader = batched_loader(train_ds, idx, bs, rng=rng)
+                for x, y, mask in self._feed(loader, pad_to=bs, stats=stats):
+                    loss, cm = train_step(vit, head, opt_state, x, y, mask)
+                    losses.append(loss)
+                    cms.append(cm)
+            losses = torch.stack(losses).cpu().numpy()
+            train_cm = torch.stack(cms).sum(0).cpu().numpy()
+            train_s = time.time() - t0
+            host_cpu_s = time.process_time() - cpu0
+
+            if val_feats is not None:
+                val_cm = cached_eval_step(head, val_feats,
+                                          val_labels).cpu().numpy()
+            else:
+                val_cm = self._run_eval(eval_step, val_ds, bs)
+            metrics = segmentation_metrics(val_cm, prefix="val")
+            metrics.update(segmentation_metrics(train_cm, prefix="train"))
+            metrics["train_loss"] = float(np.mean([float(l) for l in losses]))
+            metrics["epoch_time_s"] = time.time() - t0
+            # the host pipeline's share of the epoch (eval excluded)
+            metrics["train_time_s"] = train_s
+            metrics["train_steps"] = len(losses)
+            metrics["train_frames_per_s"] = len(idx) / train_s
+            metrics["loader_wait_s"] = stats["loader_wait_s"]
+            metrics["host_cpu_s"] = host_cpu_s
+            if cache_bytes:
+                metrics["feature_cache_bytes"] = cache_bytes
+            hbm = hbm_stats(self.device)
+            if hbm is not None:
+                metrics["hbm_peak_gb"] = round(
+                    hbm["peak_bytes_in_use"] / 2**30, 3)
+                metrics["hbm_util"] = round(hbm["utilization"], 4)
+            if log:
+                self._log(metrics, step=epoch)
+                if (self.logger is not None
+                        and hasattr(self.logger, "log_confusion_matrix")):
+                    self.logger.log_confusion_matrix(
+                        val_cm, title="val", step=epoch,
+                        labels=self.class_names,
+                        file_name=f"val_epoch_{epoch}.json")
+            improved = metrics["val_acc"] > best_acc
+            since_improve = 0 if improved else since_improve + 1
+            if improved:
+                self.save(ck_path, extra_hparams={
+                    "best_val_acc": metrics["val_acc"], "epoch": epoch})
+            if resume:
+                vit_p, head_p = to_jax_params(self.model.state_dict())
+                ck_writer.save_train_state(
+                    resume_path,
+                    {"vit": vit_p, "head": head_p,
+                     "opt_state": optimizer_arrays(opt_state)},
+                    run_variables={"epoch": epoch,
+                                   "best_acc": max(best_acc,
+                                                   metrics["val_acc"]),
+                                   "since_improve": since_improve})
+            best_acc = max(best_acc, metrics["val_acc"])
+            # since_improve is 0 right after an improving epoch, so
+            # patience 0 must not stop an improving run
+            if early_stopping and since_improve >= patience:
+                print(f"[early stopping] val_acc has not improved for "
+                      f"{since_improve} epochs (patience={self.patience}); "
+                      f"stopping at epoch {epoch}")
+                break
+        ck_writer.close()  # the resume file is on disk, the thread joined
+
+    def _log(self, metrics: Dict[str, float], step: int) -> None:
+        msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
+        print(f"[epoch {step}] {msg}")
+        if self.logger is not None and hasattr(self.logger, "log_metrics"):
+            self.logger.log_metrics(metrics, step=step)
+
+    # ------------------------------------------------------------------
     # Checkpointing
     # ------------------------------------------------------------------
 
@@ -382,11 +819,22 @@ class DINOSeg:
         """Load ``dino.``/``clf.`` weights (reference names), strictly."""
         self.model.load_state_dict(sd, strict=True)
 
-    def save(self, path: str) -> None:
+    def save(self, path: str,
+             extra_hparams: Optional[Dict[str, Any]] = None) -> None:
         """Write a ``dino_tpu`` ``.npz`` checkpoint (readable by both
-        packages)."""
+        packages) with the hyperparameters and ``extra_hparams``."""
         vit, head = to_jax_params(self.model.state_dict())
-        save_checkpoint(path, {"vit": vit, "head": head}, dict(self.hparams))
+        hp = dict(self.hparams, **(extra_hparams or {}))
+        save_checkpoint(path, {"vit": vit, "head": head}, hp)
+
+    def save_torch_checkpoint(self, path: str, epoch: int = 0,
+                              global_step: int = 0) -> None:
+        """Write the model as a reference PyTorch-Lightning ``.ckpt``
+        (``dino.``/``clf.`` state_dict and the reference constructor's
+        hyperparameters), for the mlp and linear heads."""
+        export_pl_checkpoint(path, self.model.state_dict(), self.head,
+                             hparams=self.hparams, epoch=epoch,
+                             global_step=global_step)
 
     @classmethod
     def load_from_checkpoint(cls, path: str, **overrides) -> "DINOSeg":
@@ -401,7 +849,7 @@ class DINOSeg:
         kwargs.update(overrides)
         random_init = kwargs.pop("random_init", False)
         model = cls(random_init=True, **kwargs)
-        model.hparams["random_init"] = random_init
+        model.hparams["random_init"] = model.random_init = random_init
         model.load_state_dict(sd)
         return model
 

@@ -11,6 +11,7 @@ layout and are mapped here:
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -131,3 +132,61 @@ def load_backbone_state_dict(path: str) -> Dict[str, torch.Tensor]:
     sd = load_torch_file(path)
     sd = sd.get("state_dict", sd)
     return {k: v.float() for k, v in sd.items()}
+
+
+def export_pl_checkpoint(path: str, state_dict: Dict[str, torch.Tensor],
+                         head_type: str,
+                         hparams: Optional[Dict[str, Any]] = None,
+                         epoch: int = 0, global_step: int = 0) -> None:
+    """Write a PyTorch-Lightning DINOSeg ``.ckpt`` from a ``dino.``/``clf.``
+    state_dict: the reference's state_dict layout and its constructor's
+    ``hyper_parameters`` (the optimizer as the torch class Lightning saves),
+    as ``dino_tpu/checkpointing/torch_convert.py:export_pl_checkpoint``
+    writes it.  ViT backbone with the mlp or linear head."""
+    hp_in = dict(hparams or {})
+    if hp_in.get("backbone", "vit") != "vit":
+        raise ValueError("torch export supports the ViT backbone only")
+    if head_type not in ("mlp", "linear"):
+        raise ValueError(f"torch export supports the mlp/linear heads; got "
+                         f"{head_type!r}")
+    opt_map = {"adam": torch.optim.Adam, "adamw": torch.optim.AdamW,
+               "sgd": torch.optim.SGD}
+    opt_name = str(hp_in.get("optimizer", "adamw")).lower()
+    if opt_name not in opt_map:
+        raise ValueError(f"cannot export optimizer {opt_name!r} to a torch "
+                         f"class (known: {sorted(opt_map)})")
+    n_blocks = len({k.split(".")[2] for k in state_dict
+                    if k.startswith("dino.blocks.")})
+    hp_out: Dict[str, Any] = {
+        "data_path": hp_in.get("data_path"),
+        "write_path": hp_in.get("write_path"),
+        "class_names": hp_in.get("class_names"),
+        "head": head_type,
+        "n_blocks": n_blocks,
+        "batch_size": hp_in.get("batch_size", 1),
+        "lr": hp_in.get("lr", 1e-6),
+        "optimizer": opt_map[opt_name],
+        "freeze_backbone": hp_in.get("freeze_backbone", True),
+        "max_epochs": hp_in.get("max_epochs", 200),
+        "patience": hp_in.get("patience", 10),
+        "grayscale": hp_in.get("grayscale", False),
+        "n_classes": hp_in.get("n_classes", 7),
+        "pretrain_on_sim": hp_in.get("pretrain_on_sim", False),
+        "comet_logger": None,
+        "augmented": hp_in.get("augmented", True),
+        "random_init": hp_in.get("random_init", False),
+        "backbone": "vit",
+    }
+    ckpt = {
+        "epoch": int(epoch),
+        "global_step": int(global_step),
+        "pytorch-lightning_version": "1.5.10",   # the reference's pin
+        "state_dict": {k: v.detach().cpu().float().clone()
+                       for k, v in state_dict.items()},
+        "hparams_name": "kwargs",
+        "hyper_parameters": hp_out,
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(ckpt, tmp)
+    os.replace(tmp, path)

@@ -231,3 +231,50 @@ def make_feature_fn(cfg: ViTConfig,
         with matmul_ctx(compute_dtype):
             return vit_forward(vit, x, cfg)[:, 1:, :]
     return fn
+
+
+def make_cached_head_train_step(head_type: str, n_classes: int,
+                                optimizer: Optimizer) -> Callable:
+    """Head-only train step over a device-resident feature cache.
+
+    ``step(head, opt_state, feats_all, labels_all, ids, mask=None) -> (loss,
+    cm)`` gathers the batch's rows ``ids`` of ``feats_all`` ((M, N, D), the
+    whole dataset's backbone features from :func:`make_feature_fn`) and
+    ``labels_all`` ((M, N)) on the device, so an epoch moves no pixels.
+    Loss, gradient and confusion matrix are the frozen train step's, ragged
+    tail mask included, and ``opt_state`` is ``init_opt_state(...,
+    freeze_backbone=True)``'s, so resume files serve both paths.  Float32
+    features run with TF32 off."""
+    if head_type == "moe":
+        raise NotImplementedError(_roadmap("the MoE head", 8))
+
+    def step(head, opt_state, feats_all, labels_all, ids, mask=None):
+        feats = feats_all.index_select(0, ids)
+        y = labels_all.index_select(0, ids).reshape(-1)
+        cdt = None if feats.dtype == torch.float32 else feats.dtype
+        with matmul_ctx(cdt):
+            opt_state.zero_grad(set_to_none=True)
+            logp = head_apply(head_type, head,
+                              feats.reshape(-1, feats.shape[-1]))
+            w = (None if mask is None else mask.to(logp.dtype)
+                 .repeat_interleave(y.shape[0] // mask.shape[0]))
+            loss = nll_loss(logp, y, w)
+            loss.backward()
+            opt_state.step()
+        return loss.detach(), confusion_matrix(logp.detach().argmax(dim=-1),
+                                               y, n_classes, w)
+    return step
+
+
+def make_cached_head_eval_step(head_type: str, n_classes: int) -> Callable:
+    """``step(head, feats_all, labels_all) -> cm`` over the whole cached
+    feature set in one call, no gradient."""
+    @torch.no_grad()
+    def step(head, feats_all, labels_all):
+        cdt = None if feats_all.dtype == torch.float32 else feats_all.dtype
+        with matmul_ctx(cdt):
+            logp = head_apply(head_type, head,
+                              feats_all.reshape(-1, feats_all.shape[-1]))
+        return confusion_matrix(logp.argmax(dim=-1), labels_all.reshape(-1),
+                                n_classes)
+    return step

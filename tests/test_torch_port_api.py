@@ -259,5 +259,7 @@ def test_unported_methods_raise(pair):
         pm.predict(_frames(1)[0], parallelism="tp")
     with pytest.raises(NotImplementedError, match="item 11"):
         pm.predict_stream(iter(_frames(2)), batch_size=2, parallelism="tp")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pm.fit()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        pm.fit(parallelism="sp")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        pm.fit(augment_backend="device")

@@ -402,3 +402,29 @@ def test_predict_stream_on_card_equals_predict_batch(cuda, precision):
     got = chip_smoke.stream_check(model, frames, 4, precision)
     assert got["flash_attn_fwd"] == 2
     assert got["fused_ln_mlp"] == (2 if precision == "bf16" else 0)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_fit_on_card_launches_the_kernels(cuda, tmp_path, precision):
+    """A one-block fit at 240px on the card over an in-memory split (handed
+    in through _make_dataset): 2 steps of batch 2, then the val and test
+    passes, one batch each."""
+    splits = {name: chip_smoke.memory_split(n, seed) for seed, (name, n) in
+              enumerate({"train": 4, "val": 2, "test": 2}.items())}
+    model = chip_smoke.MemoryDINOSeg(
+        splits, head="mlp", n_blocks=1, n_classes=7, random_init=True,
+        precision=precision, freeze_backbone=False, batch_size=2, lr=1e-5,
+        optimizer="adam", max_epochs=1, augmented=True,
+        train_resolution=240, write_path=str(tmp_path),
+        logger=chip_smoke.FitLog())
+    assert model.device.type == "cuda"
+    out, got = chip_smoke.counted(lambda: model.fit(samples_per_epoch=4))
+    if precision == "bf16":
+        want = chip_smoke.launches_want(fwd=4, mlp=2, bwd=2)
+    else:
+        want = chip_smoke.launches_want(fwd_f32=4, bwd_f32=2)
+    assert got == want
+    assert out["test_support"] == 2 * 30 * 30
+    (step, metrics), = [(s, m) for s, m in model.logger.metrics if s >= 0]
+    assert np.isfinite(metrics["train_loss"]) and metrics["train_steps"] == 2
+    assert metrics["hbm_peak_gb"] > 0
