@@ -59,7 +59,22 @@ each printing JSON lines:
      (batch 2) against the same fit on the CPU, a resumed fit against the
      uninterrupted one (the same bits) and evaluate against fit's test
      metrics; exact launch counts for each;
-  10. timing (CUDA events around bursts of back-to-back calls, median of
+  10. serve: (a) export_predict at the bench config (bf16, batch 3,
+     480x640 frames at 480px) and an fp32 artifact at 240px, batch 1,
+     loaded (the program captured as a CUDA graph) and held to eager
+     predict_batch bit for bit, twice, with each replay's kernels counted
+     by torch.profiler (the wrappers count the warm-up and the capture);
+     (b) the server (cli/serve.make_server) over the bench checkpoint with
+     --max_batch 3: a PNG body, a JPEG body against its own decode, the
+     four formats and the Accept header, /healthz, /stats, and rounds of
+     1, 2 and 3 frames against predict_batch of the same bucket, bit for
+     bit, with the programs' peak memory; (c) load: 12 client threads
+     post 512 requests of 300 distinct JPEGs (npy8 answers), --max_batch
+     3 and 1, two readings each in turns: served frames/s, /stats p50 and
+     p95, the rounds' histogram, the process's host core share; (d) in
+     process, eager predict_batch against the program at the bench config
+     in turns: host ms per batch, device busy ms and idle share;
+  11. timing (CUDA events around bursts of back-to-back calls, median of
      the bursts; the bf16 kernels and the f32 backward also replayed from a
      CUDA graph, which takes the host out) at the 480px predict shapes
      (batch 3; the fused MLP also at one frame), the train bench's
@@ -72,7 +87,7 @@ each printing JSON lines:
      forward's and backward's on their route: three TF32 passes); the fp32
      predict latency at 480 and 960px; then the cli/bench line
      (predict and train);
-  11. the per-kernel summary line, the card line, and the final status
+  12. the per-kernel summary line, the card line, and the final status
       line.
 
 ``python3 chip_smoke.py --sp-world W`` (W cards) runs only phase 6's rank
@@ -84,20 +99,25 @@ import argparse
 import contextlib
 import copy
 import functools
+import io
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from dino_tpu_torch import DINOSeg
+from dino_tpu_torch import DINOSeg, export_predict, load_exported_predict
 from dino_tpu_torch.cli import bench
+from dino_tpu_torch.cli.serve import make_server
 from dino_tpu_torch.cli.visualize import overlay
 from dino_tpu_torch.cli.visualize_attention import attention_maps
 from dino_tpu_torch.data import native_loader
@@ -119,6 +139,7 @@ from dino_tpu_torch.ops.resize import resize_nearest
 from dino_tpu_torch.parallel import dist as pdist
 from dino_tpu_torch.parallel.ring_attention import make_sp_train_step
 from dino_tpu_torch.precision import matmul_ctx
+from dino_tpu_torch.serving import predict_program
 from dino_tpu_torch.train.loop import (init_opt_state, make_optimizer,
                                        make_train_step)
 from dino_tpu_torch.utils.frames import process_attentions
@@ -2010,6 +2031,368 @@ def phase_fit(bare_fps):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: serving and export (fixed-shape predict programs, the server)
+# ---------------------------------------------------------------------------
+
+SERVE_RES, SERVE_BATCH, SERVE_HW = 480, 3, (480, 640)
+SERVE_F32_RES = 240
+# load readings: 12 client threads post 512 requests (300 distinct JPEGs,
+# then the first 212 again), so /stats's latency window (the last 512
+# requests) holds exactly one reading
+SERVE_CLIENTS, SERVE_JPEGS, SERVE_POSTS = 12, 300, 512
+SERVE_WARMUP_POSTS = 36
+SERVE_READINGS = ((3, 0), (1, 0), (1, 1), (3, 1))  # (max_batch, reading)
+# timeout of the batching window where the requests must coalesce into
+# known rounds (the bucket checks of (b)); the load servers keep the
+# server's default 3 ms
+SERVE_COALESCE_MS = 500.0
+# the profiler's names of the kernels a replay must launch
+REPLAY_KERNELS = ("flash_fwd_bf16", "flash_fwd_f32", "fused_ln_mlp_kernel")
+
+
+def replay_kernel_counts(fn, n=2):
+    """Launches per call of each of REPLAY_KERNELS (and of every kernel
+    whose name holds ``flash``) seen by torch.profiler over n calls of
+    ``fn``: the kernels of a CUDA-graph replay, which the wrappers' counters
+    do not see."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(REPLAY_KERNELS, 0)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in counts:
+            if name in e.key:
+                counts[name] += e.count
+        if "flash" in e.key and not any(k in e.key for k in REPLAY_KERNELS):
+            counts[e.key[:60]] = counts.get(e.key[:60], 0) + e.count
+    return {k: v / n for k, v in counts.items()}
+
+
+def serve_jpegs(n, seed, quality=90):
+    """n distinct 480x640 colour-band frames (memory_split's recipe),
+    encoded as JPEG bodies by Pillow."""
+    from PIL import Image
+    frames, _ = memory_split(n, seed)
+    out = []
+    for f in frames:
+        buf = io.BytesIO()
+        Image.fromarray(f).save(buf, format="JPEG", quality=quality)
+        out.append(buf.getvalue())
+    return frames, out
+
+
+def png_body(img):
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def http(port, route, body=None, headers=None):
+    """(body, content type) of a GET (no body) or POST to the local
+    server."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{route}",
+                                 data=body, headers=headers or {},
+                                 method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return resp.read(), resp.headers.get("Content-Type")
+
+
+def http_json(port, route):
+    return json.loads(http(port, route)[0])
+
+
+def post_many(port, bodies, clients, route="/predict"):
+    """POST every body from ``clients`` threads (thread i takes bodies i,
+    i + clients, ...); returns the responses in order."""
+    out = [None] * len(bodies)
+
+    def worker(i):
+        for j in range(i, len(bodies), clients):
+            out[j] = http(port, route, bodies[j])[0]
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(min(clients, len(bodies)))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        check(not t.is_alive(), "a client thread hung")
+    check(all(r is not None for r in out), "a request got no answer")
+    return out
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_server(path, **kw):
+    port = free_port()
+    server = make_server(path, port=port, **kw)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, port
+
+
+def stop_server(server):
+    server.shutdown()
+    server.server_close()
+
+
+def rounds_delta(before, after):
+    a, b = after["batch_rounds"], before["batch_rounds"]
+    return {k: v - b.get(k, 0) for k, v in a.items() if v - b.get(k, 0)}
+
+
+def serve_exported(model, frames3, tmp):
+    """(a) the bench config's artifact (bf16, batch 3, 480x640 at 480px)
+    and an fp32 one at 240px, batch 1, each loaded (captured) and held to
+    eager predict_batch bit for bit; each replay's kernels by the
+    profiler.  Returns the launch counts of the phase's calls."""
+    total = {}
+    for prec, res, frames in (("bf16", SERVE_RES, frames3),
+                              ("fp32", SERVE_F32_RES, frames3[:1])):
+        model.set_resolution(res)
+        path = os.path.join(tmp, f"{prec}_{res}.dtts")
+        t0 = time.perf_counter()
+        export_predict(model, path, batch_size=len(frames),
+                       in_shape=SERVE_HW, precision=prec)
+        t_export = time.perf_counter() - t0
+        served, load_counts = counted(
+            lambda: load_exported_predict(path))
+        t_load = time.perf_counter() - t0 - t_export
+        got, call_counts = counted(lambda: (served(frames), served(frames)))
+        want, eager_counts = counted(
+            lambda: model.predict_batch(frames, precision=prec))
+        per_replay = replay_kernel_counts(lambda: served(frames))
+        for c in (load_counts, call_counts, eager_counts):
+            add_counts(total, c)
+        mlp = 3 if prec == "bf16" else 0
+        fwd = "flash_fwd_bf16" if prec == "bf16" else "flash_fwd_f32"
+        rec = {"phase": "serve", "part": "a", "precision": prec, "res": res,
+               "contract": served.contract, "export_s": t_export,
+               "load_and_capture_s": t_load,
+               "same_bits_as_predict_batch": bool(
+                   (got[0] == want).all() and (got[1] == want).all()),
+               "labels_differing": int((got[0] != want).sum()),
+               "replays_same_bits": bool((got[0] == got[1]).all()),
+               "kernels_per_replay": per_replay,
+               "launches_counted_at_load": load_counts,
+               "launches_counted_in_replays": call_counts,
+               "artifact_bytes": os.path.getsize(path)}
+        emit(rec)
+        check(served.contract["output"]["shape"] == [len(frames), 480, 480],
+              f"serve (a) contract {rec}")
+        check(rec["same_bits_as_predict_batch"] and rec["replays_same_bits"],
+              f"serve (a) {prec} labels differ from predict_batch: {rec}")
+        check(per_replay[fwd] == 3 and per_replay["fused_ln_mlp_kernel"]
+              == mlp and sum(per_replay.values()) == 3 + mlp,
+              f"serve (a) {prec} replay kernels {per_replay}")
+        # a replay goes past the wrappers: their counters stay where the
+        # warm-up and the capture left them
+        check(call_counts["flash_attn_fwd"] == 0,
+              f"serve (a) replays counted by the wrappers {call_counts}")
+        check(load_counts["flash_attn_fwd"] == 6
+              and load_counts["fused_ln_mlp"] == 2 * mlp,
+              f"serve (a) warm-up and capture launches {load_counts}")
+    model.set_resolution(SERVE_RES)
+    return total
+
+
+def serve_requests(model, frames3, tmp):
+    """(b) the server over the bench config's checkpoint, --max_batch 3:
+    the requests of tests/test_serve.py, and rounds of 1, 2 and 3 frames
+    held to predict_batch of the same padded bucket, bit for bit.  Returns
+    (checkpoint path, launch counts)."""
+    ckpt = os.path.join(tmp, "bench.ckpt.npz")
+    model.save(ckpt)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    server, port = start_server(ckpt, resolution=SERVE_RES, precision="bf16",
+                                max_batch=SERVE_BATCH,
+                                batch_timeout_ms=SERVE_COALESCE_MS)
+    try:
+        health = http_json(port, "/healthz")
+        check(health["backend"] == "model" and health["device"] == "cuda"
+              and health["max_batch"] == SERVE_BATCH, f"healthz {health}")
+        img = frames3[0]
+        want = model.predict_batch(img[None], precision="bf16")[0]
+        stats0 = http_json(port, "/stats")
+        body32, ctype = http(port, "/predict", png_body(img))
+        lab32 = np.load(io.BytesIO(body32))
+        formats = {"int32": ctype == "application/octet-stream"
+                   and lab32.dtype == np.int32
+                   and bool((lab32 == want).all())}
+        body8, ctype = http(port, "/predict?format=npy8", png_body(img))
+        formats["npy8"] = (ctype == "application/x-npy-uint8"
+                           and bool((np.load(io.BytesIO(body8)) == want).all())
+                           and len(body8) < len(body32) / 3.9)
+        body, ctype = http(port, "/predict", png_body(img),
+                           {"Accept": "application/x-npy-uint8"})
+        formats["accept_npy8"] = (ctype == "application/x-npy-uint8" and bool(
+            (np.load(io.BytesIO(body)) == want).all()))
+        from PIL import Image
+        body, ctype = http(port, "/predict?format=pngl", png_body(img))
+        formats["pngl"] = (ctype == "image/png" and bool(
+            (np.asarray(Image.open(io.BytesIO(body))) == want).all()))
+        body, ctype = http(port, "/predict?format=png", png_body(img))
+        formats["png"] = (ctype == "image/png" and Image.open(
+            io.BytesIO(body)).size == (480, 480))
+        # a JPEG body against its own decode: the native rung where it
+        # built, else Pillow
+        _, (jpeg,) = serve_jpegs(1, seed=41)
+        decoded = native_loader.decode_bytes(jpeg)
+        rung = "native"
+        if decoded is None:
+            decoded, rung = np.asarray(
+                Image.open(io.BytesIO(jpeg)).convert("RGB")), "pillow"
+        lab = np.load(io.BytesIO(http(port, "/predict", jpeg)[0]))
+        formats["jpeg"] = bool((lab == model.predict_batch(
+            decoded[None], precision="bf16")[0]).all())
+        # rounds of 2 and 3 distinct frames run the bucket-2 and bucket-3
+        # programs; each frame's map is its row of predict_batch on them
+        buckets = {}
+        for n in (2, 3):
+            before = http_json(port, "/stats")
+            got = post_many(port, [png_body(f) for f in frames3[:n]], n)
+            rounds = rounds_delta(before, http_json(port, "/stats"))
+            want_n = model.predict_batch(frames3[:n], precision="bf16")
+            buckets[n] = {"rounds": rounds, "same_bits": all(
+                bool((np.load(io.BytesIO(g)) == w).all())
+                for g, w in zip(got, want_n))}
+        torch.cuda.synchronize()
+        stats = http_json(port, "/stats")
+        rec = {"phase": "serve", "part": "b", "max_batch": SERVE_BATCH,
+               "decode_rung": rung, "native_decode": health["native_decode"],
+               "native_build_error": native_loader.build_error,
+               "cold_start": health["cold_start"], "formats": formats,
+               "buckets": buckets, "stats": stats,
+               "first_rounds": rounds_delta(stats0, stats),
+               "programs_peak_bytes": torch.cuda.max_memory_allocated() - base,
+               "programs_held_bytes": torch.cuda.memory_allocated() - base,
+               "launches": all_counts()}
+        emit(rec)
+        check(all(formats.values()), f"serve (b) formats {rec}")
+        for n, b in buckets.items():
+            check(b["rounds"] == {str(n): 1} and b["same_bits"],
+                  f"serve (b) bucket {n}: {rec}")
+        check(stats["errors"] == 0, f"serve (b) errors {stats}")
+        return ckpt, rec["launches"]
+    finally:
+        stop_server(server)
+
+
+def load_reading(port, bodies):
+    """One load reading: SERVE_POSTS requests from SERVE_CLIENTS threads
+    (``?format=npy8``); frames/s, /stats p50/p95 (its window holds exactly
+    this reading), the rounds of the reading and the process's share of
+    the host's cores."""
+    posts = [bodies[i % len(bodies)] for i in range(SERVE_POSTS)]
+    before = http_json(port, "/stats")
+    cpu0, t0 = time.process_time(), time.perf_counter()
+    out = post_many(port, posts, SERVE_CLIENTS, "/predict?format=npy8")
+    wall, cpu = time.perf_counter() - t0, time.process_time() - cpu0
+    after = http_json(port, "/stats")
+    labels = np.load(io.BytesIO(out[-1]))
+    check(labels.shape == (480, 480) and labels.dtype == np.uint8
+          and int(labels.max()) < 7, "serve (c) labels")
+    check(after["latency_ms"]["window"] == SERVE_POSTS
+          and after["errors"] == before["errors"], f"serve (c) {after}")
+    return {"frames_per_s": SERVE_POSTS / wall, "wall_s": wall,
+            "p50_ms": after["latency_ms"]["p50"],
+            "p95_ms": after["latency_ms"]["p95"],
+            "batch_rounds": rounds_delta(before, after),
+            "host_core_share": cpu / (wall * os.cpu_count())}
+
+
+def serve_load(ckpt):
+    """(c) load: a server per --max_batch (3, then 1) at the bench config,
+    each warmed by SERVE_WARMUP_POSTS requests, then readings in turns.
+    Timing runs: their launches are not counted."""
+    frames, bodies = serve_jpegs(SERVE_JPEGS, seed=40)
+    servers = {}
+    try:
+        for mb in (3, 1):
+            servers[mb] = start_server(ckpt, resolution=SERVE_RES,
+                                       precision="bf16", max_batch=mb)
+            post_many(servers[mb][1], bodies[:SERVE_WARMUP_POSTS],
+                      SERVE_CLIENTS)
+        readings = {3: [], 1: []}
+        for mb, _ in SERVE_READINGS:
+            readings[mb].append(load_reading(servers[mb][1], bodies))
+        emit({"phase": "serve", "part": "c", "clients": SERVE_CLIENTS,
+              "distinct_jpegs": SERVE_JPEGS, "posts": SERVE_POSTS,
+              "format": "npy8", "order": [mb for mb, _ in SERVE_READINGS],
+              "host_cores": os.cpu_count(),
+              "max_batch_3": readings[3], "max_batch_1": readings[1]})
+    finally:
+        for server, _ in servers.values():
+            stop_server(server)
+
+
+def serve_in_process(model, frames3):
+    """(d) predict_batch's eager forward against the program's replay at
+    the bench config, each call from host frames to host labels: host ms
+    per batch (median of bursts) in turns (eager, graph, graph, eager),
+    then the profiler's device busy ms and idle share of each.  Timing
+    runs: their launches are not counted."""
+    model.set_resolution(SERVE_RES)
+    program = predict_program(model, SERVE_BATCH, SERVE_HW, "bf16")
+    calls = {"eager": lambda: model.predict_batch(frames3, precision="bf16"),
+             "graph": lambda: program(frames3)}
+    check((calls["graph"]() == calls["eager"]()).all(),
+          "serve (d) program != predict_batch")
+
+    def host_ms(fn, rounds=5, burst=10):
+        fn()
+        times = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            for _ in range(burst):
+                fn()
+            times.append((time.perf_counter() - t0) / burst * 1e3)
+        return float(np.median(times))
+
+    ms = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager"):
+        ms[name].append(host_ms(calls[name]))
+    rec = {"phase": "serve", "part": "d", "batch": SERVE_BATCH,
+           "res": SERVE_RES, "precision": "bf16", "order":
+           ["eager", "graph", "graph", "eager"]}
+    for name, fn in calls.items():
+        bd = bench.device_breakdown(fn, 10, float(np.median(ms[name])))
+        rec[name] = {"host_ms": ms[name], "device_busy_ms":
+                     bd["device_busy_ms"], "device_idle_share":
+                     bd["device_idle_share"], "top_kernels": bd["kernels"][:4]}
+    emit(rec)
+
+
+def phase_serve(model, frames3):
+    """Phase 10 (serve): (a) export and load at the bench config, (b) the
+    server's requests, (c) load at --max_batch 3 and 1, (d) eager against
+    the program in process; returns the phase's launch counts."""
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        add_counts(total, serve_exported(model, frames3, tmp))
+        ckpt, launches = serve_requests(model, frames3, tmp)
+        add_counts(total, launches)
+        serve_load(ckpt)
+    serve_in_process(model, frames3)
+    emit({"phase": "serve", "launches": total})
+    for name in ("flash_attn_fwd", "flash_attn_fwd_f32", "fused_ln_mlp"):
+        check(total[name] > 0, f"{name} never launched by serve")
+    return total
+
+
 KERNELS = {
     "flash_attn_fwd": dict(
         source="dino_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -2111,6 +2494,7 @@ def main():
           "rank_launches_summed": sp_ranks})
     attn = phase_attention_maps(model, frame, frames3)
     fit = phase_fit(bare_fps)
+    serve = phase_serve(model, frames3)
     rows = phase_timing(block, per_call, bwd_per_step)
     rows.update(phase_timing_sp(launches))
     phase_fp32_latency(model, frame)
@@ -2130,6 +2514,14 @@ def main():
     launches["flash_attn_fwd_chunked"] += fit["flash_attn_fwd_f32"]
     launches["flash_attn_bwd"] += fit["flash_attn_bwd"]
     launches["flash_attn_bwd_f32"] += fit["flash_attn_bwd_f32"]
+    # phase 10's launches as the wrappers count them (the warm-up calls,
+    # the captures and the eager calls it compares with; a replay's
+    # kernels are counted by the profiler, in the phase's records): its
+    # bf16 forwards in row 1, f32 forwards in row 4, the fused MLP's
+    launches["flash_attn_fwd"] += (serve["flash_attn_fwd"]
+                                   - serve["flash_attn_fwd_f32"])
+    launches["fused_ln_mlp"] += serve["fused_ln_mlp"]
+    launches["flash_attn_fwd_chunked"] += serve["flash_attn_fwd_f32"]
 
     emit({"kernels": [
         dict(name=name, route="cuda", launches=launches[name],

@@ -11,5 +11,6 @@ version, which is what the CPU tests compare.  Collectives go through
 The package imports neither ``jax`` nor ``dino_tpu``.
 """
 from dino_tpu_torch.api import DINOSeg
+from dino_tpu_torch.serving import export_predict, load_exported_predict
 
-__all__ = ["DINOSeg"]
+__all__ = ["DINOSeg", "export_predict", "load_exported_predict"]

@@ -90,6 +90,16 @@ def _roadmap(what: str, item: int) -> str:
             f"{item})")
 
 
+def compute_dtype_of(precision: str) -> Optional[torch.dtype]:
+    """'bf16' -> torch.bfloat16, 'fp32' -> None (true float32); int8
+    raises, naming its ROADMAP item."""
+    if precision == "int8":
+        raise NotImplementedError(_roadmap("precision='int8'", 8))
+    if precision not in ("bf16", "fp32"):
+        raise ValueError(f"unsupported precision {precision!r}")
+    return torch.bfloat16 if precision == "bf16" else None
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` -> the card; raise if there is none (no silent CPU path)."""
     if device is None:
@@ -124,6 +134,31 @@ class SegModel(nn.Module):
         self.clf = clf
 
 
+def seg_log_probs(model: SegModel, cfg: ViTConfig, head: str,
+                  imgs_u8: torch.Tensor, resolution: int,
+                  compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The single-device predict path before argmax: uint8 (B, H, W, 3) ->
+    resize to ``resolution`` -> normalize -> backbone -> head ->
+    (B*N, n_classes) log-probs, on ``imgs_u8``'s device.  Float32
+    (``compute_dtype=None``) runs with TF32 off."""
+    with matmul_ctx(compute_dtype):
+        x = preprocess(imgs_u8, resolution)
+        return seg_forward(model.dino, model.clf, cfg, head, pre_normalized=x,
+                           compute_dtype=compute_dtype)
+
+
+def label_maps(log_probs: torch.Tensor, resolution: int,
+               n_classes: int) -> torch.Tensor:
+    """(B*N, n_classes) log-probs -> (B, 480, 480) label maps on their
+    device (the kron factor floors: 480 // (resolution // 8)), uint8 when
+    n_classes <= 255 (the label wire), else int32."""
+    out_size = resolution // 8
+    wire = torch.uint8 if n_classes <= 255 else torch.int32
+    low = log_probs.argmax(dim=-1).to(wire)
+    return kron_upsample(low.reshape(-1, out_size, out_size),
+                         480 // out_size)
+
+
 class DINOSeg:
     """DINO ViT-S/8 backbone + per-patch segmentation head."""
 
@@ -145,10 +180,7 @@ class DINOSeg:
             logger = comet_logger  # the reference's keyword
         if backbone != "vit":
             raise NotImplementedError(_roadmap(f"backbone {backbone!r}", 8))
-        if precision == "int8":
-            raise NotImplementedError(_roadmap("precision='int8'", 8))
-        if precision not in ("bf16", "fp32"):
-            raise ValueError(f"unsupported precision {precision!r}")
+        compute_dtype_of(precision)
         if head == "moe":
             raise NotImplementedError(_roadmap("head='moe'", 8))
         if moe_dispatch not in ("dense", "sparse"):
@@ -210,12 +242,7 @@ class DINOSeg:
         self.resolution = resolution
 
     def _compute_dtype_for(self, precision: Optional[str]):
-        precision = precision or self.precision
-        if precision == "int8":
-            raise NotImplementedError(_roadmap("precision='int8'", 8))
-        if precision not in ("bf16", "fp32"):
-            raise ValueError(f"unsupported precision {precision!r}")
-        return torch.bfloat16 if precision == "bf16" else None
+        return compute_dtype_of(precision or self.precision)
 
     @torch.no_grad()
     def forward(self, images_u8) -> torch.Tensor:
@@ -250,12 +277,11 @@ class DINOSeg:
         default process group, and every rank gets every row."""
         self._check_parallelism(parallelism)
         cdt = self._compute_dtype_for(precision)
+        if parallelism != "sp":
+            return seg_log_probs(self.model, self.cfg, self.head, imgs_u8,
+                                 self.resolution, cdt)
         with matmul_ctx(cdt):
             x = preprocess(imgs_u8, self.resolution)
-            if parallelism != "sp":
-                return seg_forward(self.model.dino, self.model.clf, self.cfg,
-                                   self.head, pre_normalized=x,
-                                   compute_dtype=cdt)
             if cdt is not None:
                 x = x.to(cdt)
             tokens = vit_forward_seq_parallel(self.model.dino, x, self.cfg)
@@ -268,11 +294,8 @@ class DINOSeg:
                        parallelism: Optional[str] = None) -> torch.Tensor:
         """uint8 (B, H, W, 3) on the model's device -> (B, 480, 480) label
         maps on the device, uint8 when n_classes <= 255 (the label wire)."""
-        out_size = self.resolution // 8
-        low = self.log_probs(imgs_u8, precision, parallelism).argmax(dim=-1)
-        wire = torch.uint8 if self.n_classes <= 255 else torch.int32
-        return kron_upsample(low.to(wire).reshape(-1, out_size, out_size),
-                             480 // out_size)
+        return label_maps(self.log_probs(imgs_u8, precision, parallelism),
+                          self.resolution, self.n_classes)
 
     @staticmethod
     def _as_uint8(img) -> np.ndarray:

@@ -27,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -209,6 +209,23 @@ def _pos_interp_mats(grid_in: int, rows_out: int, cols_out: int):
     return wr, wc
 
 
+# _pos_interp_mats per (grid_in, rows_out, cols_out, device), copied to the
+# device once (as ops/resize.py's taps): no host-to-device copy per call,
+# which a CUDA graph could not capture
+_DEVICE_POS_MATS: Dict[Tuple[int, int, int, torch.device],
+                       Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _device_pos_interp_mats(grid_in: int, rows_out: int, cols_out: int,
+                            device: torch.device):
+    key = (grid_in, rows_out, cols_out, device)
+    if key not in _DEVICE_POS_MATS:
+        _DEVICE_POS_MATS[key] = tuple(
+            torch.from_numpy(m).to(device)
+            for m in _pos_interp_mats(grid_in, rows_out, cols_out))
+    return _DEVICE_POS_MATS[key]
+
+
 def interpolate_pos_encoding(pos_embed: torch.Tensor, h: int, w: int,
                              patch_size: int) -> torch.Tensor:
     """Resample (1, N+1, D) pos-embed to an image of (h, w) pixels."""
@@ -219,8 +236,7 @@ def interpolate_pos_encoding(pos_embed: torch.Tensor, h: int, w: int,
     grid_in = int(math.isqrt(n))
     cls_pos = pos_embed[:, :1]
     patch_pos = pos_embed[0, 1:].reshape(grid_in, grid_in, -1).float()
-    wr, wc = (torch.from_numpy(m).to(pos_embed.device)
-              for m in _pos_interp_mats(grid_in, gh, gw))
+    wr, wc = _device_pos_interp_mats(grid_in, gh, gw, pos_embed.device)
     out = torch.einsum("rg,ghd->rhd", wr, patch_pos)
     out = torch.einsum("ch,rhd->rcd", wc, out)
     out = out.reshape(1, gh * gw, -1).to(pos_embed.dtype)

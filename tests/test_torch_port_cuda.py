@@ -428,3 +428,93 @@ def test_fit_on_card_launches_the_kernels(cuda, tmp_path, precision):
     (step, metrics), = [(s, m) for s, m in model.logger.metrics if s >= 0]
     assert np.isfinite(metrics["train_loss"]) and metrics["train_steps"] == 2
     assert metrics["hbm_peak_gb"] > 0
+
+
+def _serve_frames(n, seed):
+    return np.random.RandomState(seed).randint(
+        0, 256, (n, 240, 320, 3)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_program_replay_equals_eager(cuda, precision):
+    """The fixed-shape program (a CUDA graph over bf16 weight copies) gives
+    predict_batch's maps bit for bit, twice; each replay launches the
+    flash forward (and in bf16 the fused MLP) once per block."""
+    from dino_tpu_torch.serving import predict_program
+    model = DINOSeg(head="mlp", n_blocks=2, n_classes=7, precision=precision,
+                    random_init=True, seed=2)
+    model.set_resolution(240)
+    frames = _serve_frames(2, 2)
+    program = predict_program(model, 2, (240, 320))
+    got, again = program(frames), program(frames)
+    np.testing.assert_array_equal(got, model.predict_batch(frames))
+    np.testing.assert_array_equal(again, got)
+    per = chip_smoke.replay_kernel_counts(lambda: program(frames))
+    fwd = "flash_fwd_bf16" if precision == "bf16" else "flash_fwd_f32"
+    assert per[fwd] == 2
+    assert per["fused_ln_mlp_kernel"] == (2 if precision == "bf16" else 0)
+
+
+def test_program_recaptures_after_a_weight_change(cuda):
+    """A fused Adam step (no version bump) and a load_state_dict each
+    rebuild the weight copies and recapture; the new program follows the
+    new weights bit for bit."""
+    from dino_tpu_torch.serving import predict_program
+    model = DINOSeg(head="mlp", n_blocks=1, n_classes=7, precision="bf16",
+                    random_init=True, seed=3)
+    model.set_resolution(240)
+    frames = _serve_frames(2, 3)
+    program = predict_program(model, 2, (240, 320))
+    before = program(frames)
+    params = list(model.model.parameters())
+    opt = torch.optim.Adam(params, lr=0.05, fused=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=gen, device=cuda)
+    opt.step()
+    assert program.stale()
+    after = program(frames)
+    assert program.builds == 2
+    np.testing.assert_array_equal(after, model.predict_batch(frames))
+    assert (after != before).any()
+    model.load_state_dict({k: v * 1.5 for k, v in
+                           model.model.state_dict().items()})
+    assert program.stale()
+    np.testing.assert_array_equal(program(frames),
+                                  model.predict_batch(frames))
+    assert program.builds == 3
+
+
+def test_export_round_trip_on_card(cuda, tmp_path):
+    from dino_tpu_torch import export_predict, load_exported_predict
+    model = DINOSeg(head="mlp", n_blocks=1, n_classes=7, precision="bf16",
+                    random_init=True, seed=4)
+    model.set_resolution(240)
+    path = str(tmp_path / "p.dtts")
+    export_predict(model, path, batch_size=2, in_shape=(240, 320))
+    served = load_exported_predict(path)
+    assert served.device.type == "cuda"
+    frames = _serve_frames(2, 4)
+    np.testing.assert_array_equal(served(frames), model.predict_batch(frames))
+    assert served.contract["platforms"] == ["cuda"]
+
+
+def test_server_request_on_card(cuda, tmp_path):
+    """One PNG request to the server over a bf16 checkpoint on the card."""
+    import io
+    model = DINOSeg(head="mlp", n_blocks=1, n_classes=7, precision="bf16",
+                    random_init=True, seed=5)
+    model.set_resolution(240)
+    ckpt = str(tmp_path / "m.ckpt.npz")
+    model.save(ckpt)
+    server, port = chip_smoke.start_server(ckpt, resolution=240)
+    try:
+        img = _serve_frames(1, 5)[0]
+        body, ctype = chip_smoke.http(port, "/predict",
+                                      chip_smoke.png_body(img))
+        assert ctype == "application/octet-stream"
+        np.testing.assert_array_equal(np.load(io.BytesIO(body)),
+                                      model.predict(img))
+        assert chip_smoke.http_json(port, "/healthz")["device"] == "cuda"
+    finally:
+        chip_smoke.stop_server(server)
