@@ -58,7 +58,14 @@ each printing JSON lines:
      cache (no flash launch in its epochs); (c) the fp32 fit at 240px
      (batch 2) against the same fit on the CPU, a resumed fit against the
      uninterrupted one (the same bits) and evaluate against fit's test
-     metrics; exact launch counts for each;
+     metrics; (d) the device augmentation (ops/device_augment.py) of one
+     staged 480px batch of 16 that reaches every op, on the card against
+     the port's CPU run, the same bits twice, with its device ms per batch
+     (CUDA events over bursts), host ms per call and device kernels per
+     batch (torch.profiler); (e) (a)'s fit with augment_backend='device',
+     with (a)'s host-pipeline numbers and the loader alone on the device
+     route, beside (a)'s and the bare step's; exact launch counts for
+     each;
   10. serve: (a) export_predict at the bench config (bf16, batch 3,
      480x640 frames at 480px) and an fp32 artifact at 240px, batch 1,
      loaded (the program captured as a CUDA graph) and held to eager
@@ -121,6 +128,8 @@ from dino_tpu_torch.cli.serve import make_server
 from dino_tpu_torch.cli.visualize import overlay
 from dino_tpu_torch.cli.visualize_attention import attention_maps
 from dino_tpu_torch.data import native_loader
+from dino_tpu_torch.data.augment import (draw_params, prepare_device_batch,
+                                         resize_pair)
 from dino_tpu_torch.data.dataset import (DuckieSegDataset, batched_loader,
                                          loader_route)
 from dino_tpu_torch.models.vit import Mlp, ViTConfig, get_intermediate_layers
@@ -132,6 +141,7 @@ from dino_tpu_torch.ops.attention import (attention_bwd_dyn_plain,
                                           flash_attention, flash_attention_bwd,
                                           flash_attention_bwd_dyn,
                                           flash_attention_with_lse_dyn)
+from dino_tpu_torch.ops.device_augment import MAX_BLUR, device_augment_batch
 from dino_tpu_torch.ops.fused_mlp import (fused_ln_mlp_residual,
                                           fused_ln_mlp_residual_plain)
 from dino_tpu_torch.ops.preprocess import preprocess
@@ -1903,7 +1913,7 @@ def fit_unfrozen(splits, tmp, bare_fps):
     check(all(np.isfinite(e["train_loss"]) for e in stats),
           f"fit (a) non-finite loss {rec}")
     check(rec["best_checkpoint_reloads_equal"], "fit (a) best checkpoint")
-    return got
+    return got, {"epochs": stats, "loader_fps": loader_fps}
 
 
 def fit_frozen_cached(splits, tmp):
@@ -2015,18 +2025,197 @@ def fit_parity(splits, tmp):
     return total
 
 
+def augment_batch_params(seed, n=FIT_BATCH, size=FIT_RES):
+    """n samples' parameters drawn from ``seed``, with the first seven set
+    so that every op fires at least once: a crop, an affine with a crop, a
+    flip, two jitters in different orders, the widest blur, the
+    identity."""
+    params = [draw_params(np.random.default_rng([seed, i]), size)
+              for i in range(n)]
+    null = {"crop": None, "affine": None, "flip": False, "jitter": None,
+            "blur": None}
+    rng = np.random.default_rng(seed)
+    factors = (1.3, 0.85, 1.15, 0.12)
+    params[:7] = [
+        dict(null, crop=(31, 17, 301, 288)),
+        dict(null, crop=(5, 40, 420, 410), affine=params[1]["affine"]
+             if params[1]["affine"] is not None
+             else np.array([[0.95, 0.26, 12.0], [-0.26, 0.95, -30.0]])),
+        dict(null, flip=True),
+        dict(null, jitter=(np.array([0, 1, 2, 3]), factors)),
+        dict(null, jitter=(np.array([3, 2, 1, 0]), factors), flip=True),
+        dict(null, blur=MAX_BLUR, crop=(0, 0, size, size)),
+        dict(null)]
+    params[7] = dict(params[7], jitter=(rng.permutation(4), factors))
+    return params
+
+
+def profile_kernels(fn):
+    """(device kernels, device copies, device busy ms) of one call of
+    ``fn`` as torch.profiler sees them."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = copies = 0
+    busy_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "memcpy" in e.key.lower() or "memset" in e.key.lower():
+            copies += e.count
+        else:
+            kernels += e.count
+        busy_us += e.self_device_time_total
+    return kernels, copies, busy_us / 1e3
+
+
+def fit_augment_on_card(splits):
+    """(d) device_augment_batch on the card against the port's CPU run of
+    the same staged batch at the fit config, twice; its device ms per batch
+    (CUDA events, median of bursts), host ms per call and the device
+    kernels per batch."""
+    frames, _ = splits["train"]
+    params = augment_batch_params(7)
+    imgs = np.stack([resize_pair(frames[i % len(frames)], None, FIT_RES)[0]
+                     for i in range(FIT_BATCH)])
+    staged, packed = prepare_device_batch(imgs, params, FIT_RES)
+    want = device_augment_batch(staged, packed, device="cpu")
+    card = torch.device("cuda")
+    got, launched = counted(lambda: [
+        device_augment_batch(staged, packed, device=card).cpu()
+        for _ in range(2)])
+    diffs = [int((g.to(torch.int16) - want.to(torch.int16)).abs().max())
+             for g in got]
+    dev_imgs = torch.from_numpy(staged).to(card)
+
+    def call():
+        return device_augment_batch(dev_imgs, packed, device=card)
+
+    device_ms = median_ms(call)
+    host = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    kernels, copies, busy_ms = profile_kernels(call)
+    rec = {"phase": "fit", "part": "d device augmentation", "res": FIT_RES,
+           "batch": FIT_BATCH,
+           "ops_fired": {"crop": int((packed[:, 0] > 0.5).sum()),
+                         "affine_staged_on_host": sum(
+                             p["affine"] is not None for p in params),
+                         "flip": int((packed[:, 12] > 0.5).sum()),
+                         "jitter": int((packed[:, 13] > 0.5).sum()),
+                         "jitter_orders": len({tuple(r) for r in
+                                               packed[packed[:, 13] > 0.5,
+                                                      14:18]}),
+                         "blur": int((packed[:, 22] > 0.5).sum())},
+           "card_vs_cpu_max_abs_diff": diffs,
+           "same_bits_as_cpu": [bool(torch.equal(g, want)) for g in got],
+           "launches_of_the_six_kernels": launched,
+           "device_ms_per_batch": device_ms,
+           "host_ms_per_call_median": float(np.median(host)),
+           "host_ms_per_call_min": float(np.min(host)),
+           "device_kernels_per_batch": kernels,
+           "device_copies_per_batch": copies,
+           "profiled_busy_ms_per_batch": busy_ms}
+    emit(rec)
+    check(rec["same_bits_as_cpu"] == [True, True],
+          f"fit (d) card augmentation differs from the CPU's {rec}")
+    check(all(v == 0 for v in launched.values()),
+          f"fit (d) the augmentation launched a kernel {launched}")
+    check(rec["ops_fired"]["jitter_orders"] >= 2 and all(
+        v > 0 for v in rec["ops_fired"].values()), f"fit (d) ops {rec}")
+    return rec
+
+
+def fit_unfrozen_device(splits, tmp, bare_fps, host_a, augment):
+    """(e) the unfrozen bf16 fit of (a) with augment_backend='device', and
+    the loader alone with the device augmentation over one epoch's
+    samples."""
+    model = fit_model(splits, os.path.join(tmp, "e"), precision="bf16",
+                      freeze_backbone=False, batch_size=FIT_BATCH, lr=FIT_LR,
+                      augmented=True, train_resolution=FIT_RES)
+    train_ds = model._make_dataset(model.train_path, True, FIT_RES, "device")
+    route = loader_route(train_ds)
+    calls0 = device_augment_batch.calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for x, _ in batched_loader(train_ds, np.arange(FIT_SAMPLES)
+                               % len(train_ds), FIT_BATCH,
+                               rng=np.random.default_rng(0),
+                               device=model.device):
+        check(x.is_cuda, "fit (e) the loader's frames are not on the card")
+        n += len(x)
+    torch.cuda.synchronize()
+    loader_fps = n / (time.perf_counter() - t0)
+    calls1 = device_augment_batch.calls
+    out, got = counted(lambda: model.fit(samples_per_epoch=FIT_SAMPLES,
+                                         accum_steps=FIT_ACCUM,
+                                         augment_backend="device"))
+    steps = FIT_EPOCHS * batches(FIT_SAMPLES, FIT_BATCH)
+    evals = (FIT_EPOCHS * batches(FIT_FRAMES["val"], FIT_BATCH)
+             + batches(FIT_FRAMES["test"], FIT_BATCH))
+    per_step = 3 * FIT_ACCUM
+    want = launches_want(fwd=per_step * steps + 3 * evals, mlp=3 * evals,
+                         bwd=per_step * steps)
+    stats = pipeline_stats(model)
+    best = DINOSeg.load_from_checkpoint(model.best_ck, device=FIT_DEVICE)
+    rec = {"phase": "fit", "part": "e unfrozen bf16, device augmentation",
+           "res": FIT_RES, "blocks": FIT_BLOCKS, "batch": FIT_BATCH,
+           "accum_steps": FIT_ACCUM, "samples_per_epoch": FIT_SAMPLES,
+           "epochs": FIT_EPOCHS, "optimizer_steps": steps,
+           "loader_route": route, "launches": got, "want": want,
+           "device_augment_calls_loader_alone": calls1 - calls0,
+           "device_augment_calls_in_fit": device_augment_batch.calls - calls1,
+           "epochs_host": stats,
+           "loader_alone_frames_per_s": loader_fps,
+           "beside": {"a_epochs_frames_per_s": [
+                          e["train_frames_per_s"] for e in host_a["epochs"]],
+                      "a_loader_alone_frames_per_s": host_a["loader_fps"],
+                      "bare_step_frames_per_s": bare_fps,
+                      "d_device_ms_per_batch": augment[
+                          "device_ms_per_batch"],
+                      "d_host_ms_per_call": augment[
+                          "host_ms_per_call_median"]},
+           "host_cores": os.cpu_count(), "test": out,
+           "best_checkpoint_reloads_equal": same_weights(best, model)}
+    emit(rec)
+    check(route == "device augment", f"fit (e) route {route}")
+    check(got == want, f"fit (e) launches {got}, want {want}")
+    check(rec["device_augment_calls_in_fit"] == steps,
+          f"fit (e) device augmentation calls {rec}")
+    check(rec["device_augment_calls_loader_alone"]
+          == batches(FIT_SAMPLES, FIT_BATCH), f"fit (e) loader calls {rec}")
+    check(all(np.isfinite(e["train_loss"]) for e in stats),
+          f"fit (e) non-finite loss {rec}")
+    check(rec["best_checkpoint_reloads_equal"], "fit (e) best checkpoint")
+    return got
+
+
 def phase_fit(bare_fps):
     """Phase 9 (fit): (a) the unfrozen bf16 fit at the bench config, (b) the
-    frozen bf16 fit over the feature cache, (c) the fp32 parity fit; returns
-    the phase's launch counts (every count zeroed before each card run and
-    read after it)."""
+    frozen bf16 fit over the feature cache, (c) the fp32 parity fit, (d) the
+    device augmentation on the card against the CPU, (e) (a)'s fit with
+    augment_backend='device'; returns the phase's launch counts (every
+    count zeroed before each card run and read after it)."""
     splits = {name: memory_split(n, seed) for seed, (name, n) in
               enumerate(FIT_FRAMES.items())}
     total = {}
     with tempfile.TemporaryDirectory() as tmp:
-        add_counts(total, fit_unfrozen(splits, tmp, bare_fps))
+        got, host_a = fit_unfrozen(splits, tmp, bare_fps)
+        add_counts(total, got)
         add_counts(total, fit_frozen_cached(splits, tmp))
         add_counts(total, fit_parity(splits, tmp))
+        augment = fit_augment_on_card(splits)
+        add_counts(total, fit_unfrozen_device(splits, tmp, bare_fps, host_a,
+                                              augment))
     emit({"phase": "fit", "launches": total})
     return total
 

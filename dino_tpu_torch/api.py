@@ -75,6 +75,7 @@ from dino_tpu_torch.train.loop import (init_opt_state,
                                        seg_forward)
 from dino_tpu_torch.train.metrics import (per_class_metrics_from_cm,
                                           segmentation_metrics)
+from dino_tpu_torch.utils.device import resolve_device
 from dino_tpu_torch.utils.logging import hbm_stats
 
 _HPARAM_KEYS = ("data_path", "write_path", "class_names", "head", "n_blocks",
@@ -100,27 +101,19 @@ def compute_dtype_of(precision: str) -> Optional[torch.dtype]:
     return torch.bfloat16 if precision == "bf16" else None
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> the card; raise if there is none (no silent CPU path)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("dino_tpu_torch runs on the card by default and "
-                               "found no CUDA device; pass device='cpu' to "
-                               "run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
-
-
 def _pad_tail(arrs, b: int):
-    """Pad each array's leading axis to ``b`` by repeating its last row;
-    returns (padded arrays, per-row mask), the mask 1 on the real rows.
-    The train steps leave the padded rows out of the loss, the gradients and
-    the confusion matrix."""
+    """Pad each array's leading axis to ``b`` by repeating its last row
+    (a tensor where it lies, a host array on the host); returns (padded
+    arrays, per-row mask), the mask 1 on the real rows.  The train steps
+    leave the padded rows out of the loss, the gradients and the confusion
+    matrix."""
     n_real = arrs[0].shape[0]
     mask = np.zeros((b,), np.float32)
     mask[:n_real] = 1.0
     if n_real != b:
-        arrs = [np.concatenate([a, np.repeat(a[-1:], b - n_real, axis=0)])
+        arrs = [torch.cat([a, a[-1:].expand(b - n_real, *a.shape[1:])])
+                if torch.is_tensor(a) else
+                np.concatenate([a, np.repeat(a[-1:], b - n_real, axis=0)])
                 for a in arrs]
     return arrs, mask
 
@@ -499,21 +492,26 @@ class DINOSeg:
 
     def _feed(self, loader, pad_to: Optional[int] = None,
               stats: Optional[Dict[str, float]] = None):
-        """Device batches (images, labels, mask or None) from a host
-        loader.  A prefetch thread runs the loader, pads a ragged batch to
-        ``pad_to`` rows (with its mask) and copies each batch into pinned
-        memory while the card works on the previous one; the copy to the
-        card is non-blocking.  ``stats["loader_wait_s"]`` adds up the time
-        the caller waited for a batch."""
+        """Device batches (images, labels, mask or None) from a loader.  A
+        prefetch thread runs the loader, pads a ragged batch to ``pad_to``
+        rows (with its mask) and copies each host array into pinned memory
+        while the card works on the previous one; the copy to the card is
+        non-blocking.  Images the loader already put on the device (the
+        'device augment' route) stay there and are padded there.
+        ``stats["loader_wait_s"]`` adds up the time the caller waited for a
+        batch."""
         cuda = self.device.type == "cuda"
 
         def stage(batch):
-            arrs, mask = list(batch), None
+            arrs = list(batch)
             if pad_to is not None:
                 arrs, mask = _pad_tail(arrs, pad_to)
                 arrs.append(mask)
-            host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs]
-            return [h.pin_memory() for h in host] if cuda else host
+            host = [a if torch.is_tensor(a)
+                    else torch.from_numpy(np.ascontiguousarray(a))
+                    for a in arrs]
+            return [h.pin_memory() if cuda and not h.is_cuda else h
+                    for h in host]
 
         batches = prefetched(loader, stage)
         while True:
@@ -619,12 +617,13 @@ class DINOSeg:
         backbone runs once per image and the epochs train the head on the
         cached features (the train cache needs ``augmented=False``).
         ``accum_steps`` splits each batch into equal microbatches summed
-        into one update.  ``augment_backend`` picks the host rung that
-        computes the augmentation ('auto': native when built, else numpy;
-        'native'; 'cv2': numpy); the drawn parameters are the same on
-        every rung.  A ragged last batch is padded and masked.
-        ``parallelism`` ('sp', 'pp'), ``zero``, ``fsdp`` and
-        ``augment_backend='device'`` are not ported."""
+        into one update.  ``augment_backend`` picks where the augmentation
+        is computed ('auto': the native library when built, else numpy;
+        'native'; 'cv2': numpy; 'device': crop, flip, jitter and blur on
+        the model's device, with the affine warp and the grid labels on the
+        host); the drawn parameters are the same on every rung.  A ragged
+        last batch is padded and masked.  ``parallelism`` ('sp', 'pp'),
+        ``zero`` and ``fsdp`` are not ported."""
         if parallelism not in (None, "sp", "pp"):
             raise ValueError(f"unsupported train parallelism {parallelism!r}")
         if parallelism is not None:
@@ -632,8 +631,6 @@ class DINOSeg:
                 f"fit(parallelism={parallelism!r})", 11))
         if zero or fsdp:
             raise NotImplementedError(_roadmap("fit(zero=..., fsdp=...)", 11))
-        if augment_backend == "device":
-            raise NotImplementedError(_roadmap("augment_backend='device'", 7))
         if accum_steps < 1 or self.batch_size % accum_steps:
             raise ValueError(f"batch_size {self.batch_size} must divide "
                              f"by accum_steps {accum_steps}")
@@ -763,7 +760,8 @@ class DINOSeg:
                     losses.append(loss)
                     cms.append(cm)
             else:
-                loader = batched_loader(train_ds, idx, bs, rng=rng)
+                loader = batched_loader(train_ds, idx, bs, rng=rng,
+                                        device=self.device)
                 for x, y, mask in self._feed(loader, pad_to=bs, stats=stats):
                     loss, cm = train_step(vit, head, opt_state, x, y, mask)
                     losses.append(loss)

@@ -29,9 +29,10 @@ import time
 import numpy as np
 import torch
 
-from dino_tpu_torch.api import DINOSeg, resolve_device
+from dino_tpu_torch.api import DINOSeg
 from dino_tpu_torch.train.loop import (init_opt_state, make_optimizer,
                                        make_train_step)
+from dino_tpu_torch.utils.device import resolve_device
 
 
 def card_name_and_power_limit() -> str:

@@ -105,7 +105,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "native", "cv2", "device"],
                    help="where augmentation pixels are computed: 'auto' = "
                         "the native C++ loader when it builds, else the "
-                        "numpy recipe ('cv2'); 'device' is not ported")
+                        "numpy recipe ('cv2'); 'device' = crop, flip, "
+                        "jitter and blur on the model's device")
     p.add_argument("--early_stopping", action="store_true",
                    help="stop after `patience` epochs without val_acc "
                         "improvement")

@@ -22,7 +22,10 @@ computes bit for bit:
 
 The warp and blur take the native library when it is built (the same
 bits); the numpy code below is each recipe's definition.  Normalization is
-not done here: batches stay uint8 and are normalized on the device.
+not done here: batches stay uint8 and are normalized on the device.  For
+the device augmentation (``ops/device_augment.py``), ``stage_device_sample``
+and ``prepare_device_batch`` apply the affine warp on the host and clear
+its flags.
 """
 from __future__ import annotations
 
@@ -491,3 +494,32 @@ def augment(rng: np.random.Generator, img: np.ndarray, mask: np.ndarray,
             size: int = 480) -> Tuple[np.ndarray, np.ndarray]:
     """Full training augmentation. img uint8 (H,W,3), mask int (H,W)."""
     return apply_params(draw_params(rng, size), img, mask, size)
+
+
+def stage_device_sample(img: np.ndarray, p: dict, size: int
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """One sample's host geometry for the device augmentation
+    (``ops/device_augment.py``), which runs no warp: when the affine fires
+    (25% of samples), apply its crop and warp here with the exact recipes
+    and clear both flags.  Returns (image, packed float32[PARAMS_LEN])."""
+    if p["affine"] is not None:
+        if p["crop"] is not None:
+            x0, y0, cw, ch = p["crop"]
+            img, _ = resize_pair(img[y0:y0 + ch, x0:x0 + cw], None, size)
+        img = warp_affine_u8(img, np.asarray(p["affine"], np.float64), size)
+        p = dict(p, crop=None, affine=None)
+    return img, pack_params(p)
+
+
+def prepare_device_batch(imgs: np.ndarray, params: list, size: int
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """``stage_device_sample`` over a batch: (images with the host geometry
+    applied where the affine fires, packed (B, PARAMS_LEN) float32).  Warped
+    rows are written back into ``imgs`` in place."""
+    imgs = np.ascontiguousarray(imgs)
+    packed = np.empty((len(params), PARAMS_LEN), np.float32)
+    for i, p in enumerate(params):
+        staged, packed[i] = stage_device_sample(imgs[i], p, size)
+        if p["affine"] is not None:
+            imgs[i] = staged
+    return imgs, packed

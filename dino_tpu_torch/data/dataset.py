@@ -19,7 +19,13 @@ ladder of rungs that give ``dino_tpu``'s bytes on the same rung:
 On the eval path the two rungs resize differently, as in ``dino_tpu``: the
 native batch uses the predict path's bilinear convention, the numpy rung
 cv2's fixed-point INTER_LINEAR (``resize_pair``).  ``backend='cv2'`` names
-the numpy rung (``dino_tpu``'s name for it); ``'device'`` is not ported.
+the numpy rung (``dino_tpu``'s name for it).
+
+``backend='device'`` moves the augmentation's pixels to the device
+(``ops/device_augment.py``): the host decodes and resizes, warps the 25% of
+samples whose affine fires and composes the grid labels
+(``augment_grid_mask``); the batches are uint8 frames on the device and
+int32 grid labels on the host.
 """
 from __future__ import annotations
 
@@ -32,15 +38,14 @@ import numpy as np
 
 from dino_tpu_torch.data import native_loader
 from dino_tpu_torch.data.augment import (apply_params, draw_params,
-                                         pack_params, resize_pair)
+                                         pack_params, resize_pair,
+                                         stage_device_sample)
+from dino_tpu_torch.data.prefetch import prefetched
+from dino_tpu_torch.ops.device_augment import (augment_grid_mask,
+                                               device_augment_batch)
 from dino_tpu_torch.ops.resize import resize_nearest
 
-BACKENDS = ("auto", "native", "cv2")
-
-
-def _roadmap(what: str, item: int) -> str:
-    return (f"{what} is not ported yet (ROADMAP 'Modules to port' item "
-            f"{item})")
+BACKENDS = ("auto", "native", "cv2", "device")
 
 
 class DuckieSegDataset:
@@ -57,8 +62,6 @@ class DuckieSegDataset:
     def __init__(self, path: str, augmented: bool = False,
                  resolution: int = 480, patch_size: int = 8,
                  backend: str = "auto"):
-        if backend == "device":
-            raise NotImplementedError(_roadmap("augment_backend='device'", 7))
         if backend not in BACKENDS:
             raise ValueError(f"unknown augmentation backend {backend!r}")
         self.path = path
@@ -141,8 +144,10 @@ def _params_for(seed, size: int) -> dict:
 
 def loader_route(dataset: DuckieSegDataset) -> str:
     """Which rung ``batched_loader`` takes for ``dataset``: 'native batch'
-    (eval), 'native augment' (train) or 'numpy' (per item).  Raises for
-    ``backend='native'`` without the native library."""
+    (eval), 'native augment' or 'device augment' (train) or 'numpy' (per
+    item).  Raises for ``backend='native'`` without the native library."""
+    if dataset.augmented and dataset.backend == "device":
+        return "device augment"
     native = dataset.from_jpeg_files and native_loader.get_lib() is not None
     if dataset.augmented and dataset.backend == "native" and not native:
         raise RuntimeError(
@@ -157,14 +162,16 @@ def loader_route(dataset: DuckieSegDataset) -> str:
 
 def batched_loader(dataset: DuckieSegDataset, indices: np.ndarray,
                    batch_size: int, rng: Optional[np.random.Generator] = None,
-                   num_workers: int = 8
+                   num_workers: int = 8, device=None
                    ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Stacked batches, (B, res, res, 3) uint8 and (B, G*G) int32, in the
     order of ``indices``; the last batch keeps whatever is left.
 
     ``rng`` draws one seed per sample, from which that sample's
     augmentation parameters are drawn (``_params_for``), so every rung
-    gives the same pixels from the same rng."""
+    gives the same parameters from the same rng.  On the 'device augment'
+    route the frames are a uint8 tensor on ``device`` (the card when None;
+    raises without one)."""
     route = loader_route(dataset)
     res = dataset.resolution
     grid = res // dataset.patch_size
@@ -210,6 +217,11 @@ def batched_loader(dataset: DuckieSegDataset, indices: np.ndarray,
                 resize_nearest(m, grid, grid).reshape(-1) for m in masks])
         return
 
+    if route == "device augment":
+        yield from _device_augment_batches(dataset, indices, batch_size,
+                                           seeds, num_workers, device)
+        return
+
     def fetch(args):
         idx, seed = args
         item_rng = np.random.default_rng(seed) if seed is not None else None
@@ -226,3 +238,45 @@ def batched_loader(dataset: DuckieSegDataset, indices: np.ndarray,
         if batch:
             xs, ys = zip(*batch)
             yield np.stack(xs), np.stack(ys)
+
+
+def _device_augment_batches(dataset, indices, batch_size, seeds,
+                            num_workers, device):
+    """The 'device augment' route: per chunk, the host draws the parameters,
+    loads and resizes the frames (one native ``load_batch``, else
+    ``_load_raw`` and ``resize_pair`` per sample), warps the samples whose
+    affine fires (``stage_device_sample``) and composes their grid labels;
+    the device runs the rest (``device_augment_batch``).  The host part of
+    chunk k+1 runs on a prefetch thread, its samples on a pool of
+    ``num_workers`` threads, while chunk k is augmented and trained on."""
+    res = dataset.resolution
+    grid = res // dataset.patch_size
+    native = dataset.from_jpeg_files and native_loader.get_lib() is not None
+
+    def stage(args):
+        i, p, img = args
+        if img is None:
+            img, mask = dataset._load_raw(i)
+            img = resize_pair(img, None, res)[0]
+        else:
+            mask = dataset._load_mask(i)
+        img, packed = stage_device_sample(img, p, res)
+        return img, packed, augment_grid_mask(resize_nearest(
+            np.asarray(mask, np.int32), res, res), p, res, grid)
+
+    with cf.ThreadPoolExecutor(max_workers=num_workers) as pool:
+        def load_chunk(start):
+            chunk = [int(i) for i in indices[start:start + batch_size]]
+            params = [_params_for(s, res)
+                      for s in seeds[start:start + batch_size]]
+            imgs = (native_loader.load_batch(
+                [dataset.files[i] for i in chunk], res, res)
+                if native else None)
+            frames = list(imgs) if imgs is not None else [None] * len(chunk)
+            imgs, packed, masks = zip(*pool.map(stage, zip(chunk, params,
+                                                           frames)))
+            return np.stack(imgs), np.stack(packed), np.stack(masks)
+
+        for _, (imgs, packed, masks) in prefetched(
+                range(0, len(indices), batch_size), load_chunk):
+            yield device_augment_batch(imgs, packed, device), masks

@@ -52,9 +52,10 @@ from torch.optim.optimizer import register_optimizer_step_post_hook
 from torch.utils.weak import WeakIdKeyDictionary
 
 from dino_tpu_torch.api import (SegModel, _roadmap, compute_dtype_of,
-                                label_maps, resolve_device, seg_log_probs)
+                                label_maps, seg_log_probs)
 from dino_tpu_torch.models.heads import init_head
 from dino_tpu_torch.models.vit import ViTConfig, VisionTransformer
+from dino_tpu_torch.utils.device import resolve_device
 
 MAGIC = "dino_tpu_torch_serving_v1"
 SUFFIX = ".dtts"

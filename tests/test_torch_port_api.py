@@ -261,5 +261,5 @@ def test_unported_methods_raise(pair):
         pm.predict_stream(iter(_frames(2)), batch_size=2, parallelism="tp")
     with pytest.raises(NotImplementedError, match="item 11"):
         pm.fit(parallelism="sp")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pm.fit(augment_backend="device")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        pm.fit(zero=True)

@@ -430,6 +430,47 @@ def test_fit_on_card_launches_the_kernels(cuda, tmp_path, precision):
     assert metrics["hbm_peak_gb"] > 0
 
 
+def test_device_augment_on_card_equals_the_cpu(cuda):
+    """The device augmentation at 480px over 8 samples that reach every op
+    (chip_smoke's batch): the card's bits equal the CPU's, twice, and it
+    launches none of the kernels."""
+    from dino_tpu_torch.data.augment import prepare_device_batch, resize_pair
+    from dino_tpu_torch.ops.device_augment import device_augment_batch
+    frames, _ = chip_smoke.memory_split(4, 0)
+    params = chip_smoke.augment_batch_params(3, n=8)
+    imgs = np.stack([resize_pair(frames[i % 4], None, 480)[0]
+                     for i in range(8)])
+    staged, packed = prepare_device_batch(imgs, params, 480)
+    want = device_augment_batch(staged, packed, device="cpu")
+    got, launched = chip_smoke.counted(lambda: [
+        device_augment_batch(staged, packed, device=cuda) for _ in range(2)])
+    for g in got:
+        assert g.is_cuda and torch.equal(g.cpu(), want)
+    assert not any(launched.values())
+
+
+def test_fit_on_card_with_device_augmentation(cuda, tmp_path):
+    """A one-block bf16 fit at 240px with augment_backend='device': every
+    train batch goes through the device augmentation on the card, and the
+    launches are those of the host rungs' fit."""
+    from dino_tpu_torch.ops.device_augment import device_augment_batch
+    splits = {name: chip_smoke.memory_split(n, seed) for seed, (name, n) in
+              enumerate({"train": 4, "val": 2, "test": 2}.items())}
+    model = chip_smoke.MemoryDINOSeg(
+        splits, head="mlp", n_blocks=1, n_classes=7, random_init=True,
+        precision="bf16", freeze_backbone=False, batch_size=2, lr=1e-5,
+        optimizer="adam", max_epochs=1, augmented=True,
+        train_resolution=240, write_path=str(tmp_path),
+        logger=chip_smoke.FitLog())
+    calls = device_augment_batch.calls
+    out, got = chip_smoke.counted(lambda: model.fit(
+        samples_per_epoch=3, augment_backend="device"))
+    assert device_augment_batch.calls == calls + 2
+    assert got == chip_smoke.launches_want(fwd=4, mlp=2, bwd=2)
+    (step, metrics), = [(s, m) for s, m in model.logger.metrics if s >= 0]
+    assert np.isfinite(metrics["train_loss"]) and metrics["train_steps"] == 2
+
+
 def _serve_frames(n, seed):
     return np.random.RandomState(seed).randint(
         0, 256, (n, 240, 320, 3)).astype(np.uint8)

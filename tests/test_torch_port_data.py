@@ -8,6 +8,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from dino_tpu.data import dataset as jds
 from dino_tpu.data import native_loader as jnative
@@ -137,9 +138,21 @@ def test_no_decoder_raises_naming_both(split, monkeypatch):
         ds._load_img(0)
 
 
-def test_device_backend_raises_item_7(split):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tds.DuckieSegDataset(split, augmented=True, backend="device")
+def test_device_backend_raises_item_7(split, monkeypatch):
+    """The device backend builds and routes its batches to the device
+    augmentation; without a card it raises unless the CPU is asked for."""
+    ds = tds.DuckieSegDataset(split, augmented=True, resolution=RES,
+                              backend="device")
+    assert tds.loader_route(ds) == "device augment"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(tds.batched_loader(ds, np.arange(2), 2,
+                                rng=np.random.default_rng(0)))
+    x, y = next(tds.batched_loader(ds, np.arange(2), 2,
+                                   rng=np.random.default_rng(0),
+                                   device="cpu"))
+    assert torch.is_tensor(x) and x.dtype == torch.uint8
+    assert isinstance(y, np.ndarray) and y.shape == (2, (RES // 8) ** 2)
     with pytest.raises(ValueError, match="unknown augmentation backend"):
         tds.DuckieSegDataset(split, backend="opencl")
 

@@ -253,8 +253,7 @@ def test_unported_fit_options_raise(voc_root, tmp_path):
     for kw, item in ((dict(parallelism="sp"), "item 11"),
                      (dict(parallelism="pp"), "item 11"),
                      (dict(zero=True), "item 11"),
-                     (dict(fsdp=True), "item 11"),
-                     (dict(augment_backend="device"), "item 7")):
+                     (dict(fsdp=True), "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             pm.fit(**kw)
     with pytest.raises(ValueError, match="parallelism"):
