@@ -81,7 +81,25 @@ each printing JSON lines:
      p95, the rounds' histogram, the process's host core share; (d) in
      process, eager predict_batch against the program at the bench config
      in turns: host ms per batch, device busy ms and idle share;
-  11. timing (CUDA events around bursts of back-to-back calls, median of
+  11. int8, MoE, cnn (item8): (a) int8 at the bench config: every
+     quantized layer's codes and scales on the card the same bits as the
+     CPU's, predict_batch(precision='int8') against the port's CPU int8
+     run (labels equal except at top-2 gaps below INT8_MARGIN), agreement
+     with bf16 (recorded), the int8 artifact's CUDA-graph replay equal to
+     eager int8 twice, 3 flash launches and no fused-MLP launch per batch;
+     host ms, device busy ms and idle share of int8 and bf16 predict_batch
+     in turns, eager and through the program, and torch._int_mm against
+     the bf16 mm at fc1's shape (10,803 x 384 x 1,536); (b) the MoE head (4
+     experts) on the bench ViT: dense and sparse (capacity factor 4) bf16
+     predict at 480px with the same labels, the unfrozen bf16 train step at
+     the train bench config (2 steps, exact launches with the stats pass's
+     forwards), the fp32 step at 240px against the CPU, one SP fp32 step in
+     a world of one over NCCL against the single-device step; (c) cnn1 and
+     cnn2 on seeded random weights: fp32 and bf16 predict at 480px against
+     the CPU, one train-mode fp32 step at 240px against the CPU (loss,
+     gradients, running stats), the peak memory of batch 3; no kernel of
+     ours may launch there (dino_tpu's ResNet runs no Pallas kernel);
+  12. timing (CUDA events around bursts of back-to-back calls, median of
      the bursts; the bf16 kernels and the f32 backward also replayed from a
      CUDA graph, which takes the host out) at the 480px predict shapes
      (batch 3; the fused MLP also at one frame), the train bench's
@@ -94,7 +112,7 @@ each printing JSON lines:
      forward's and backward's on their route: three TF32 passes); the fp32
      predict latency at 480 and 960px; then the cli/bench line
      (predict and train);
-  12. the per-kernel summary line, the card line, and the final status
+  13. the per-kernel summary line, the card line, and the final status
       line.
 
 ``python3 chip_smoke.py --sp-world W`` (W cards) runs only phase 6's rank
@@ -686,8 +704,9 @@ def train_run(model, frozen, precision, res, batch, accum, steps, want,
     cdt = torch.bfloat16 if precision == "bf16" else None
     opt = make_optimizer("adam", 1e-5)
     opt_state = init_opt_state(opt, vit, head, frozen)
-    step = make_train_step(model.cfg, "mlp", 7, opt, frozen,
-                           compute_dtype=cdt, accum_steps=accum)
+    step = make_train_step(model.cfg, model.head, 7, opt, frozen,
+                           compute_dtype=cdt, accum_steps=accum,
+                           backbone=model.backbone, **model._head_kwargs)
     rs = np.random.RandomState(seed)
     out = res // 8
     labels = torch.from_numpy(rs.randint(0, 7, (batch, out * out)).astype(
@@ -752,12 +771,16 @@ def phase_train_path():
     return total, 24, 16 / float(np.median(times[1:]))
 
 
-def phase_train_cpu_reference(card, cpu, card_loss, seed):
+def phase_train_cpu_reference(card, cpu, card_loss, seed, phase="train",
+                              floor_rel=0.0):
     """The card's fp32 240px step (just taken, gradients still in .grad)
-    against the same step on the CPU from the same weights and batch."""
+    against the same step on the CPU from the same weights and batch (the
+    model's head and backbone).  Each gradient leaf is held against
+    max(its own max |g|, ``floor_rel`` x the model's largest |g|)."""
     vit, head = cpu.model.dino, cpu.model.clf
     opt = make_optimizer("adam", 1e-5)
-    step = make_train_step(cpu.cfg, "mlp", 7, opt, False)
+    step = make_train_step(cpu.cfg, cpu.head, 7, opt, False,
+                           backbone=cpu.backbone, **cpu._head_kwargs)
     rs = np.random.RandomState(seed)
     labels = torch.from_numpy(rs.randint(0, 7, (2, 900)).astype(np.int32))
     imgs = torch.from_numpy(rs.randint(0, 255, (2, 240, 240, 3)).astype(
@@ -766,20 +789,25 @@ def phase_train_cpu_reference(card, cpu, card_loss, seed):
                    labels)
     worst, worst_name, ok, diffs = 0.0, None, True, {}
     card_params = dict(card.model.named_parameters())
+    floor = floor_rel * max(p.grad.abs().max().item()
+                            for p in cpu.model.parameters()
+                            if p.grad is not None)
     for name, p in cpu.model.named_parameters():
         g_card = card_params[name].grad
         check(g_card is not None, f"no gradient reached {name} on the card")
         diffs[name] = (g_card.cpu() - p.grad).abs().max().item()
-        rel = diffs[name] / max(p.grad.abs().max().item(), 1e-30)
+        rel = diffs[name] / max(p.grad.abs().max().item(), floor, 1e-30)
         ok &= rel <= STEP_GRAD_REL
         if rel >= worst:
             worst, worst_name = rel, name
-    rec = {"phase": "train_cpu_reference", "res": 240, "precision": "fp32",
+    rec = {"phase": f"{phase}_cpu_reference", "res": 240,
+           "precision": "fp32", "head": cpu.head, "backbone": cpu.backbone,
            "loss_card": card_loss, "loss_cpu": loss.item(),
            "grad_max_abs_diff": diffs,
            "grad_worst_rel_diff": worst, "grad_worst_leaf": worst_name,
            "tol": {"loss_rtol": STEP_LOSS_RTOL,
-                   "grad_rel_per_leaf": STEP_GRAD_REL}}
+                   "grad_rel_per_leaf": STEP_GRAD_REL,
+                   "grad_floor_rel": floor_rel}}
     emit(rec)
     check(abs(card_loss - loss.item()) <= STEP_LOSS_RTOL * abs(loss.item()),
           f"card fp32 step loss disagrees with the CPU {rec}")
@@ -1167,13 +1195,15 @@ def one_step(prec, imgs, labels, make_step):
 
 @contextlib.contextmanager
 def head_relu(record=None, replay=None, rows=None):
-    """torch.relu as the MLP head calls it (the backbone calls none).
-    ``record``, a list, gets each call's mask (x > 0) over the single-device
-    step's patch rows.  ``replay``, such a list, sets each call's mask on an
-    SP step's local token rows, ``rows`` = (batch, patches per image, world
-    size, rank): a patch row takes the recorded choice, the CLS and padding
-    rows (loss weight 0) their own.  Yields the list of units per call whose
-    own choice differed."""
+    """torch.relu as the MLP head calls it (the ViT calls none; a ResNet
+    backbone does too).  ``record``, a list, gets each call's mask (x > 0)
+    over the single-device step's patch rows.  ``replay``, such a list,
+    sets each call's mask on an SP step's local token rows, ``rows`` =
+    (batch, patches per image, world size, rank): a patch row takes the
+    recorded choice, the CLS and padding rows (loss weight 0) their own;
+    with ``rows`` None each call takes the recorded mask whole (a step of
+    the same shapes on another device).  Yields the list of units per call
+    whose own choice differed."""
     real, calls, flips = torch.relu, iter(replay or ()), []
 
     def relu(x):
@@ -1181,6 +1211,10 @@ def head_relu(record=None, replay=None, rows=None):
         if record is not None:
             record.append(own)
             return real(x)
+        if rows is None:
+            mask = next(calls).to(x.device)
+            flips.append(int((mask != own).sum()))
+            return x * mask.to(x.dtype)
         b, n_patches, d, me = rows
         n_local = x.shape[0] // b
         pos = me * n_local + torch.arange(n_local, device=x.device)
@@ -2582,6 +2616,353 @@ def phase_serve(model, frames3):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: int8 serving, the MoE head, the cnn1/cnn2 backbones
+# ---------------------------------------------------------------------------
+
+# int8 labels, card vs the port's CPU int8 run: both run bf16 around the
+# int8 products (the flash kernel against the plain attention, cuBLAS
+# against CPU sums), so a bf16 step may flip an argmax whose top-2 gap is
+# below INT8_MARGIN (tests/test_torch_port_quant.py measured 2.9e-3 of
+# log-prob spread against dino_tpu)
+INT8_MARGIN = 1e-2
+# cnn labels, card vs CPU: fp32 and bf16 top-2 gaps below which argmax may
+# flip.  The random-init ResNet's eval BatchNorm (mean 0, var 1) leaves
+# activations of ~1e3, so a bf16 step of a conv's sum is ~4 and the two
+# devices' sum orders part the log-probs by up to 0.34 (cnn1) and 0.67
+# (cnn2) in bf16, 6.5e-5 and 1.7e-4 in fp32, on this script's seeds
+CNN_MARGIN = {"fp32": 1e-3, "bf16": 1.0}
+# cnn features, card fp32 vs CPU fp32: max |err| against max |ref|
+CNN_F32_REL = 1e-4
+# the cnn step's running stats, card vs CPU, per channel: a running var
+# against itself, a running mean against max(|mean|, sqrt(var)), the
+# channel's spread (where train-mode BatchNorm feeds a linear layer into
+# the next, as in the last bottleneck, that channel's batch mean is 0 up
+# to rounding)
+CNN_STATS_REL = 1e-5
+# a gradient leaf whose exact value vanishes (train-mode BatchNorm cancels
+# a per-channel shift of its input: the last bottleneck's bn2.bias) holds
+# only rounding noise; each leaf is held against max(its own max |g|, this
+# share of the model's largest |g|)
+CNN_GRAD_FLOOR = 1e-3
+MOE_EXPERTS, MOE_AMPLE = 4, 4.0  # capacity factor >= E: nothing drops
+INT8_MM_SHAPE = (10803, 384, 1536)  # fc1 of a 480px batch of 3
+
+
+def host_and_device_ms(calls, order):
+    """Host ms per call (median of 5 bursts of 10) for each named call, in
+    ``order`` (turns), then the profiler's device busy ms and idle share of
+    one call of each."""
+    def host_ms(fn, rounds=5, burst=10):
+        fn()
+        times = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            for _ in range(burst):
+                fn()
+            times.append((time.perf_counter() - t0) / burst * 1e3)
+        return float(np.median(times))
+
+    ms = {name: [] for name in calls}
+    for name in order:
+        ms[name].append(host_ms(calls[name]))
+    out = {}
+    for name, fn in calls.items():
+        bd = bench.device_breakdown(fn, 10, float(np.median(ms[name])))
+        out[name] = {"host_ms": ms[name],
+                     "device_busy_ms": bd["device_busy_ms"],
+                     "device_idle_share": bd["device_idle_share"],
+                     "top_kernels": bd["kernels"][:5]}
+    return out
+
+
+def cpu_twin(model, **kw):
+    """The port's CPU run of ``model``: the same configuration and weights
+    (``kw`` overrides), on the CPU."""
+    hp = {k: model.hparams[k] for k in ("head", "n_blocks", "n_classes",
+                                        "backbone", "precision", "n_experts",
+                                        "moe_dispatch", "moe_capacity",
+                                        "freeze_backbone")}
+    hp.update(kw)
+    cpu = DINOSeg(random_init=True, device="cpu", **hp)
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         model.model.state_dict().items()})
+    return cpu
+
+
+def int8_codes_match(model, cpu):
+    """Every quantized layer's codes and scales, card vs CPU: (layers,
+    layers differing)."""
+    card_q = dict(model._serving_model("int8").dino.named_buffers())
+    cpu_q = dict(cpu._serving_model("int8").dino.named_buffers())
+    names = [k for k in card_q if k.endswith(("weight_i8", "w_scale"))]
+    differ = [k for k in names if not torch.equal(card_q[k].cpu(), cpu_q[k])]
+    return len(names), differ
+
+
+def phase_int8(model, frames3, tmp):
+    """(a) int8 at the bench config: codes, labels against the CPU, the
+    program against eager, launches, timings.  Returns the launch
+    counts."""
+    model.set_resolution(480)
+    cpu = cpu_twin(model, precision="int8")
+    n_layers, differ = int8_codes_match(model, cpu)
+    got, counts = counted(lambda: model.predict_batch(frames3,
+                                                      precision="int8"))
+    total = dict(counts)
+    want = cpu.predict_batch(frames3)
+    logp = cpu.log_probs(torch.from_numpy(frames3))
+    n_diff, n_far = labels_agree(got, want, near_ties(logp, INT8_MARGIN), 60)
+    bf16 = model.predict_batch(frames3, precision="bf16")
+    path = os.path.join(tmp, "int8_480.dtts")
+    export_predict(model, path, batch_size=3, in_shape=SERVE_HW,
+                   precision="int8")
+    served, load_counts = counted(lambda: load_exported_predict(path))
+    add_counts(total, load_counts)
+    replays = (served(frames3), served(frames3))
+    eager, eager_counts = counted(lambda: model.predict_batch(
+        frames3, precision="int8"))
+    add_counts(total, eager_counts)
+    per_replay = replay_kernel_counts(lambda: served(frames3))
+    rec = {"phase": "item8", "part": "a", "what": "int8", "res": 480,
+           "batch": 3, "quantized_tensors": n_layers,
+           "codes_or_scales_differing_card_vs_cpu": differ,
+           "launches_per_batch": counts,
+           "patches_differing_vs_cpu": n_diff,
+           "of_them_away_from_near_ties": n_far,
+           "near_tie_margin": INT8_MARGIN,
+           "near_tie_patches": int(near_ties(logp, INT8_MARGIN).sum()),
+           "agreement_with_bf16_card": float((got == bf16).mean()),
+           "program_same_bits_as_eager": bool(
+               (replays[0] == eager).all() and (replays[1] == eager).all()),
+           "kernels_per_replay": per_replay,
+           "launches_counted_at_load": load_counts,
+           "artifact_bytes": os.path.getsize(path)}
+    emit(rec)
+    check(not differ, f"int8 codes differ card vs CPU {rec}")
+    check(n_far == 0, f"int8 labels differ from the CPU's {rec}")
+    check(rec["program_same_bits_as_eager"], f"int8 program != eager {rec}")
+    check(counts["flash_attn_fwd"] == 3 and counts["fused_ln_mlp"] == 0
+          and counts["flash_attn_fwd_f32"] == 0, f"int8 launches {rec}")
+    check(per_replay["flash_fwd_bf16"] == 3
+          and per_replay["fused_ln_mlp_kernel"] == 0,
+          f"int8 replay kernels {per_replay}")
+
+    # int8 and bf16 predict_batch in turns, eager and through the program
+    programs = {prec: predict_program(model, 3, SERVE_HW, prec)
+                for prec in ("int8", "bf16")}
+    calls = {"int8_eager": lambda: model.predict_batch(frames3,
+                                                       precision="int8"),
+             "bf16_eager": lambda: model.predict_batch(frames3,
+                                                       precision="bf16"),
+             "int8_program": lambda: programs["int8"](frames3),
+             "bf16_program": lambda: programs["bf16"](frames3)}
+    order = ["bf16_eager", "int8_eager", "int8_eager", "bf16_eager",
+             "bf16_program", "int8_program", "int8_program", "bf16_program"]
+    timing = host_and_device_ms(calls, order)
+    m, k, n = INT8_MM_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a8 = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                       dtype=torch.int8)
+    b8 = torch.randint(-127, 128, (n, k), generator=g, device="cuda",
+                       dtype=torch.int8)
+    a16, b16 = a8.to(torch.bfloat16), b8.to(torch.bfloat16)
+    mm = {"int_mm_ms": kernel_times(lambda: torch._int_mm(a8, b8.t())),
+          "bf16_mm_ms": kernel_times(lambda: torch.mm(
+              a16, b16.t(), out_dtype=torch.float32))}
+    int8_bound = max(2 * m * k * n / 1979e12,
+                     (m * k + n * k + 4 * m * n) / HBM_BYTES_PER_S) * 1e3
+    bf16_bound = bound_ms(2 * m * k * n, 2 * (m * k + n * k) + 4 * m * n,
+                          torch.bfloat16)[0]
+    emit({"phase": "item8", "part": "a", "what": "int8 timing",
+          "order": order, "timing": timing, "mm_shape": [m, k, n],
+          "mm": mm, "int_mm_bound_ms": int8_bound,
+          "bf16_mm_bound_ms": bf16_bound})
+    return total
+
+
+def phase_moe(model, frames3):
+    """(b) the MoE head (4 experts) on the bench ViT: dense vs sparse bf16
+    predict at 480px; the unfrozen bf16 train step at the train bench
+    config (2 steps, exact launches); the fp32 step at 240px against the
+    CPU; one SP step in a world of one over NCCL.  Returns the launch
+    counts."""
+    total = {}
+    dense = DINOSeg(head="moe", n_experts=MOE_EXPERTS, n_blocks=3,
+                    n_classes=7, precision="bf16", random_init=True, seed=0)
+    dense.model.dino.load_state_dict(model.model.dino.state_dict())
+    sparse = DINOSeg(head="moe", n_experts=MOE_EXPERTS, n_blocks=3,
+                     n_classes=7, precision="bf16", random_init=True, seed=0,
+                     moe_dispatch="sparse", moe_capacity=MOE_AMPLE)
+    sparse.load_state_dict(dense.model.state_dict())
+    a, counts = counted(lambda: dense.predict_batch(frames3))
+    add_counts(total, counts)
+    b, counts_s = counted(lambda: sparse.predict_batch(frames3))
+    add_counts(total, counts_s)
+    rec = {"phase": "item8", "part": "b", "what": "moe predict", "res": 480,
+           "batch": 3, "experts": MOE_EXPERTS, "capacity_factor": MOE_AMPLE,
+           "sparse_same_labels_as_dense": bool((a == b).all()),
+           "labels_differing": int((a != b).sum()),
+           "launches_dense": counts, "launches_sparse": counts_s}
+    emit(rec)
+    check(rec["sparse_same_labels_as_dense"], f"MoE sparse != dense {rec}")
+    check(counts["flash_attn_fwd"] == 3 and counts["fused_ln_mlp"] == 3,
+          f"MoE predict launches {rec}")
+
+    # the unfrozen bf16 step at the train bench's shapes: per step the
+    # stats pass's 8 forwards (flash forward and fused MLP, no gradient)
+    # and the gradient pass's 8 (flash forward with LSE, flash backward)
+    zero_counts()
+    train = DINOSeg(head="moe", n_experts=MOE_EXPERTS, n_blocks=3,
+                    n_classes=7, precision="bf16", random_init=True, seed=1,
+                    freeze_backbone=False)
+    _, times = train_run(train, False, "bf16", 480, 16, 8, 2,
+                         (48, 24, 24, 0), seed=2)
+    add_counts(total, all_counts())
+    emit({"phase": "item8", "part": "b", "what": "moe train bf16",
+          "step_host_s": times, "launches_per_step": {
+              "flash_attn_fwd": 48, "of_them_stats_pass": 24,
+              "fused_ln_mlp": 24, "flash_attn_bwd": 24}})
+    # the fp32 step at 240px, repeated on the CPU
+    zero_counts()
+    cpu = cpu_twin(train, precision="fp32")
+    loss, _ = train_run(train, False, "fp32", 240, 2, 1, 1, (3, 0, 0, 3),
+                        seed=4)
+    add_counts(total, all_counts())
+    phase_train_cpu_reference(train, cpu, loss.item(), seed=4, phase="moe")
+    # SP: one fp32 step in a world of one over NCCL against the
+    # single-device step
+    store = tempfile.mkdtemp(prefix="dtt_moe_sp_")
+    pdist.init_distributed_mode("nccl", f"file://{store}/store", 1, 0)
+    try:
+        rs = np.random.RandomState(8)
+        imgs = torch.from_numpy(rs.randint(0, 255, (2, 240, 240, 3)).astype(
+            np.uint8)).cuda()
+        labels = torch.from_numpy(rs.randint(0, 7, (2, 900)).astype(
+            np.int32)).cuda()
+
+        def moe_step(make):
+            m = DINOSeg(head="moe", n_experts=MOE_EXPERTS, n_blocks=3,
+                        n_classes=7, precision="fp32", random_init=True,
+                        seed=5, freeze_backbone=False)
+            opt = make_optimizer("adam", 1e-5)
+            st = init_opt_state(opt, m.model.dino, m.model.clf, False)
+            loss, cm = make(m.cfg, opt)(m.model.dino, m.model.clf, st, imgs,
+                                        labels)
+            return m, loss
+        ref_m, ref_loss = moe_step(lambda cfg, opt: make_train_step(
+            cfg, "moe", 7, opt, False))
+        (sp_m, sp_loss), got = counted(lambda: moe_step(
+            lambda cfg, opt: make_sp_train_step(cfg, "moe", 7, opt)))
+        add_counts(total, got)
+        worst, leaf, ok = _grad_report(sp_m.model.named_parameters(),
+                                       ref_m.model.named_parameters(),
+                                       STEP_GRAD_REL)
+        rec = {"phase": "item8", "part": "b", "what": "moe sp world 1",
+               "backend": "nccl", "res": 240, "loss": sp_loss.item(),
+               "loss_single_device": ref_loss.item(), "launches": got,
+               "grad_worst_rel_diff": worst, "grad_worst_leaf": leaf}
+        emit(rec)
+        check(got == sp_want(3, bwd_f32=3), f"MoE SP launches {rec}")
+        check(abs(sp_loss.item() - ref_loss.item())
+              <= STEP_LOSS_RTOL * abs(ref_loss.item()), f"MoE SP loss {rec}")
+        check(ok, f"MoE SP gradients {rec}")
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
+def phase_cnn(frames3):
+    """(c) cnn1 and cnn2 on seeded random weights: fp32 and bf16 predict at
+    480px against the CPU, one train-mode fp32 step at 240px against the
+    CPU (loss, gradients, running stats), peak memory at batch 3.  No
+    kernel of ours runs here: the counts must stay 0."""
+    zero_counts()
+    for variant in ("cnn1", "cnn2"):
+        model = DINOSeg(backbone=variant, head="mlp", n_classes=7,
+                        precision="fp32", random_init=True, seed=3,
+                        freeze_backbone=False)
+        rec = {"phase": "item8", "part": "c", "backbone": variant,
+               "res": 480,
+               "tpu_kernel_counterparts": "none: dino_tpu's ResNet runs "
+                                          "XLA convs, the port cuDNN's"}
+        for prec in ("fp32", "bf16"):
+            cpu = cpu_twin(model, precision=prec)
+            got = model.predict_batch(frames3[:1], precision=prec)
+            want = cpu.predict_batch(frames3[:1])
+            logp = cpu.log_probs(torch.from_numpy(frames3[:1]))
+            card_logp = model.log_probs(torch.from_numpy(
+                frames3[:1]).cuda(), precision=prec).cpu()
+            n_diff, n_far = labels_agree(got, want, near_ties(
+                logp, CNN_MARGIN[prec]), 60)
+            rec[prec] = {"patches_differing_vs_cpu": n_diff,
+                         "of_them_away_from_near_ties": n_far,
+                         "logp_max_abs_diff": (card_logp - logp).abs().max(
+                         ).item(), "near_tie_margin": CNN_MARGIN[prec]}
+            check(n_far == 0, f"{variant} {prec} labels vs CPU {rec}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for prec in ("fp32", "bf16"):
+            model.predict_batch(frames3, precision=prec)
+        torch.cuda.synchronize()
+        rec["predict_batch3_peak_bytes_over_weights"] = (
+            torch.cuda.max_memory_allocated() - base)
+        # one train-mode fp32 step at 240px: BatchNorm on batch statistics,
+        # running stats written back.  The CPU step replays the card's ReLU
+        # choices (backbone and head): a unit at 0 within float32 rounding
+        # takes either side, and the train-mode BatchNorm backward carries
+        # such a flip far (the first card run of this check, without the
+        # replay, read 1.9e-2 of a cnn1 leaf's max; with it the leaves agree
+        # to ~1e-5, and tests/test_torch_port_resnet.py::
+        # test_cpu_step_gradients_against_float64 holds the CPU's float32
+        # step to float64 the same way)
+        cpu = cpu_twin(model, precision="fp32")
+        masks = []
+        with head_relu(record=masks):
+            loss, _ = train_run(model, False, "fp32", 240, 2, 1, 1,
+                                (0, 0, 0, 0), seed=4)
+        with head_relu(replay=masks) as flips:
+            phase_train_cpu_reference(model, cpu, loss.item(), seed=4,
+                                      phase=f"{variant}_train",
+                                      floor_rel=CNN_GRAD_FLOOR)
+        rec["relu_units_replayed_on_cpu"] = sum(flips)
+        card_bufs = dict(model.model.named_buffers())
+        cpu_bufs = dict(cpu.model.named_buffers())
+        stats_rel = 0.0
+        for k, var in cpu_bufs.items():
+            if not k.endswith("running_var"):
+                continue
+            k_mean = k[:-len("var")] + "mean"
+            mean, var = cpu_bufs[k_mean].double(), var.double()
+            d_var = (card_bufs[k].cpu().double() - var).abs() / var
+            d_mean = ((card_bufs[k_mean].cpu().double() - mean).abs()
+                      / torch.maximum(mean.abs(), var.sqrt()))
+            stats_rel = max(stats_rel, d_var.max().item(),
+                            d_mean.max().item())
+        rec["train_running_stats_worst_rel_diff"] = stats_rel
+        rec["launches"] = all_counts()
+        emit(rec)
+        check(stats_rel <= CNN_STATS_REL, f"{variant} running stats {rec}")
+        check(not any(rec["launches"].values()),
+              f"{variant} launched a kernel of ours {rec}")
+
+
+def phase_item8(model, frames3):
+    """Phase 11: (a) int8, (b) MoE, (c) cnn1/cnn2; returns the launch
+    counts of (a) and (b)."""
+    t0 = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        add_counts(total, phase_int8(model, frames3, tmp))
+    add_counts(total, phase_moe(model, frames3))
+    phase_cnn(frames3)
+    emit({"phase": "item8", "launches": total,
+          "seconds": time.perf_counter() - t0})
+    model.set_resolution(480)
+    return total
+
+
 KERNELS = {
     "flash_attn_fwd": dict(
         source="dino_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -2684,6 +3065,7 @@ def main():
     attn = phase_attention_maps(model, frame, frames3)
     fit = phase_fit(bare_fps)
     serve = phase_serve(model, frames3)
+    item8 = phase_item8(model, frames3)
     rows = phase_timing(block, per_call, bwd_per_step)
     rows.update(phase_timing_sp(launches))
     phase_fp32_latency(model, frame)
@@ -2711,6 +3093,15 @@ def main():
                                    - serve["flash_attn_fwd_f32"])
     launches["fused_ln_mlp"] += serve["fused_ln_mlp"]
     launches["flash_attn_fwd_chunked"] += serve["flash_attn_fwd_f32"]
+    # phase 11's launches (int8 and MoE; the cnn path runs none): bf16
+    # forwards in row 1, f32 forwards in row 4, the fused MLP's, both
+    # backward kernels' and the SP step's dynamic-bound kernels
+    launches["flash_attn_fwd"] += (item8["flash_attn_fwd"]
+                                   - item8["flash_attn_fwd_f32"])
+    launches["flash_attn_fwd_chunked"] += item8["flash_attn_fwd_f32"]
+    for name in ("fused_ln_mlp", "flash_attn_bwd", "flash_attn_bwd_f32",
+                 "flash_attn_fwd_dyn", "flash_attn_bwd_dyn"):
+        launches[name] += item8[name]
 
     emit({"kernels": [
         dict(name=name, route="cuda", launches=launches[name],

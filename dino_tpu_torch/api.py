@@ -14,7 +14,17 @@ The counterpart of ``dino_tpu/api.py``'s ``DINOSeg`` for inference:
     attention-map surface.
   * ``precision='bf16'`` runs matmuls in bf16 with f32 accumulation (LN,
     softmax and log_softmax in f32) and, on CUDA, the flash and fused-MLP
-    kernels; ``'fp32'`` runs true float32 (TF32 off inside the call).
+    kernels; ``'fp32'`` runs true float32 (TF32 off inside the call);
+    ``'int8'`` is bf16 with the blocks' qkv, proj, fc1 and fc2 as int8
+    products over a per-channel quantized copy of the weights
+    (``ops/quant.py``), rebuilt when the weights change, and no fused MLP.
+  * ``head='moe'``: E expert MLPs behind a float32 top-1 router
+    (``n_experts``; ``moe_dispatch`` 'dense' or capacity-bounded 'sparse'
+    with ``moe_capacity``), trained with a load-balance term.
+  * ``backbone='cnn1'`` / ``'cnn2'``: the reference's truncated ResNet-50
+    baselines (``models/resnet.py``), 512-dim patch features at H/8;
+    pretrained weights from a local file only (``pretrained_path`` or
+    ``$DINO_TPU_PRETRAINED_RESNET``).
   * checkpoints: ``dino_tpu`` ``.npz`` files and reference PL ``.ckpt``
     files load; ``save`` writes the ``.npz`` format.
   * ``fit`` trains on a VOC-style data folder (optional sim pretraining,
@@ -28,7 +38,9 @@ The counterpart of ``dino_tpu/api.py``'s ``DINOSeg`` for inference:
   * ``parallelism='sp'`` shards the token axis over the ranks of the default
     ``torch.distributed`` process group (ring attention,
     ``parallel/ring_attention.py``); every rank calls with the same frames
-    and gets the full maps.  ``'tp'`` is not ported yet.
+    and gets the full maps.  ``'tp'`` is not ported yet.  ``fit`` and
+    ``evaluate`` refuse a world of more than one process: data
+    parallelism over ranks is not ported (ROADMAP item 11.1).
 
 The model runs on the card by default: ``device=None`` means ``"cuda"`` and
 raises when there is none.  Pass ``device="cpu"`` to run on the CPU.
@@ -58,13 +70,16 @@ from dino_tpu_torch.data.dataset import (DuckieSegDataset, batched_loader,
                                          epoch_indices)
 from dino_tpu_torch.data.prefetch import prefetched
 from dino_tpu_torch.models.heads import head_apply, init_head
+from dino_tpu_torch.models.resnet import OUTPUT_DIM, build_backbone
 from dino_tpu_torch.models.vit import (ViTConfig, VisionTransformer,
                                        forward_mask, get_intermediate_layers,
                                        get_last_selfattention,
                                        init_vit_params)
 from dino_tpu_torch.ops.preprocess import normalize_imagenet, preprocess
+from dino_tpu_torch.ops.quant import quantize_vit
 from dino_tpu_torch.ops.upsample import kron_upsample
-from dino_tpu_torch.parallel.dist import is_dist_avail_and_initialized
+from dino_tpu_torch.parallel.dist import (get_world_size,
+                                          is_dist_avail_and_initialized)
 from dino_tpu_torch.parallel.ring_attention import vit_forward_seq_parallel
 from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.train.loop import (init_opt_state,
@@ -77,6 +92,7 @@ from dino_tpu_torch.train.metrics import (per_class_metrics_from_cm,
                                           segmentation_metrics)
 from dino_tpu_torch.utils.device import resolve_device
 from dino_tpu_torch.utils.logging import hbm_stats
+from dino_tpu_torch.utils.weights import weights_key
 
 _HPARAM_KEYS = ("data_path", "write_path", "class_names", "head", "n_blocks",
                 "batch_size", "lr", "optimizer", "freeze_backbone",
@@ -92,13 +108,23 @@ def _roadmap(what: str, item: int) -> str:
 
 
 def compute_dtype_of(precision: str) -> Optional[torch.dtype]:
-    """'bf16' -> torch.bfloat16, 'fp32' -> None (true float32); int8
-    raises, naming its ROADMAP item."""
-    if precision == "int8":
-        raise NotImplementedError(_roadmap("precision='int8'", 8))
-    if precision not in ("bf16", "fp32"):
+    """'bf16' and 'int8' -> torch.bfloat16 (int8 quantizes the fat
+    projections only; everything else runs bf16), 'fp32' -> None (true
+    float32)."""
+    if precision not in ("bf16", "fp32", "int8"):
         raise ValueError(f"unsupported precision {precision!r}")
-    return torch.bfloat16 if precision == "bf16" else None
+    return None if precision == "fp32" else torch.bfloat16
+
+
+def _refuse_world(what: str) -> None:
+    """Raise under a torch.distributed world of more than one process:
+    ``fit`` and ``evaluate`` do not shard by rank yet, and every rank would
+    train on all the data, evaluate every sample and write the same
+    checkpoint."""
+    if is_dist_avail_and_initialized() and get_world_size() > 1:
+        raise NotImplementedError(_roadmap(
+            f"{what} over a torch.distributed world of {get_world_size()} "
+            f"processes (data parallelism over ranks, item 11.1)", 11))
 
 
 def _pad_tail(arrs, b: int):
@@ -119,7 +145,8 @@ def _pad_tail(arrs, b: int):
 
 
 class SegModel(nn.Module):
-    """Backbone + head under the reference's ``dino.``/``clf.`` names."""
+    """Backbone (ViT or ResNet) + head under the reference's
+    ``dino.``/``clf.`` names."""
 
     def __init__(self, dino: VisionTransformer, clf: nn.Module):
         super().__init__()
@@ -129,7 +156,9 @@ class SegModel(nn.Module):
 
 def seg_log_probs(model: SegModel, cfg: ViTConfig, head: str,
                   imgs_u8: torch.Tensor, resolution: int,
-                  compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
+                  compute_dtype: Optional[torch.dtype],
+                  backbone: str = "vit", moe_dispatch: str = "dense",
+                  moe_capacity: float = 1.25) -> torch.Tensor:
     """The single-device predict path before argmax: uint8 (B, H, W, 3) ->
     resize to ``resolution`` -> normalize -> backbone -> head ->
     (B*N, n_classes) log-probs, on ``imgs_u8``'s device.  Float32
@@ -137,7 +166,9 @@ def seg_log_probs(model: SegModel, cfg: ViTConfig, head: str,
     with matmul_ctx(compute_dtype):
         x = preprocess(imgs_u8, resolution)
         return seg_forward(model.dino, model.clf, cfg, head, pre_normalized=x,
-                           compute_dtype=compute_dtype)
+                           compute_dtype=compute_dtype, backbone=backbone,
+                           moe_dispatch=moe_dispatch,
+                           moe_capacity=moe_capacity)
 
 
 def label_maps(log_probs: torch.Tensor, resolution: int,
@@ -171,11 +202,8 @@ class DINOSeg:
                  comet_logger=None, device=None):
         if logger is None and comet_logger is not None:
             logger = comet_logger  # the reference's keyword
-        if backbone != "vit":
-            raise NotImplementedError(_roadmap(f"backbone {backbone!r}", 8))
-        compute_dtype_of(precision)
-        if head == "moe":
-            raise NotImplementedError(_roadmap("head='moe'", 8))
+        if backbone not in ("vit", "cnn1", "cnn2"):
+            raise ValueError(f"unknown backbone {backbone!r}")
         if moe_dispatch not in ("dense", "sparse"):
             raise ValueError(f"unsupported moe_dispatch {moe_dispatch!r}")
         if isinstance(optimizer, type):  # a torch.optim class
@@ -194,10 +222,17 @@ class DINOSeg:
             n_experts=n_experts, moe_dispatch=moe_dispatch,
             moe_capacity=float(moe_capacity))
         self.__dict__.update(self.hparams)
+        self._check_precision(None)
         self.class_names = tuple(class_names) if class_names else None
         self.logger = logger
         self.cfg = ViTConfig(patch_size=8)  # ViT-S/8
-        self.compute_dtype = torch.bfloat16 if precision == "bf16" else None
+        self.compute_dtype = compute_dtype_of(precision)
+        self._head_kwargs = dict(moe_dispatch=moe_dispatch,
+                                 moe_capacity=float(moe_capacity))
+        # (weights_key of the float backbone, its int8 serving copy)
+        self._int8_cache = None
+        self.mlp_input_dim = (self.cfg.embed_dim if backbone == "vit"
+                              else OUTPUT_DIM)
         self.resolution = 480
         self.best_ck: Optional[str] = None
         if data_path is not None:
@@ -209,8 +244,12 @@ class DINOSeg:
             self.test_path_sim = os.path.join(data_path, "dt_sim_voc_test")
 
         gen = torch.Generator().manual_seed(seed)
-        vit = init_vit_params(VisionTransformer(self.cfg, depth=n_blocks), gen)
-        if not random_init:
+        if backbone != "vit":
+            vit = build_backbone(backbone, gen, random_init, pretrained_path)
+        else:
+            vit = init_vit_params(VisionTransformer(self.cfg, depth=n_blocks),
+                                  gen)
+        if not random_init and backbone == "vit":
             path = pretrained_path or os.environ.get("DINO_TPU_PRETRAINED")
             if path:
                 sd = load_backbone_state_dict(path)
@@ -221,7 +260,8 @@ class DINOSeg:
                 warnings.warn("pretrained DINO weights unavailable; using "
                               "random init (pass pretrained_path or set "
                               "$DINO_TPU_PRETRAINED)")
-        clf = init_head(head, n_classes, self.cfg.embed_dim, generator=gen)
+        clf = init_head(head, n_classes, self.mlp_input_dim, generator=gen,
+                        n_experts=n_experts)
         self.model = SegModel(vit, clf).to(self.device).eval()
         self.model.dino.requires_grad_(not freeze_backbone)
 
@@ -234,8 +274,34 @@ class DINOSeg:
             raise ValueError("Resolution should be a multiple of 8.")
         self.resolution = resolution
 
+    def _check_precision(self, precision: Optional[str]) -> str:
+        precision = precision or self.precision
+        compute_dtype_of(precision)
+        if precision == "int8" and self.backbone != "vit":
+            raise ValueError("precision='int8' is only supported for the "
+                             "ViT backbone")
+        return precision
+
     def _compute_dtype_for(self, precision: Optional[str]):
-        return compute_dtype_of(precision or self.precision)
+        return compute_dtype_of(self._check_precision(precision))
+
+    def _serving_model(self, precision: Optional[str] = None) -> SegModel:
+        """The model the predict paths run: the float masters, or in int8 a
+        copy whose blocks hold per-channel int8 codes (the other tensors
+        shared), rebuilt when the backbone's weights change (a
+        ``load_state_dict``, a ``torch.optim`` step as in ``fit``; see
+        ``utils/weights.py``)."""
+        if self._check_precision(precision) != "int8":
+            return self.model
+        key = weights_key(self.model.dino)
+        if self._int8_cache is None or self._int8_cache[0] != key:
+            self._int8_cache = (key, SegModel(quantize_vit(self.model.dino),
+                                              self.model.clf))
+        return self._int8_cache[1]
+
+    def _need_vit(self, what: str) -> None:
+        if self.backbone != "vit":
+            raise ValueError(f"{what} requires the ViT backbone")
 
     @torch.no_grad()
     def forward(self, images_u8) -> torch.Tensor:
@@ -245,14 +311,20 @@ class DINOSeg:
         with matmul_ctx(cdt):
             return seg_forward(self.model.dino, self.model.clf, self.cfg,
                                self.head, pre_normalized=normalize_imagenet(x),
-                               compute_dtype=cdt)
+                               compute_dtype=cdt, backbone=self.backbone,
+                               **self._head_kwargs)
 
-    @staticmethod
-    def _check_parallelism(parallelism: Optional[str]) -> None:
+    def _check_parallelism(self, parallelism: Optional[str],
+                           precision: Optional[str] = None) -> None:
+        if parallelism not in (None, "sp", "tp"):
+            raise ValueError(f"unsupported parallelism {parallelism!r}")
+        if parallelism is not None:
+            self._need_vit(f"parallelism={parallelism!r}")
+            if self._check_precision(precision) == "int8":
+                raise ValueError(f"parallelism={parallelism!r} is not "
+                                 f"supported with int8 params")
         if parallelism == "tp":
             raise NotImplementedError(_roadmap("parallelism='tp'", 11))
-        if parallelism not in (None, "sp"):
-            raise ValueError(f"unsupported parallelism {parallelism!r}")
         if parallelism == "sp" and not is_dist_avail_and_initialized():
             raise RuntimeError(
                 "parallelism='sp' shards the tokens over the default "
@@ -268,18 +340,20 @@ class DINOSeg:
         log-probs at the current resolution (the predict path before argmax).
         ``parallelism='sp'``: the backbone runs sequence-parallel over the
         default process group, and every rank gets every row."""
-        self._check_parallelism(parallelism)
+        self._check_parallelism(parallelism, precision)
         cdt = self._compute_dtype_for(precision)
         if parallelism != "sp":
-            return seg_log_probs(self.model, self.cfg, self.head, imgs_u8,
-                                 self.resolution, cdt)
+            return seg_log_probs(self._serving_model(precision), self.cfg,
+                                 self.head, imgs_u8, self.resolution, cdt,
+                                 self.backbone, **self._head_kwargs)
         with matmul_ctx(cdt):
             x = preprocess(imgs_u8, self.resolution)
             if cdt is not None:
                 x = x.to(cdt)
             tokens = vit_forward_seq_parallel(self.model.dino, x, self.cfg)
             feats = tokens[:, 1:, :].reshape(-1, self.cfg.embed_dim)
-            return head_apply(self.head, self.model.clf, feats)
+            return head_apply(self.head, self.model.clf, feats,
+                              **self._head_kwargs)
 
     @torch.no_grad()
     def predict_device(self, imgs_u8: torch.Tensor,
@@ -308,7 +382,7 @@ class DINOSeg:
         """Batched inference: uint8 (B, H, W, 3) -> (B, 480, 480) int32.
         ``parallelism='sp'``: sequence-parallel over the default process
         group; every rank passes the same frames and gets every map."""
-        self._check_parallelism(parallelism)
+        self._check_parallelism(parallelism, precision)
         if isinstance(images, (list, tuple)):
             images = np.stack([np.asarray(im) for im in images])
         imgs = torch.from_numpy(self._as_uint8(images)).to(self.device)
@@ -330,7 +404,7 @@ class DINOSeg:
         cut on yield, so the stream runs one batch shape.  The options are
         checked here, before the first frame is read.
         """
-        self._check_parallelism(parallelism)
+        self._check_parallelism(parallelism, precision)
         self._compute_dtype_for(precision)
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
@@ -411,6 +485,7 @@ class DINOSeg:
         (bf16 values widened exactly).  Runs in the model's compute dtype:
         on the card a bf16 model takes the bf16 flash forward and the fused
         MLP."""
+        self._need_vit("get_intermediate_layers")
         cdt = self._compute_dtype_for(None)
         with matmul_ctx(cdt):
             x = preprocess(self._frames(images_u8), self.resolution)
@@ -425,6 +500,7 @@ class DINOSeg:
         image (H, W, 3) uint8, cls_mask (n_masks, res/8, res/8) binary ->
         (n_masks, D) float32.  Float32 with TF32 off whatever the model's
         precision, as in ``dino_tpu``; O(n_masks * N) memory."""
+        self._need_vit("forward_mask")
         with matmul_ctx(None):
             x = preprocess(self._frames(image_u8)[None], self.resolution)
             out = forward_mask(self.model.dino, x, self._mask(cls_mask),
@@ -440,6 +516,7 @@ class DINOSeg:
         memory (the row the attention-map consumers read; the full matrix
         is ~5 GB per frame at 960px).  A ``cls_mask`` gives the masked CLS
         rows of the first frame, (1, nh, n_masks, N)."""
+        self._need_vit("get_last_selfattention")
         with matmul_ctx(None):
             x = preprocess(self._frames(images_u8), self.resolution)
             mask = None if cls_mask is None else self._mask(cls_mask)
@@ -530,21 +607,27 @@ class DINOSeg:
         """Metrics of the current weights over one VOC-style split
         directory (``JPEGImages/`` + ``SegmentationClass/*.npy``):
         ``{prefix}_acc/_F1/_iou/_support``, and with ``per_class`` a
-        ``{prefix}_per_class`` list of rows."""
+        ``{prefix}_per_class`` list of rows.  Refuses a torch.distributed
+        world of more than one process (not sharded by rank yet)."""
+        _refuse_world("evaluate")
         res = resolution or self.train_resolution
         if res % 8 != 0:
             raise ValueError("Resolution should be a multiple of 8.")
         ds = self._make_dataset(data_path, False, res)
         if len(ds) == 0:
             raise FileNotFoundError(f"no images under {data_path}")
-        eval_step = make_eval_step(self.cfg, self.head, self.n_classes,
-                                   compute_dtype=self.compute_dtype)
-        cm = self._run_eval(eval_step, ds, batch_size or self.batch_size)
+        cm = self._run_eval(self._eval_step(), ds,
+                            batch_size or self.batch_size)
         metrics = segmentation_metrics(cm, prefix=prefix)
         if per_class:
             metrics[f"{prefix}_per_class"] = per_class_metrics_from_cm(
                 cm, self.class_names)
         return metrics
+
+    def _eval_step(self):
+        return make_eval_step(self.cfg, self.head, self.n_classes,
+                              compute_dtype=self.compute_dtype,
+                              backbone=self.backbone, **self._head_kwargs)
 
     def _run_eval(self, eval_step, dataset, batch_size: int) -> np.ndarray:
         """The confusion matrix of ``dataset`` (ragged last batch kept), read
@@ -562,11 +645,13 @@ class DINOSeg:
 
     def _cache_plan(self, cache_features, n_train: int, n_val: int):
         """(cache_train, cache_val) for the frozen-feature cache: on with a
-        frozen backbone; the train cache also needs un-augmented frames.  A
-        budget over both caches' device bytes
+        frozen ViT backbone (a BatchNorm backbone's features change as its
+        running stats train); the train cache also needs un-augmented
+        frames.  A budget over both caches' device bytes
         ($DINO_TPU_FEATURE_CACHE_BYTES, default 2 GB) drops the train cache
         first, then the val cache."""
-        if cache_features is False or not self.freeze_backbone:
+        if (cache_features is False or not self.freeze_backbone
+                or self.backbone != "vit"):
             return False, False
         n_patches = (self.train_resolution // 8) ** 2
         cap = int(os.environ.get("DINO_TPU_FEATURE_CACHE_BYTES",
@@ -623,7 +708,8 @@ class DINOSeg:
         the model's device, with the affine warp and the grid labels on the
         host); the drawn parameters are the same on every rung.  A ragged
         last batch is padded and masked.  ``parallelism`` ('sp', 'pp'),
-        ``zero`` and ``fsdp`` are not ported."""
+        ``zero`` and ``fsdp`` are not ported, nor is a torch.distributed
+        world of more than one process (``fit`` raises under one)."""
         if parallelism not in (None, "sp", "pp"):
             raise ValueError(f"unsupported train parallelism {parallelism!r}")
         if parallelism is not None:
@@ -631,6 +717,7 @@ class DINOSeg:
                 f"fit(parallelism={parallelism!r})", 11))
         if zero or fsdp:
             raise NotImplementedError(_roadmap("fit(zero=..., fsdp=...)", 11))
+        _refuse_world("fit")
         if accum_steps < 1 or self.batch_size % accum_steps:
             raise ValueError(f"batch_size {self.batch_size} must divide "
                              f"by accum_steps {accum_steps}")
@@ -658,9 +745,7 @@ class DINOSeg:
         params, _ = load_checkpoint(ck_path)
         self.model.load_state_dict(from_jax_params(params["vit"],
                                                    params["head"]))
-        eval_step = make_eval_step(self.cfg, self.head, self.n_classes,
-                                   compute_dtype=self.compute_dtype)
-        test_cm = self._run_eval(eval_step, self._make_dataset(
+        test_cm = self._run_eval(self._eval_step(), self._make_dataset(
             self.test_path, False, self.train_resolution), self.batch_size)
         metrics = segmentation_metrics(test_cm, prefix="test")
         self._log(metrics, step=-1)
@@ -693,12 +778,12 @@ class DINOSeg:
                 val_feats, val_labels = self._precompute_features(
                     val_ds, feature_fn)
                 cached_eval_step = make_cached_head_eval_step(
-                    self.head, self.n_classes)
+                    self.head, self.n_classes, **self._head_kwargs)
             if cache_train:
                 train_feats, train_labels = self._precompute_features(
                     train_ds, feature_fn)
                 cached_train_step = make_cached_head_train_step(
-                    self.head, self.n_classes, optimizer)
+                    self.head, self.n_classes, optimizer, **self._head_kwargs)
             cache_bytes = sum(f.numel() * f.element_size() for f in
                               (train_feats, val_feats) if f is not None)
             print(f"feature cache: train={cache_train} val={cache_val} "
@@ -708,9 +793,10 @@ class DINOSeg:
             train_step = make_train_step(self.cfg, self.head, self.n_classes,
                                          optimizer, self.freeze_backbone,
                                          compute_dtype=self.compute_dtype,
-                                         accum_steps=accum_steps)
-        eval_step = make_eval_step(self.cfg, self.head, self.n_classes,
-                                   compute_dtype=self.compute_dtype)
+                                         accum_steps=accum_steps,
+                                         backbone=self.backbone,
+                                         **self._head_kwargs)
+        eval_step = self._eval_step()
 
         # saves go through the writer thread; the copy to the host stays
         # synchronous (the loop updates the tensors in place)

@@ -8,6 +8,13 @@ layout and are mapped here:
   * Linear kernel (in, out)          -> weight (out, in)   [transpose]
   * patchify kernel (3*P*P, D)       -> Conv2d weight (D, 3, P, P)
   * LayerNorm scale/bias             -> weight/bias
+  * MoE expert kernels (E, in, out)  -> weight (E, in, out) [as is]
+  * ResNet conv kernel HWIO          -> weight OIHW
+  * BatchNorm scale/bias/mean/var    -> weight/bias/running_mean/running_var
+  * cnn2 upconv kernel (in, out)     -> ConvTranspose2d weight (in, out, 1, 1)
+
+A backbone pytree with ``layers`` is a cnn1/cnn2 ResNet (its variant: a third
+stage), else a ViT.
 """
 from __future__ import annotations
 
@@ -36,11 +43,83 @@ def _ln(sd: Dict[str, torch.Tensor], p: str, ln: Params) -> None:
     sd[p + ".bias"] = _f32(ln["bias"])
 
 
+def head_state_dict(head_params: Params) -> Dict[str, torch.Tensor]:
+    """A JAX head pytree -> the head module's state_dict (no ``clf.``
+    prefix): dense layers transposed, a MoE head's stacked experts (the
+    expert axis first) kept as they are."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in sorted(head_params):
+        lin = head_params[name]
+        if np.ndim(lin["kernel"]) == 3:
+            sd[name + ".weight"] = _f32(lin["kernel"])
+            sd[name + ".bias"] = _f32(lin["bias"])
+        else:
+            _linear(sd, name, lin)
+    return sd
+
+
+def head_params_of(sd: Dict[str, Any]) -> Params:
+    """Inverse of :func:`head_state_dict`."""
+    out: Params = {}
+    for k in sd:
+        if k.endswith(".weight"):
+            name = k[:-len(".weight")]
+            w = np.asarray(sd[k], np.float32)
+            out[name] = {"kernel": w if w.ndim == 3
+                         else np.ascontiguousarray(w.T),
+                         "bias": np.asarray(sd[name + ".bias"], np.float32)}
+    return out
+
+
+def _bn(sd: Dict[str, torch.Tensor], p: str, bn: Params) -> None:
+    sd[p + ".weight"] = _f32(bn["scale"])
+    sd[p + ".bias"] = _f32(bn["bias"])
+    sd[p + ".running_mean"] = _f32(bn["mean"])
+    sd[p + ".running_var"] = _f32(bn["var"])
+    sd[p + ".num_batches_tracked"] = torch.tensor(0)
+
+
+def _conv(a) -> torch.Tensor:
+    return _f32(np.asarray(a, np.float32).transpose(3, 2, 0, 1))  # HWIO->OIHW
+
+
+def is_resnet_params(vit_params: Params) -> bool:
+    return "layers" in vit_params
+
+
+def _from_jax_resnet(sd: Dict[str, torch.Tensor], p: Params) -> None:
+    sd["dino.conv1.weight"] = _conv(p["conv1"])
+    _bn(sd, "dino.bn1", p["bn1"])
+    for si, stage in enumerate(p["layers"]):
+        for bi, blk in enumerate(stage):
+            b = f"dino.layer{si + 1}.{bi}."
+            for i in (1, 2, 3):
+                sd[b + f"conv{i}.weight"] = _conv(blk[f"conv{i}"])
+                _bn(sd, b + f"bn{i}", blk[f"bn{i}"])
+            if "downsample" in blk:
+                sd[b + "downsample.0.weight"] = _conv(
+                    blk["downsample"]["conv"])
+                _bn(sd, b + "downsample.1", blk["downsample"]["bn"])
+    if "upconv" in p:
+        k = np.asarray(p["upconv"]["kernel"], np.float32)
+        sd["dino.upconv.weight"] = _f32(k[:, :, None, None])
+        sd["dino.upconv.bias"] = _f32(p["upconv"]["bias"])
+        sd["dino.conv.weight"] = _conv(p["conv"]["kernel"])
+        sd["dino.conv.bias"] = _f32(p["conv"]["bias"])
+
+
 def from_jax_params(vit_params: Params, head_params: Optional[Params] = None
                     ) -> Dict[str, torch.Tensor]:
-    """JAX ViT (and head) pytrees of numpy arrays -> a state_dict with the
-    reference's ``dino.``/``clf.`` keys (float32 tensors)."""
+    """JAX backbone (ViT or ResNet) and head pytrees of numpy arrays -> a
+    state_dict with the reference's ``dino.``/``clf.`` keys (float32
+    tensors)."""
     sd: Dict[str, torch.Tensor] = {}
+    if head_params is not None:
+        sd.update({"clf." + k: v
+                   for k, v in head_state_dict(head_params).items()})
+    if is_resnet_params(vit_params):
+        _from_jax_resnet(sd, vit_params)
+        return sd
     sd["dino.cls_token"] = _f32(vit_params["cls_token"])
     sd["dino.pos_embed"] = _f32(vit_params["pos_embed"])
     k = np.asarray(vit_params["patch_embed"]["kernel"], np.float32)
@@ -60,16 +139,14 @@ def from_jax_params(vit_params: Params, head_params: Optional[Params] = None
         _linear(sd, b + "mlp.fc1", blk["mlp"]["fc1"])
         _linear(sd, b + "mlp.fc2", blk["mlp"]["fc2"])
     _ln(sd, "dino.norm", vit_params["norm"])
-    if head_params is not None:
-        for name in sorted(head_params):
-            _linear(sd, "clf." + name, head_params[name])
     return sd
 
 
 def to_jax_params(sd: Dict[str, torch.Tensor]) -> Tuple[Params, Params]:
     """Inverse of :func:`from_jax_params`: (vit_params, head_params) as
     numpy pytrees in the ``dino_tpu`` layout."""
-    g = {k: v.detach().cpu().numpy().astype(np.float32) for k, v in sd.items()}
+    g = {k: v.detach().cpu().numpy().astype(np.float32) for k, v in sd.items()
+         if not k.endswith("num_batches_tracked")}
 
     def lin(p):
         return {"kernel": np.ascontiguousarray(g[p + ".weight"].T),
@@ -77,6 +154,10 @@ def to_jax_params(sd: Dict[str, torch.Tensor]) -> Tuple[Params, Params]:
 
     def ln(p):
         return {"scale": g[p + ".weight"], "bias": g[p + ".bias"]}
+
+    head = head_params_of(strip_prefix(g, "clf."))
+    if "dino.conv1.weight" in g:
+        return _to_jax_resnet(g), head
 
     conv = g["dino.patch_embed.proj.weight"]
     vit = {"cls_token": g["dino.cls_token"], "pos_embed": g["dino.pos_embed"],
@@ -93,9 +174,42 @@ def to_jax_params(sd: Dict[str, torch.Tensor]) -> Tuple[Params, Params]:
             "norm2": ln(b + "norm2"),
             "mlp": {"fc1": lin(b + "mlp.fc1"), "fc2": lin(b + "mlp.fc2")}})
         i += 1
-    head = {k.split(".")[1]: lin("clf." + k.split(".")[1])
-            for k in g if k.startswith("clf.") and k.endswith(".weight")}
     return vit, head
+
+
+def _to_jax_resnet(g: Dict[str, np.ndarray]) -> Params:
+    def conv(k):
+        return np.ascontiguousarray(g[k].transpose(2, 3, 1, 0))  # OIHW->HWIO
+
+    def bn(p):
+        return {"scale": g[p + ".weight"], "bias": g[p + ".bias"],
+                "mean": g[p + ".running_mean"], "var": g[p + ".running_var"]}
+
+    out: Params = {"conv1": conv("dino.conv1.weight"), "bn1": bn("dino.bn1"),
+                   "layers": []}
+    si = 1
+    while f"dino.layer{si}.0.conv1.weight" in g:
+        stage, bi = [], 0
+        while f"dino.layer{si}.{bi}.conv1.weight" in g:
+            b = f"dino.layer{si}.{bi}."
+            blk = {}
+            for i in (1, 2, 3):
+                blk[f"conv{i}"] = conv(b + f"conv{i}.weight")
+                blk[f"bn{i}"] = bn(b + f"bn{i}")
+            if b + "downsample.0.weight" in g:
+                blk["downsample"] = {"conv": conv(b + "downsample.0.weight"),
+                                     "bn": bn(b + "downsample.1")}
+            stage.append(blk)
+            bi += 1
+        out["layers"].append(stage)
+        si += 1
+    if "dino.upconv.weight" in g:
+        out["upconv"] = {"kernel": np.ascontiguousarray(
+            g["dino.upconv.weight"][:, :, 0, 0]),
+            "bias": g["dino.upconv.bias"]}
+        out["conv"] = {"kernel": conv("dino.conv.weight"),
+                       "bias": g["dino.conv.bias"]}
+    return out
 
 
 def strip_prefix(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:

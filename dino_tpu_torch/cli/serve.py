@@ -52,7 +52,6 @@ from typing import Optional
 
 import numpy as np
 
-from dino_tpu_torch.api import _roadmap
 from dino_tpu_torch.data import native_loader
 from dino_tpu_torch.serving import SUFFIX
 
@@ -337,8 +336,6 @@ def make_server(path: str, host: str = "127.0.0.1", port: int = 8080,
     directory the kernels' library and the native loader build into
     (``$DINO_TPU_TORCH_BUILD_DIR``); /healthz reports its built libraries
     before and after startup."""
-    if precision == "int8":
-        raise NotImplementedError(_roadmap("precision='int8'", 8))
     if compile_cache:
         os.makedirs(compile_cache, exist_ok=True)
         os.environ["DINO_TPU_TORCH_BUILD_DIR"] = compile_cache
@@ -472,7 +469,9 @@ def main(argv=None) -> None:
     p.add_argument("--resolution", type=int, default=480)
     p.add_argument("--precision", default=None,
                    choices=["bf16", "fp32", "int8"],
-                   help="int8 is not ported (ROADMAP item 8)")
+                   help="serving precision of a checkpoint (default: its "
+                        "own); int8 quantizes the ViT blocks' dense "
+                        "layers")
     p.add_argument("--max_batch", type=int, default=1,
                    help="dynamic batching: coalesce up to N concurrent "
                         "requests into one program call; 1 = single-flight")

@@ -15,6 +15,10 @@ modules, one per function of ``dino_tpu/models/vit.py``:
     autograd the flash backward); the bf16 path on CUDA with no gradient
     runs the fused LN+MLP+residual kernel, and under autograd or in float32
     the MLP is a composition with true erf;
+  * a model whose blocks hold int8 codes (``ops/quant.py:quantize_vit``)
+    runs qkv, proj, fc1 and fc2 as int8 products, and its MLP as LN -> int8
+    fc1 -> true-erf GELU -> int8 fc2 -> residual, never the fused kernel,
+    as ``dino_tpu`` does;
   * ``vit_forward(..., remat=True)`` recomputes each block in the backward
     pass (``torch.utils.checkpoint``), trading FLOPs for activation memory;
   * ``get_last_selfattention`` (full, masked or CLS-row only),
@@ -39,6 +43,7 @@ from dino_tpu_torch.ops.attention import (attention_probs,
                                           multi_head_attention)
 from dino_tpu_torch.ops.bicubic import bicubic_resize_matrix
 from dino_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual
+from dino_tpu_torch.ops.quant import QuantLinear, int8_dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,6 +314,17 @@ def mlp_residual(norm: nn.LayerNorm, mlp: Mlp, x: torch.Tensor, eps: float,
     return x + h
 
 
+def mlp_residual_int8(norm: nn.LayerNorm, mlp: Mlp, x: torch.Tensor,
+                      eps: float) -> torch.Tensor:
+    """x + fc2(gelu(fc1(LN(x)))) over int8 fc1/fc2, at ``dino_tpu``'s
+    rounding points: each int8 product rounds to x's dtype, the GELU (true
+    erf, in float32) rounds once more, and the residual adds in x's
+    dtype."""
+    h = int8_dense(mlp.fc1, layer_norm(norm, x, eps))
+    h = F.gelu(h.float(), approximate="none").to(x.dtype)
+    return x + int8_dense(mlp.fc2, h)
+
+
 def _needs_grad(blk: Block, x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and (
         x.requires_grad or any(p.requires_grad for p in blk.parameters()))
@@ -330,7 +346,8 @@ def block_apply(blk: Block, x: torch.Tensor, cfg: ViTConfig,
     The fused MLP kernel runs only on the bf16 CUDA path when no gradient
     is needed and no regularization is on (the kernel has no backward);
     otherwise the MLP is the differentiable composition
-    :func:`mlp_residual`.
+    :func:`mlp_residual`.  A block in int8 serving form runs
+    :func:`mlp_residual_int8`.
     """
     train = generator is not None and (cfg.drop_rate > 0
                                        or cfg.attn_drop_rate > 0
@@ -350,6 +367,8 @@ def block_apply(blk: Block, x: torch.Tensor, cfg: ViTConfig,
     if train and drop_path_rate > 0:
         y = drop_path(y, drop_path_rate, gen)
     x = x + y
+    if isinstance(blk.mlp.fc1, QuantLinear):
+        return mlp_residual_int8(blk.norm2, blk.mlp, x, cfg.ln_eps), probs
     if (not train and x.is_cuda and x.dtype == torch.bfloat16
             and not _needs_grad(blk, x)):
         return fused_ln_mlp_residual(blk.norm2, blk.mlp, x, cfg.ln_eps), probs

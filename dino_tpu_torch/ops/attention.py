@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from dino_tpu_torch.models.heads import dense
+from dino_tpu_torch.ops.quant import QuantLinear, int8_dense
 from dino_tpu_torch.ops import _build
 
 _HEAD_DIM = 64
@@ -402,14 +403,23 @@ def attention_with_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, probs
 
 
+def _project(lin, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(lin, QuantLinear):
+        return int8_dense(lin, x)
+    return dense(x, lin.weight, lin.bias)
+
+
 def multi_head_attention(attn, x: torch.Tensor, *, num_heads: int,
                          scale: float, cls_mask: Optional[torch.Tensor] = None,
                          need_probs: bool = False, attn_drop=None):
     """MHSA: qkv projection -> attention -> out projection; returns (out,
     probs or None).
 
-    ``attn`` holds ``qkv`` and ``proj`` (nn.Linear, reference names); both
-    are :func:`~dino_tpu_torch.models.heads.dense` layers.  q, k, v come out
+    ``attn`` holds ``qkv`` and ``proj`` (nn.Linear, reference names):
+    :func:`~dino_tpu_torch.models.heads.dense` layers, or int8 products
+    where they hold int8 codes (``ops.quant.QuantLinear``), as
+    ``dino_tpu``'s ``dense`` takes ``int8_dense`` for a layer with
+    ``kernel_i8``.  q, k, v come out
     head-major, (B, nh, N, hd) each and contiguous.  Unless probabilities
     are asked for (``need_probs``), a ``cls_mask`` is given or ``attn_drop``
     (rate, generator) drops them, the attention is :func:`flash_attention`;
@@ -418,7 +428,7 @@ def multi_head_attention(attn, x: torch.Tensor, *, num_heads: int,
     """
     b, n, c = x.shape
     hd = c // num_heads
-    qkv = dense(x, attn.qkv.weight, attn.qkv.bias)
+    qkv = _project(attn.qkv, x)
     qkv = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
     qkv = qkv.contiguous()
     probs = None
@@ -428,4 +438,4 @@ def multi_head_attention(attn, x: torch.Tensor, *, num_heads: int,
     else:
         out = flash_attention(qkv[0], qkv[1], qkv[2], scale)
     out = out.permute(0, 2, 1, 3).reshape(out.shape[0], out.shape[2], c)
-    return dense(out, attn.proj.weight, attn.proj.bias), probs
+    return _project(attn.proj, out), probs

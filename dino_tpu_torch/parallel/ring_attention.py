@@ -17,8 +17,10 @@ second ring with the global lse and D = rowsum(dO * O), one
 summed locally and the dK/dV accumulators travelling with their K/V shard.
 Every rank runs the same collectives in the same order, in the forward and
 in autograd's backward.  ``make_sp_train_step`` builds the unfrozen
-finetune step on top; SP x TP and ZeRO need ``parallel/tp.py`` and
-``parallel/mesh.py`` (ROADMAP 'Modules to port' item 11).
+finetune step on top, with the mlp, linear or (dense) MoE head; the MoE
+balance term sums its 2E+1 statistics over the group, not the features.
+SP x TP and ZeRO need ``parallel/tp.py`` and ``parallel/mesh.py`` (ROADMAP
+'Modules to port' item 11).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from dino_tpu_torch.models.heads import affine, head_apply
+from dino_tpu_torch.models.heads import affine, head_apply, moe_balance_stats
 from dino_tpu_torch.models.vit import (Block, ViTConfig, VisionTransformer,
                                        layer_norm, prepare_tokens)
 from dino_tpu_torch.ops.attention import (flash_attention_bwd_dyn,
@@ -36,6 +38,7 @@ from dino_tpu_torch.ops.preprocess import normalize_imagenet
 from dino_tpu_torch.parallel.dist import (all_gather_seq, all_reduce_sum_,
                                           get_rank, get_world_size, ring_shift)
 from dino_tpu_torch.precision import matmul_ctx
+from dino_tpu_torch.train.loop import MOE_BALANCE_COEF
 from dino_tpu_torch.train.metrics import confusion_matrix
 
 _NEG_INF = -1e30
@@ -207,10 +210,42 @@ def make_sp_tp_train_step(*args, **kwargs):
 # Sequence-parallel training (finetune through the ring)
 # ---------------------------------------------------------------------------
 
+class GroupSum(torch.autograd.Function):
+    """Sum over the group, whose transpose is the same sum: the forward and
+    the backward each all-reduce (the JAX ``psum`` under ``grad``)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone()
+        all_reduce_sum_([out], group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        all_reduce_sum_([g], ctx.group)
+        return g, None
+
+
+def moe_balance_sp(head, feats: torch.Tensor, w: torch.Tensor, group
+                   ) -> torch.Tensor:
+    """The MoE balance term of the whole (token-sharded) batch from this
+    rank's features: the 2E+1 statistics summed over the group (the
+    weights zero CLS, the padding and masked samples), E * <a/W, b/W>."""
+    a_l, b_l, w_l = moe_balance_stats(head, feats, weights=w)
+    n_exp = a_l.shape[0]
+    stats = GroupSum.apply(torch.cat([a_l, b_l, w_l[None]]), group)
+    a_g, b_g = stats[:n_exp], stats[n_exp:2 * n_exp]
+    w_g = stats[2 * n_exp].clamp_min(1.0)
+    return n_exp * torch.dot(a_g / w_g, b_g / w_g)
+
+
 def make_sp_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
                        optimizer, group=None,
                        compute_dtype: Optional[torch.dtype] = None,
-                       zero: bool = False) -> Callable:
+                       zero: bool = False, moe_dispatch: str = "dense",
+                       moe_capacity: float = 1.25) -> Callable:
     """Unfrozen finetune step with the token axis sharded over ``group``.
 
     ``step(vit, head, opt_state, images_u8, labels, mask=None) -> (loss,
@@ -224,11 +259,21 @@ def make_sp_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
     gradient: the embedding work is replicated, and each rank's gradients
     cover only its own token terms, so the sum is the replicated step's
     gradient.  No rank ever holds the whole sequence's activations.
+
+    The MoE head's balance term comes from its statistics summed over the
+    group (:func:`moe_balance_sp`); each rank adds 0.01 * balance / d, as
+    the group sum that follows multiplies it by d, and the statistics'
+    all-reduce sums their cotangents in the backward, so the summed
+    gradient is the replicated step's.  Sparse dispatch would claim
+    capacity per token shard, not per batch, and raises.
     """
-    if head_type == "moe":
-        raise NotImplementedError(_roadmap("the MoE head", 8))
-    if head_type not in ("mlp", "linear"):
+    if head_type not in ("mlp", "linear", "moe"):
         raise ValueError(f"unknown head for SP training: {head_type!r}")
+    if head_type == "moe" and moe_dispatch == "sparse":
+        raise ValueError("SP training with moe_dispatch='sparse' changes "
+                         "the capacity semantics (slots allocate per token "
+                         "shard, not per batch, so different patches drop): "
+                         "use the dense dispatch")
     if zero:
         raise NotImplementedError(_roadmap("ZeRO under SP", 11))
 
@@ -259,9 +304,14 @@ def make_sp_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
             for blk in vit.blocks:
                 tok = _block_seq_parallel(blk, tok, cfg, n_real, group)
             tok = layer_norm(vit.norm, tok, cfg.ln_eps)
-            logp = head_apply(head_type, head, tok.reshape(-1, tok.shape[-1]))
+            feats = tok.reshape(-1, tok.shape[-1])
+            logp = head_apply(head_type, head, feats, moe_dispatch,
+                              moe_capacity)
             picked = logp.gather(1, y_sh[:, None])[:, 0]
             loss = -(picked * w_sh).sum() / denom
+            if head_type == "moe":
+                loss = loss + (MOE_BALANCE_COEF
+                               * moe_balance_sp(head, feats, w_sh, group) / d)
             loss.backward()
             cm = confusion_matrix(logp.detach().argmax(dim=-1), y_sh,
                                   n_classes, w_sh)

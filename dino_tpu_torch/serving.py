@@ -4,7 +4,7 @@ The counterpart of ``dino_tpu/serving.py``.  ``dino_tpu`` runs each predict
 shape as one compiled device program and serializes that program, weights
 baked in, with ``jax.export``.  The port's counterpart is
 :class:`PredictProgram`, the predict path for one (batch, height, width,
-precision, resolution):
+precision, resolution), for any backbone and head (int8: ViT only):
 
   * on the card it is a ``torch.cuda.CUDAGraph`` of the predict body
     (resize -> normalize -> patchify -> blocks with the flash forward and,
@@ -14,7 +14,9 @@ precision, resolution):
     the body is captured once and replayed per call, so the host enqueues
     one graph instead of every op;
   * it reads its own copy of the weights, the dense layers' weights in the
-    compute dtype (the bf16 copies the eager path casts on every call), and
+    compute dtype (the bf16 copies the eager path casts on every call; in
+    int8 the blocks' int8 codes and scales, quantized from the float
+    masters as the eager int8 path's copy), and
     rebuilds the copy and recaptures when the model's parameters change
     (another tensor, an in-place write such as ``load_state_dict``, or a
     ``torch.optim`` step, as in ``fit``: :func:`weights_key`);
@@ -48,14 +50,15 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
-from torch.optim.optimizer import register_optimizer_step_post_hook
-from torch.utils.weak import WeakIdKeyDictionary
 
 from dino_tpu_torch.api import (SegModel, _roadmap, compute_dtype_of,
                                 label_maps, seg_log_probs)
 from dino_tpu_torch.models.heads import init_head
+from dino_tpu_torch.models.resnet import OUTPUT_DIM, ResNetBackbone
+from dino_tpu_torch.ops.quant import QuantLinear, quantize_vit
 from dino_tpu_torch.models.vit import ViTConfig, VisionTransformer
 from dino_tpu_torch.utils.device import resolve_device
+from dino_tpu_torch.utils.weights import watch_optimizer_steps, weights_key
 
 MAGIC = "dino_tpu_torch_serving_v1"
 SUFFIX = ".dtts"
@@ -64,51 +67,31 @@ SUFFIX = ".dtts"
 # would each see the other's allocations and launches
 _CAPTURE_LOCK = threading.Lock()
 
-# optimizer steps per parameter, counted by a global optimizer hook: the
-# fused optimizers write parameters in place without bumping their version
-# counters (seen with fused Adam on the CPU and the card)
-_OPTIMIZER_STEPS = WeakIdKeyDictionary()
-_HOOK_LOCK = threading.Lock()
-_hook = None
+def _quantized(vit: nn.Module) -> bool:
+    return any(isinstance(m, QuantLinear) for m in vit.modules())
 
 
-def _count_optimizer_steps(optimizer, args, kwargs) -> None:
-    for group in optimizer.param_groups:
-        for p in group["params"]:
-            _OPTIMIZER_STEPS[p] = _OPTIMIZER_STEPS.get(p, 0) + 1
-
-
-def _watch_optimizer_steps() -> None:
-    global _hook
-    with _HOOK_LOCK:
-        if _hook is None:
-            _hook = register_optimizer_step_post_hook(_count_optimizer_steps)
-
-
-def serving_copy(model: SegModel,
-                 compute_dtype: Optional[torch.dtype]) -> SegModel:
-    """A frozen copy of ``model`` with its dense layers' weights, the patch
-    embedding's and the CLS token in ``compute_dtype`` (bf16), the values
-    the predict path casts the float32 masters to on every call; biases,
-    LayerNorms and the pos-embed stay float32.  float32
-    (``compute_dtype=None``) copies as is."""
+def serving_copy(model: SegModel, precision: str) -> SegModel:
+    """A frozen copy of ``model`` with its dense layers' and convolutions'
+    weights and the CLS token in the compute dtype (bf16 for 'bf16' and
+    'int8'), the values the predict path casts the float32 masters to on
+    every call; biases, LayerNorms, BatchNorms, the pos-embed and the MoE
+    router (a float32 route) stay float32.  'int8' first quantizes the
+    ViT's blocks from the float copy (a model already in int8 form keeps
+    its codes).  'fp32' copies as is."""
+    compute_dtype = compute_dtype_of(precision)
     out = copy.deepcopy(model).requires_grad_(False)
+    if precision == "int8" and not _quantized(out.dino):
+        out.dino = quantize_vit(out.dino)
     if compute_dtype is not None:
-        for mod in out.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d)):
+        for name, mod in out.named_modules():
+            if (isinstance(mod, (nn.Linear, nn.Conv2d))
+                    and not name.endswith("router")):
                 mod.weight.data = mod.weight.data.to(compute_dtype)
-        out.dino.cls_token.data = out.dino.cls_token.data.to(compute_dtype)
+        if hasattr(out.dino, "cls_token"):
+            out.dino.cls_token.data = out.dino.cls_token.data.to(
+                compute_dtype)
     return out
-
-
-def weights_key(model: nn.Module) -> tuple:
-    """Identity, storage, in-place version and optimizer steps of every
-    parameter: it changes when a parameter is replaced, written in place
-    (``load_state_dict``, ``copy_`` under ``no_grad``) or stepped by a
-    ``torch.optim`` optimizer (once a program watches the steps).  A write
-    through ``p.data`` bumps no counter and is not seen."""
-    return tuple((id(p), p.data_ptr(), p._version,
-                  _OPTIMIZER_STEPS.get(p, 0)) for p in model.parameters())
 
 
 class PredictProgram:
@@ -119,8 +102,14 @@ class PredictProgram:
 
     def __init__(self, model: SegModel, cfg: ViTConfig, head: str,
                  n_classes: int, batch_size: int, in_shape: Sequence[int],
-                 resolution: int, precision: str, device: torch.device):
+                 resolution: int, precision: str, device: torch.device,
+                 backbone: str = "vit", moe_dispatch: str = "dense",
+                 moe_capacity: float = 1.25):
+        self.precision = precision
         self.compute_dtype = compute_dtype_of(precision)
+        self.backbone = backbone
+        self.head_kwargs = dict(moe_dispatch=moe_dispatch,
+                                moe_capacity=moe_capacity)
         self.masters = model
         self.cfg, self.head, self.n_classes = cfg, head, n_classes
         self.input_shape = (batch_size, int(in_shape[0]), int(in_shape[1]), 3)
@@ -132,14 +121,15 @@ class PredictProgram:
         self._weights = self._graph = None
         self._static_in = self._static_out = None
         self._host_in = self._host_out = None
-        _watch_optimizer_steps()
+        watch_optimizer_steps()
         with self._lock:
             self._build()
 
     def _forward(self, imgs_u8: torch.Tensor) -> torch.Tensor:
         return label_maps(seg_log_probs(self._weights, self.cfg, self.head,
                                         imgs_u8, self.resolution,
-                                        self.compute_dtype),
+                                        self.compute_dtype, self.backbone,
+                                        **self.head_kwargs),
                           self.resolution, self.n_classes)
 
     def stale(self) -> bool:
@@ -149,7 +139,7 @@ class PredictProgram:
     def _build(self) -> None:
         self._graph = self._static_out = self._weights = None
         key = weights_key(self.masters)
-        self._weights = serving_copy(self.masters, self.compute_dtype)
+        self._weights = serving_copy(self.masters, self.precision)
         if self.device.type == "cuda":
             self._capture()
         self._key = key
@@ -207,7 +197,8 @@ def predict_program(model, batch_size: int, in_shape: Sequence[int],
     resolution, on its device (captured here on the card)."""
     return PredictProgram(model.model, model.cfg, model.head, model.n_classes,
                           batch_size, in_shape, model.resolution,
-                          precision or model.precision, model.device)
+                          model._check_precision(precision), model.device,
+                          model.backbone, **model._head_kwargs)
 
 
 def export_predict(model, path: str, batch_size: int = 1,
@@ -222,7 +213,8 @@ def export_predict(model, path: str, batch_size: int = 1,
     The artifact runs with this package (for its kernels) and nothing else
     of the model's: see the module docstring for why it is not StableHLO.
     One card only: ``n_devices > 1`` and ``parallelism='sp'`` are not
-    ported, and neither are int8 and the MoE head."""
+    ported.  Any backbone and head; int8 (ViT only) stores the blocks'
+    int8 codes and scales."""
     if parallelism not in (None, "sp"):
         raise ValueError(f"unsupported export parallelism {parallelism!r}")
     if parallelism == "sp":
@@ -234,8 +226,7 @@ def export_predict(model, path: str, batch_size: int = 1,
     if platforms is not None and list(platforms) != ["cuda"]:
         raise ValueError(f"the port exports for platforms ['cuda'], got "
                          f"{list(platforms)}")
-    precision = precision or model.precision
-    compute_dtype = compute_dtype_of(precision)
+    precision = model._check_precision(precision)
     res = model.resolution
     out_size = res // 8
     # the kron factor floors, as dino_tpu's (480x480 at 240/480/960px)
@@ -253,13 +244,17 @@ def export_predict(model, path: str, batch_size: int = 1,
         "platforms": ["cuda"],
         "nr_devices": 1,
     }
-    weights = serving_copy(model.model, compute_dtype)
+    weights = serving_copy(model.model, precision)
     torch.save({
         "magic": MAGIC,
         "contract": contract,
         "config": {"vit": dataclasses.asdict(model.cfg),
-                   "n_blocks": len(model.model.dino.blocks),
-                   "head": model.head, "n_classes": model.n_classes},
+                   "n_blocks": (len(model.model.dino.blocks)
+                                if model.backbone == "vit" else 0),
+                   "head": model.head, "n_classes": model.n_classes,
+                   "backbone": model.backbone, "n_experts": model.n_experts,
+                   "moe_dispatch": model.moe_dispatch,
+                   "moe_capacity": model.moe_capacity},
         "state_dict": {k: v.detach().cpu()
                        for k, v in weights.state_dict().items()},
     }, path)
@@ -287,16 +282,25 @@ class ExportedPredictor:
         conf = art["config"]
         self.n_classes = conf["n_classes"]
         cfg = ViTConfig(**conf["vit"])
-        model = SegModel(VisionTransformer(cfg, depth=conf["n_blocks"]),
-                         init_head(conf["head"], self.n_classes,
-                                   cfg.embed_dim))
+        backbone = conf.get("backbone", "vit")
+        precision = self.contract["precision"]
+        if backbone == "vit":
+            dino = VisionTransformer(cfg, depth=conf["n_blocks"])
+            if precision == "int8":  # the int8 form's buffers
+                dino = quantize_vit(dino)
+            width = cfg.embed_dim
+        else:
+            dino, width = ResNetBackbone(backbone), OUTPUT_DIM
+        model = SegModel(dino, init_head(conf["head"], self.n_classes, width,
+                                         n_experts=conf.get("n_experts", 4)))
         model.load_state_dict(art["state_dict"], strict=True)
         model = model.to(self.device).eval().requires_grad_(False)
         shape = self.contract["input"]["shape"]
         self.program = PredictProgram(
             model, cfg, conf["head"], self.n_classes, shape[0], shape[1:3],
-            self.contract["resolution"], self.contract["precision"],
-            self.device)
+            self.contract["resolution"], precision, self.device, backbone,
+            conf.get("moe_dispatch", "dense"),
+            conf.get("moe_capacity", 1.25))
 
     def __call__(self, frames) -> np.ndarray:
         return self.program(frames)

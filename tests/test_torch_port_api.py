@@ -246,10 +246,14 @@ def test_wrappers_raise_off_cpu_instead_of_taking_plain():
             4, 384, dtype=torch.bfloat16, device="meta"), 1e-6)
 
 
-@pytest.mark.parametrize("kwargs", [dict(precision="int8"), dict(head="moe"),
-                                    dict(backbone="cnn1")])
+@pytest.mark.parametrize("kwargs", [
+    dict(precision="int8", backbone="cnn1"), dict(head="moe",
+                                                  moe_dispatch="topk"),
+    dict(backbone="cnn3")])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """int8, the MoE head and the cnn backbones are ported (ROADMAP item
+    8); what dino_tpu refuses of them the port refuses too."""
+    with pytest.raises(ValueError):
         DINOSeg(random_init=True, device="cpu", **kwargs)
 
 

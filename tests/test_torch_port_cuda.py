@@ -559,3 +559,62 @@ def test_server_request_on_card(cuda, tmp_path):
         assert chip_smoke.http_json(port, "/healthz")["device"] == "cuda"
     finally:
         chip_smoke.stop_server(server)
+
+
+# ---------------------------------------------------------------------------
+# int8 serving, the MoE head, the cnn backbones
+# ---------------------------------------------------------------------------
+
+def test_int8_codes_and_dense_on_card_equal_the_cpu(cuda):
+    """Weight and token codes and scales, and int8_dense's bf16 and float32
+    outputs at the fc1 shape of a 480px batch of 3: the card's bits are the
+    CPU's."""
+    from dino_tpu_torch.ops.quant import (int8_dense, quantize_dense,
+                                          quantize_tokens)
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(1536, 384, generator=g) * 0.02
+    b = torch.randn(1536, generator=g) * 0.01
+    q_cpu, q_card = quantize_dense(w, b), quantize_dense(w.to(cuda),
+                                                         b.to(cuda))
+    assert torch.equal(q_card.weight_i8.cpu(), q_cpu.weight_i8)
+    assert torch.equal(q_card.w_scale.cpu(), q_cpu.w_scale)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(10803, 384, generator=g).to(dtype)
+        codes, scale = quantize_tokens(x.to(cuda))
+        ref_codes, ref_scale = quantize_tokens(x)
+        assert torch.equal(codes.cpu(), ref_codes)
+        assert torch.equal(scale.cpu(), ref_scale)
+        assert torch.equal(int8_dense(q_card, x.to(cuda)).cpu(),
+                           int8_dense(q_cpu, x))
+
+
+def test_moe_sparse_combine_same_bits_twice(cuda):
+    """The sparse dispatch's index_add_ combine on the card: every real row
+    takes one addend, so two calls give the same bits, and with capacity
+    >= E the dense dispatch's."""
+    head = heads.init_head("moe", 7, 384, torch.Generator().manual_seed(0),
+                           n_experts=4).to(cuda)
+    x = torch.randn(10800, 384, generator=torch.Generator().manual_seed(1)
+                    ).to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        a = heads.moe_head_apply_sparse(head, x, 4.0)
+        b = heads.moe_head_apply_sparse(head, x, 4.0)
+        dense = heads.moe_head_apply(head, x)
+        dropped = heads.moe_head_apply_sparse(head, x, 1.0)
+    assert torch.equal(a, b)
+    assert torch.equal(a.argmax(-1), dense.argmax(-1))
+    assert torch.isfinite(dropped).all()
+
+
+def test_cnn1_fp32_forward_on_card_matches_the_cpu(cuda):
+    from dino_tpu_torch.models import resnet
+    from dino_tpu_torch.precision import true_fp32
+    model = resnet.init_resnet_params(resnet.ResNetBackbone("cnn1"),
+                                      torch.Generator().manual_seed(0))
+    x = torch.randn(2, 240, 240, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref = resnet.resnet_features(model, x)
+        with true_fp32():
+            got = resnet.resnet_features(model.to(cuda), x.to(cuda)).cpu()
+    assert got.shape == ref.shape == (2 * 30 * 30, 512)
+    assert (got - ref).abs().max() <= chip_smoke.CNN_F32_REL * ref.abs().max()

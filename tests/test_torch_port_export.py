@@ -126,8 +126,8 @@ def test_export_cli(model, tmp_path):
 
 
 def test_export_unported_modes_raise(model, tmp_path):
-    """dino_tpu's DP, SP and MoE/int8 exports: DP and SP name ROADMAP item
-    11, int8 and the MoE head item 8."""
+    """dino_tpu's DP and SP exports name ROADMAP item 11; int8 and the MoE
+    head are ported (item 8), and int8 of a cnn backbone is refused."""
     path = str(tmp_path / "x.dtts")
     with pytest.raises(NotImplementedError, match="item 11"):
         export_predict(model, path, batch_size=8, in_shape=(100, 120),
@@ -138,12 +138,14 @@ def test_export_unported_modes_raise(model, tmp_path):
     with pytest.raises(ValueError, match="parallelism"):
         export_predict(model, path, batch_size=1, in_shape=(100, 120),
                        parallelism="pp")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        export_predict(model, path, batch_size=1, in_shape=(100, 120),
+    cnn = DINOSeg(backbone="cnn1", head="moe", n_classes=4, random_init=True,
+                  device="cpu")
+    with pytest.raises(ValueError, match="int8"):
+        export_predict(cnn, path, batch_size=1, in_shape=(100, 120),
                        precision="int8")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        DINOSeg(head="moe", n_blocks=1, n_classes=4, random_init=True,
-                device="cpu")
+    with pytest.raises(ValueError, match="precision"):
+        export_predict(model, path, batch_size=1, in_shape=(100, 120),
+                       precision="int4")
     with pytest.raises(ValueError, match="platforms"):
         export_predict(model, path, platforms=["tpu"])
     assert not os.path.exists(path)

@@ -342,16 +342,18 @@ def test_sp_predict_needs_a_process_group():
         pm.predict_batch(frame[None], parallelism="pp")
 
 
-@pytest.mark.parametrize("call, match", [
-    (lambda: tring.make_sp_train_step(ViTConfig(), "moe", 7, None),
-     "item 8"),
+@pytest.mark.parametrize("call, exc, match", [
+    (lambda: tring.make_sp_train_step(ViTConfig(), "moe", 7, None,
+                                      moe_dispatch="sparse"),
+     ValueError, "sparse"),
     (lambda: tring.make_sp_train_step(ViTConfig(), "mlp", 7, None,
-                                      zero=True), "item 11"),
-    (lambda: tring.vit_forward_sp_tp(), "item 11"),
-    (lambda: tring.make_sp_tp_train_step(), "item 11"),
+                                      zero=True), NotImplementedError,
+     "item 11"),
+    (lambda: tring.vit_forward_sp_tp(), NotImplementedError, "item 11"),
+    (lambda: tring.make_sp_tp_train_step(), NotImplementedError, "item 11"),
 ])
-def test_unported_sp_options_raise(call, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_sp_options_raise(call, exc, match):
+    with pytest.raises(exc, match=match):
         call()
 
 

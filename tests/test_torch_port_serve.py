@@ -350,9 +350,9 @@ def test_serve_refuses_unported_and_card_less_starts(ckpt, tmp_path):
     shlo = str(tmp_path / "p.shlo")
     with pytest.raises(ValueError, match="StableHLO.*dino_tpu_torch.cli.export"):
         make_server(shlo, port=free_port(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="unsupported precision"):
         make_server(ckpt, port=free_port(), resolution=RES,
-                    precision="int8", device="cpu")
+                    precision="int4", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_server(ckpt, port=free_port(), resolution=RES)

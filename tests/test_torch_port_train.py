@@ -232,8 +232,9 @@ def test_eval_step_and_feature_fn_match_jax(setup):
 
 
 @pytest.mark.parametrize("kwargs,exc,match", [
-    (dict(head_type="moe"), NotImplementedError, "item 8"),
-    (dict(backbone="cnn1"), NotImplementedError, "item 8"),
+    (dict(head_type="moe", moe_dispatch="sparse", accum_steps=2),
+     ValueError, "sparse"),
+    (dict(backbone="cnn1", accum_steps=2), ValueError, "BatchNorm"),
     (dict(zero_mesh=object()), NotImplementedError, "item 11"),
     (dict(fsdp_mesh=object()), NotImplementedError, "item 11"),
     (dict(accum_steps=0), ValueError, "accum_steps"),
