@@ -99,7 +99,20 @@ each printing JSON lines:
      the CPU, one train-mode fp32 step at 240px against the CPU (loss,
      gradients, running stats), the peak memory of batch 3; no kernel of
      ours may launch there (dino_tpu's ResNet runs no Pallas kernel);
-  12. timing (CUDA events around bursts of back-to-back calls, median of
+  12. pretrain (DINO self-supervised pretraining): (a) the flash forward
+     and backward (kernels 1 and 3), f32 and bf16, at the pretrain step's
+     shapes (B*nh, N) = (768, 145) and (192, 785) against their plain
+     versions, the same bits twice, timed as CUDA-graph replays beside
+     SDPA, with the bound; (b) one f32 step at depth 2, batch 2 (ViT-S/8,
+     DinoConfig's widths) on the card against the port's CPU step from the
+     same weights and crops: loss, clipped gradients, post-step student,
+     teacher and centre; (c) the full-width step (ViT-S/8, 12 blocks,
+     out_dim 65,536, 2 x 224 + 8 x 96 px views, batch 16) in f32 as the
+     CLI runs it (one warm-up, 3 timed steps and one profiled: host and
+     busy ms, idle share, images/s, peak memory) and in bf16, each step's
+     launches exact; (d) the pretrain_dino CLI on the card at depth 1 on
+     JPEGs written here, and DINOSeg(pretrained_path=<its npz>).predict;
+  13. timing (CUDA events around bursts of back-to-back calls, median of
      the bursts; the bf16 kernels and the f32 backward also replayed from a
      CUDA graph, which takes the host out) at the 480px predict shapes
      (batch 3; the fused MLP also at one frame), the train bench's
@@ -112,7 +125,7 @@ each printing JSON lines:
      forward's and backward's on their route: three TF32 passes); the fp32
      predict latency at 480 and 960px; then the cli/bench line
      (predict and train);
-  13. the per-kernel summary line, the card line, and the final status
+  14. the per-kernel summary line, the card line, and the final status
       line.
 
 ``python3 chip_smoke.py --sp-world W`` (W cards) runs only phase 6's rank
@@ -168,6 +181,10 @@ from dino_tpu_torch.parallel import dist as pdist
 from dino_tpu_torch.parallel.ring_attention import make_sp_train_step
 from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.serving import predict_program
+from dino_tpu_torch.models.vit import vit_small
+from dino_tpu_torch.train.dino_pretrain import (DinoConfig, init_dino_params,
+                                                make_dino_optimizer,
+                                                make_dino_train_step)
 from dino_tpu_torch.train.loop import (init_opt_state, make_optimizer,
                                        make_train_step)
 from dino_tpu_torch.utils.frames import process_attentions
@@ -849,7 +866,7 @@ def phase_timing(block, per_call, bwd_per_step):
     rows["flash_attn_fwd"] = {
         **kernel_times(lambda: flash_attention(q, k, v, SCALE)),
         "plain_ms": median_ms(lambda: attention_plain(q, k, v, SCALE)),
-        "library_ms": median_ms(sdpa),
+        **library_times(sdpa),
         "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
         "launches_per_predict": per_call["bf16"][0]}
     rows["flash_attn_fwd"]["library_kernels"] = bench.device_breakdown(
@@ -891,62 +908,72 @@ def phase_timing(block, per_call, bwd_per_step):
             rows["fused_ln_mlp"][f"ms_m{m_one}"] = graph_ms(
                 lambda: fused_ln_mlp_residual(block.norm2, block.mlp, x1,
                                               EPS))
-    q, k, v, do, out, lse = bwd_inputs(12, 3601, torch.bfloat16, seed=8)
-    b, nh, n, hd = q.shape
-    flops = 10 * n * n * hd * b * nh
-    # q, k, v, dO in; lse, D in (f32); dq, dk, dv out (f32)
-    nbytes = (4 * q.element_size() + 2 * 4 / hd + 3 * 4) * b * nh * n * hd
-    bnd, by = bound_ms(flops, nbytes, torch.bfloat16)
-    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(qs, ks, vs, scale=SCALE)
-    rows["flash_attn_bwd"] = {
-        **kernel_times(lambda: flash_attention_bwd(q, k, v, out, lse, do,
-                                                   SCALE)),
-        "plain_ms": median_ms(lambda: attention_bwd_plain(q, k, v, out, lse,
-                                                          do, SCALE)),
-        "library_ms": median_ms(lambda: sdpa.backward(do, retain_graph=True)),
-        "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
-        "launches_per_train_step": bwd_per_step}
+    rows["flash_attn_bwd"] = dict(bwd_row(12, 3601, torch.bfloat16, seed=8),
+                                  launches_per_train_step=bwd_per_step)
     for name, row in rows.items():
         shape = ("480px train microbatch (2 x 6 heads)"
                  if name == "flash_attn_bwd" else "480px batch 3")
         emit(dict({"phase": "timing", "kernel": name, "shape": shape,
                    "kernel_ms": row["ms"]}, **row))
-    rows["flash_attn_bwd_f32"] = dict(f32_backward_row(901),
-                                      launches_per_train_step=3)
-    emit(dict({"phase": "timing", "kernel": "flash_attn_bwd_f32",
-               "kernel_ms": rows["flash_attn_bwd_f32"]["ms"]},
-              **rows["flash_attn_bwd_f32"]))
-    row = f32_backward_row(3601)
-    emit(dict({"phase": "timing", "kernel": "flash_attn_bwd_f32",
-               "kernel_ms": row["ms"]}, **row))
+    for n in (901, 3601):
+        row = dict(bwd_row(12, n, torch.float32, seed=13),
+                   shape=f"fp32 train step (2 x 6 heads, N = {n})")
+        emit(dict({"phase": "timing", "kernel": "flash_attn_bwd_f32",
+                   "kernel_ms": row["ms"]}, **row))
+        if n == 901:
+            rows["flash_attn_bwd_f32"] = dict(row, launches_per_train_step=3)
     return rows
 
 
-def f32_backward_row(n):
-    """The f32 backward (flash_bwd_f32, three TF32 passes per product) at
-    the fp32 train step's shape at N tokens (batch 2 x 6 heads; 240px is
-    N = 901): kernel (graph replay and eager), plain version and SDPA's f32
-    backward on the same inputs in the same call; bound by three TF32
-    passes, and on the f32 CUDA cores beside it."""
-    q, k, v, do, out, lse = bwd_inputs(12, n, torch.float32, seed=13)
+def library_times(fn):
+    """{"library_ms", "library_ms_eager"}: one library call's time as
+    kernel_times takes a kernel's, a graph replay and an eager burst."""
+    t = kernel_times(fn)
+    return {"library_ms": t["ms"], "library_ms_eager": t["ms_eager"]}
+
+
+def sdpa_bwd_times(q, k, v, do):
+    """SDPA's backward on these inputs, timed as kernel_times times the
+    kernel's: the graph replay of its forward and backward together less
+    that of its forward (autograd runs a backward on its forward's stream,
+    so a backward alone cannot be captured), and an eager burst of the
+    backward alone."""
+    def fwd():
+        # leaves made in the call: their gradient nodes then belong to the
+        # capturing stream, not to the stream the graph's inputs came from
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        return leaves, F.scaled_dot_product_attention(*leaves, scale=SCALE)
+
+    def fwd_bwd():
+        leaves, out = fwd()
+        return torch.autograd.grad(out, leaves, do)
+    out = fwd()[1]
+    return {"library_ms": graph_ms(fwd_bwd) - graph_ms(fwd),
+            "library_ms_eager": median_ms(
+                lambda: out.backward(do, retain_graph=True))}
+
+
+def bwd_row(bh, n, dtype, seed):
+    """The flash backward at (B*nh, N) in ``dtype`` (f32: flash_bwd_f32,
+    three TF32 passes per product): kernel (graph replay and eager), plain
+    version and SDPA's backward on the same inputs; the bound (f32 by three
+    TF32 passes, and on the f32 CUDA cores beside it)."""
+    q, k, v, do, out, lse = bwd_inputs(bh, n, dtype, seed)
     b, nh, _, hd = q.shape
     flops = 10 * n * n * hd * b * nh
-    # q, k, v, dO in; lse, D in; dq, dk, dv out; all f32
-    nbytes = (4 * 4 + 2 * 4 / hd + 3 * 4) * b * nh * n * hd
-    bnd, by = bound_ms(flops, nbytes, "tf32")
-    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(qs, ks, vs, scale=SCALE)
-    return {**kernel_times(lambda: flash_attention_bwd(q, k, v, out, lse, do,
-                                                       SCALE)),
-            "plain_ms": median_ms(lambda: attention_bwd_plain(
-                q, k, v, out, lse, do, SCALE)),
-            "library_ms": median_ms(lambda: sdpa.backward(
-                do, retain_graph=True)),
-            "bound_ms": bnd, "bound_by": by,
-            "bound_f32_cores_ms": bound_ms(flops, nbytes, torch.float32)[0],
-            "flops": flops, "bytes": nbytes,
-            "shape": f"fp32 train step (2 x 6 heads, N = {n})"}
+    # q, k, v, dO in; lse, D in (f32); dq, dk, dv out (f32)
+    nbytes = (4 * q.element_size() + 2 * 4 / hd + 3 * 4) * b * nh * n * hd
+    f32 = dtype == torch.float32
+    bnd, by = bound_ms(flops, nbytes, "tf32" if f32 else dtype)
+    row = {**kernel_times(lambda: flash_attention_bwd(q, k, v, out, lse, do,
+                                                      SCALE)),
+           "plain_ms": median_ms(lambda: attention_bwd_plain(
+               q, k, v, out, lse, do, SCALE)),
+           **sdpa_bwd_times(q, k, v, do),
+           "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes}
+    if f32:
+        row["bound_f32_cores_ms"] = bound_ms(flops, nbytes, torch.float32)[0]
+    return row
 
 
 def sp_shapes(n_real, d):
@@ -1450,7 +1477,7 @@ def phase_timing_sp(launches):
             q, k, v, SCALE, valid)),
         "plain_ms": median_ms(lambda: attention_dyn_plain(q, k, v, SCALE,
                                                           valid)),
-        "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+        **library_times(lambda: F.scaled_dot_product_attention(
             q, *kv, scale=SCALE)),
         "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
         "shape": shape}
@@ -1463,14 +1490,12 @@ def phase_timing_sp(launches):
     nbytes = b * nh * ((2 * n_local + 2 * valid) * hd * el
                        + 2 * n_local * 4 + 3 * n_local * hd * 4)
     bnd, by = bound_ms(flops, nbytes, torch.bfloat16)
-    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, *kv))
-    sdpa = F.scaled_dot_product_attention(qs, ks, vs, scale=SCALE)
     rows["flash_attn_bwd_dyn"] = {
         **kernel_times(lambda: flash_attention_bwd_dyn(
             q, do, lse, dsum, k, v, SCALE, valid)),
         "plain_ms": median_ms(lambda: attention_bwd_dyn_plain(
             q, do, lse, dsum, k, v, SCALE, valid)),
-        "library_ms": median_ms(lambda: sdpa.backward(do, retain_graph=True)),
+        **sdpa_bwd_times(q, *kv, do),
         "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes,
         "shape": shape}
     for name, row in rows.items():
@@ -2962,6 +2987,310 @@ def phase_item8(model, frames3):
     model.set_resolution(480)
     return total
 
+# ---------------------------------------------------------------------------
+# Phase 12: DINO pretraining (the student/teacher multi-crop step, the CLI)
+# ---------------------------------------------------------------------------
+
+# (B*nh, N) of the pretrain step's attention at batch 16, ViT-S/8 (6 heads):
+# the local views (8 x 16 crops of 96 px, 145 tokens) and the global views
+# (2 x 16 crops of 224 px, 785 tokens); both leave a 17-row tail past the
+# kernels' 128-row blocks
+PRETRAIN_ATTN = ((768, 145), (192, 785))
+PRETRAIN_BATCH = 16
+PRETRAIN_LR, PRETRAIN_WD = 5e-4, 0.04  # the CLI's base lr and first wd
+PRETRAIN_TT, PRETRAIN_M = 0.04, 0.996  # the CLI's teacher temp, momentum
+# card step vs the port's CPU step, same weights and crops (depth 2, batch
+# 2, DinoConfig's widths): the loss and each clipped gradient leaf against
+# its largest |g| as the fp32 train step (STEP_LOSS_RTOL, STEP_GRAD_REL);
+# the post-step student as tests/test_torch_port_dino_step.py holds the
+# port to dino_tpu: Adam turns a gradient within rounding of 0 into a step
+# of up to lr, so no entry past 2.1 lr and at most PRETRAIN_FLIP_SHARE of
+# them past 0.02 lr; the teacher by (1 - m) of that, the centre absolutely
+PRETRAIN_FLIP_SHARE = 1e-3
+PRETRAIN_CENTER_ATOL = 1e-6
+PRETRAIN_DEPTH = 12
+
+
+def pretrain_want(depth, bf16=False):
+    """The launches of one pretrain step at ``depth`` blocks: per block the
+    student's forward for each resolution group (2 groups) and the
+    teacher's (the global group only), 3 forwards, and the student's 2
+    backwards; in bf16 on the bf16 kernels, with the teacher's MLP (no
+    gradient) on the fused kernel."""
+    fwd, bwd = 3 * depth, 2 * depth
+    return {"flash_attn_fwd": fwd, "flash_attn_fwd_f32": 0 if bf16 else fwd,
+            "fused_ln_mlp": depth if bf16 else 0,
+            "flash_attn_bwd": bwd if bf16 else 0,
+            "flash_attn_bwd_f32": 0 if bf16 else bwd,
+            "flash_attn_fwd_dyn": 0, "flash_attn_bwd_dyn": 0}
+
+
+def pretrain_attention_rows():
+    """(a) kernels 1 and 3 at the pretrain shapes, f32 and bf16, against
+    their plain versions (each run twice, the same bits), timed beside
+    SDPA's forward and backward as kernel_times times them, with the
+    bound; then the fused MLP at the bf16 step's teacher rows."""
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        route = "tf32" if dtype == torch.float32 else dtype
+        name = str(dtype).split(".")[1]
+        atol, rtol = FLASH_TOL[dtype]
+        for bh, n in PRETRAIN_ATTN:
+            q, k, v, do, out, lse = bwd_inputs(bh, n, dtype, seed=bh + n)
+            again, lse2 = flash_attention(q, k, v, SCALE, return_lse=True)
+            ref, ref_lse = attention_plain(q, k, v, SCALE)
+            f_err = (out.float() - ref.float()).abs()
+            f_ok = bool((f_err <= atol + rtol * ref.float().abs()).all())
+            got = flash_attention_bwd(q, k, v, out, lse, do, SCALE)
+            got2 = flash_attention_bwd(q, k, v, out, lse, do, SCALE)
+            torch.cuda.synchronize()
+            b_errs, b_ok = bwd_err(got, attention_bwd_plain(
+                q, k, v, out, lse, do, SCALE), dtype)
+            b, nh, _, hd = q.shape
+            f_bound = bound_ms(4 * n * n * hd * b * nh,
+                               4 * b * nh * n * hd * q.element_size(), route)
+            fwd = kernel_times(lambda: flash_attention(q, k, v, SCALE))
+            sdpa = library_times(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=SCALE))
+            rec = {"phase": "pretrain", "part": "a", "dtype": name, "bh": bh,
+                   "n": n,
+                   "fwd_max_abs_err": f_err.max().item(),
+                   "fwd_lse_max_abs_err": (lse - ref_lse).abs().max().item(),
+                   "bwd_max_abs_err": max(b_errs),
+                   "same_bits_twice": bool(
+                       torch.equal(out, again) and torch.equal(lse, lse2)
+                       and all(torch.equal(x, y) for x, y in zip(got, got2))),
+                   "fwd_tol": [atol, rtol, LSE_ATOL],
+                   "bwd_tol": (list(BWD_F32_TOL) if dtype == torch.float32
+                               else f"{BWD_BF16_REL} x max|ref| per tensor"),
+                   "fwd_kernel_ms": fwd["ms"],
+                   "fwd_kernel_ms_eager": fwd["ms_eager"],
+                   "fwd_sdpa_ms": sdpa["library_ms"],
+                   "fwd_sdpa_ms_eager": sdpa["library_ms_eager"],
+                   "fwd_bound_ms": f_bound[0], "fwd_bound_by": f_bound[1]}
+            del q, k, v, do, out, lse, again, lse2, ref, f_err, got, got2
+            bwd = bwd_row(bh, n, dtype, seed=bh + n)
+            rec.update(bwd_kernel_ms=bwd["ms"], bwd_kernel_ms_eager=bwd[
+                "ms_eager"], bwd_sdpa_ms=bwd["library_ms"],
+                bwd_sdpa_ms_eager=bwd["library_ms_eager"],
+                bwd_bound_ms=bwd["bound_ms"], bwd_bound_by=bwd["bound_by"])
+            emit(rec)
+            rows.append(rec)
+            check(f_ok, f"pretrain-shape flash forward {rec}")
+            check(rec["fwd_lse_max_abs_err"] <= LSE_ATOL,
+                  f"pretrain-shape flash lse {rec}")
+            check(b_ok, f"pretrain-shape flash backward {rec}")
+            check(rec["same_bits_twice"], f"pretrain-shape bits {rec}")
+    # the bf16 step's teacher (no gradient) runs the fused MLP on every
+    # global token of the batch: 2 views x PRETRAIN_BATCH x 785 rows, with
+    # a pretrain teacher block's float32 masters
+    _, teacher = init_dino_params(torch.Generator().manual_seed(14),
+                                  vit_small(patch_size=8), DinoConfig(),
+                                  depth=1)
+    block = teacher.vit.blocks[0]
+    check_mlp(block.norm2, block.mlp, 2 * PRETRAIN_BATCH * 785,
+              torch.Generator(device="cuda").manual_seed(17))
+    return rows
+
+
+def pretrain_crops(seed, batch, cfg):
+    rs = np.random.RandomState(seed)
+    g = rs.randint(0, 256, (2, batch, cfg.global_size, cfg.global_size, 3))
+    l = rs.randint(0, 256, (cfg.n_local_crops, batch, cfg.local_size,
+                            cfg.local_size, 3))
+    return (torch.from_numpy(g.astype(np.uint8)),
+            torch.from_numpy(l.astype(np.uint8)))
+
+
+def pretrain_step_vs_cpu():
+    """(b) one f32 step on the card against the port's CPU step from the
+    same weights and crops: loss, clipped gradients, post-step student,
+    teacher and centre.  Returns the card step's launch counts."""
+    vit_cfg, cfg = vit_small(patch_size=8), DinoConfig()
+    student, teacher = init_dino_params(torch.Generator().manual_seed(12),
+                                        vit_cfg, cfg, depth=2)
+    cpu_s, cpu_t = copy.deepcopy(student).cpu(), copy.deepcopy(teacher).cpu()
+    g, l = pretrain_crops(13, 2, cfg)
+    out = {}
+    for dev, (s, t) in (("cuda", (student, teacher)), ("cpu", (cpu_s, cpu_t))):
+        opt = make_dino_optimizer(s, PRETRAIN_LR, PRETRAIN_WD)
+        center = torch.zeros(1, cfg.out_dim, device=dev)
+        step = make_dino_train_step(vit_cfg, cfg)
+        zero_counts()
+        loss = step(s, t, center, opt, g.to(dev), l.to(dev), PRETRAIN_TT,
+                    PRETRAIN_M, 0.0)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = all_counts()
+        out[dev] = (loss.item(), center.cpu())
+    g_worst, g_leaf = 0.0, None
+    for (name, a), b in zip(student.named_parameters(), cpu_s.parameters()):
+        rel = ((a.grad.cpu() - b.grad).abs().max().item()
+               / max(b.grad.abs().max().item(), 1e-30))
+        if rel >= g_worst:
+            g_worst, g_leaf = rel, name
+    ok = g_worst <= STEP_GRAD_REL
+    p_errs = [(a.detach().cpu() - b.detach()).abs()
+              for a, b in zip(student.parameters(), cpu_s.parameters())]
+    p_max = max(e.max().item() for e in p_errs)
+    p_far = (sum(int((e > 0.02 * PRETRAIN_LR).sum()) for e in p_errs)
+             / sum(e.numel() for e in p_errs))
+    t_max = max((a.detach().cpu() - b).abs().max().item()
+                for a, b in zip(teacher.parameters(), cpu_t.parameters()))
+    c_max = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    rec = {"phase": "pretrain", "part": "b", "depth": 2, "batch": 2,
+           "out_dim": cfg.out_dim, "loss_card": out["cuda"][0],
+           "loss_cpu": out["cpu"][0], "grad_worst_rel_diff": g_worst,
+           "grad_worst_leaf": g_leaf,
+           "student_max_abs_diff_over_lr": p_max / PRETRAIN_LR,
+           "student_share_past_0.02_lr": p_far,
+           "teacher_max_abs_diff": t_max, "center_max_abs_diff": c_max,
+           "launches": counts,
+           "tol": {"loss_rtol": STEP_LOSS_RTOL,
+                   "grad_rel_per_leaf": STEP_GRAD_REL,
+                   "student": "2.1 lr, share past 0.02 lr "
+                              f"<= {PRETRAIN_FLIP_SHARE}",
+                   "teacher": "2.1 (1 - m) lr",
+                   "center_atol": PRETRAIN_CENTER_ATOL}}
+    emit(rec)
+    check(abs(out["cuda"][0] - out["cpu"][0])
+          <= STEP_LOSS_RTOL * abs(out["cpu"][0]), f"pretrain loss {rec}")
+    check(ok, f"pretrain clipped gradients card vs CPU {rec}")
+    check(p_max <= 2.1 * PRETRAIN_LR and p_far <= PRETRAIN_FLIP_SHARE,
+          f"pretrain student card vs CPU {rec}")
+    check(t_max <= 2.1 * (1 - PRETRAIN_M) * PRETRAIN_LR,
+          f"pretrain teacher card vs CPU {rec}")
+    check(c_max <= PRETRAIN_CENTER_ATOL, f"pretrain centre card vs CPU {rec}")
+    check(counts == pretrain_want(2), f"pretrain depth-2 launches {rec}")
+    return counts
+
+
+def kernel_kinds(kernels):
+    """Device ms of a profiled call summed by kind: our flash kernels by
+    name, the dense layers' GEMMs (cuBLAS, CUTLASS and cuBLAS's nvjet
+    kernels), the rest."""
+    kinds = {}
+    for k in kernels:
+        name = k["name"]
+        kind = next((f for f in ("flash_fwd_f32", "flash_fwd_bf16",
+                                 "flash_bwd_f32", "flash_bwd_bf16",
+                                 "fused_ln_mlp_kernel") if f in name), None)
+        if kind is None:
+            kind = ("gemm" if any(g in name for g in ("gemm", "gemv", "nvjet"))
+                    else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + k["ms"]
+    return kinds
+
+
+def pretrain_full_width():
+    """(c) ViT-S/8, 12 blocks, DinoConfig() (out_dim 65,536, 2 x 224 + 8 x
+    96 px), batch 16: f32 as the CLI runs it, one warm-up and 3 timed
+    steps, then bf16 (one warm-up, one timed), each followed by one
+    profiled step.  Exact launches per step.  Returns the phase's launch counts."""
+    vit_cfg, cfg = vit_small(patch_size=8), DinoConfig()
+    student, teacher = init_dino_params(torch.Generator().manual_seed(14),
+                                        vit_cfg, cfg, depth=PRETRAIN_DEPTH)
+    opt = make_dino_optimizer(student, PRETRAIN_LR, PRETRAIN_WD)
+    center = torch.zeros(1, cfg.out_dim, device="cuda")
+    g, l = (t.cuda() for t in pretrain_crops(15, PRETRAIN_BATCH, cfg))
+    total = {}
+    rec = {"phase": "pretrain", "part": "c", "depth": PRETRAIN_DEPTH,
+           "batch": PRETRAIN_BATCH, "out_dim": cfg.out_dim,
+           "views": "2 x 224 + 8 x 96 px"}
+    for prec, cdt, timed in (("fp32", None, 3), ("bf16", torch.bfloat16, 1)):
+        want = pretrain_want(PRETRAIN_DEPTH, bf16=cdt is not None)
+        step = make_dino_train_step(vit_cfg, cfg, compute_dtype=cdt)
+
+        def one():
+            return step(student, teacher, center, opt, g, l, PRETRAIN_TT,
+                        PRETRAIN_M, 0.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for i in range(1 + timed):
+            zero_counts()
+            t0 = time.perf_counter()
+            loss = one()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            got = all_counts()
+            add_counts(total, got)
+            losses.append(loss.item())
+            check(got == want, f"pretrain {prec} step launches {got}, "
+                               f"want {want}")
+        host_ms = float(np.median(times[1:]))
+        r = {"step_host_ms": times, "host_ms": host_ms,
+             "images_per_s": PRETRAIN_BATCH / host_ms * 1e3,
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "launches_per_step": want, "losses": losses}
+        zero_counts()
+        bd = bench.device_breakdown(one, 1, host_ms, top=10 ** 6)
+        add_counts(total, all_counts())
+        r.update(device_busy_ms=bd["device_busy_ms"],
+                 device_idle_share=bd["device_idle_share"],
+                 device_ms_by_kind=kernel_kinds(bd["kernels"]),
+                 top_kernels=bd["kernels"][:10])
+        rec[prec] = r
+        check(all(np.isfinite(losses)), f"pretrain {prec} loss {r}")
+    emit(rec)
+    del student, teacher, opt
+    return total
+
+
+def pretrain_cli(tmp):
+    """(d) python -m dino_tpu_torch.cli.pretrain_dino on the card (depth 1,
+    small views, one epoch) on JPEGs written here, then
+    DINOSeg(pretrained_path=<its npz>).predict on the card."""
+    from PIL import Image
+    data, write = os.path.join(tmp, "imgs"), os.path.join(tmp, "out")
+    os.makedirs(data)
+    rs = np.random.RandomState(16)
+    for i in range(4):
+        Image.fromarray(rs.randint(0, 256, (120, 160, 3)).astype(
+            np.uint8)).save(os.path.join(data, f"{i}.jpg"), quality=90)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dino_tpu_torch.cli.pretrain_dino",
+         "--data_path", data, "--write_path", write, "--depth", "1",
+         "--epochs", "1", "--warmup_epochs", "0", "--batch_size", "2",
+         "--n_local_crops", "2", "--global_size", "64", "--local_size", "32",
+         "--out_dim", "1024"], capture_output=True, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)), timeout=300)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"pretrain_dino CLI failed: {proc.stderr}")
+    npz = os.path.join(write, "dino_pretrained_backbone.npz")
+    model = DINOSeg(head="linear", n_blocks=1, n_classes=7, seed=0,
+                    precision="fp32", pretrained_path=npz)
+    model.set_resolution(480)
+    labels = model.predict(rs.randint(0, 256, (480, 640, 3)).astype(
+        np.uint8))
+    rec = {"phase": "pretrain", "part": "d", "cli_seconds": cli_s,
+           "cli_stdout": proc.stdout.strip().splitlines(),
+           "crop_rung": ("native" if native_loader.get_lib() is not None
+                         else "cv2"),
+           "predict_shape": list(labels.shape),
+           "labels_in_range": bool(((labels >= 0) & (labels < 7)).all())}
+    emit(rec)
+    check(rec["predict_shape"] == [480, 480] and rec["labels_in_range"],
+          f"DINOSeg on the pretrained backbone {rec}")
+
+
+def phase_pretrain():
+    """Phase 12: (a) kernels 1 and 3 at the pretrain shapes and the fused
+    MLP at the bf16 teacher's, (b) the card step against the CPU step, (c)
+    the full-width step, (d) the CLI.  Returns the launch counts of (b)
+    and (c)."""
+    t0 = time.perf_counter()
+    rows = pretrain_attention_rows()
+    total = {}
+    add_counts(total, pretrain_step_vs_cpu())
+    add_counts(total, pretrain_full_width())
+    with tempfile.TemporaryDirectory() as tmp:
+        pretrain_cli(tmp)
+    emit({"phase": "pretrain", "launches": total,
+          "seconds": time.perf_counter() - t0})
+    return total, rows
+
 
 KERNELS = {
     "flash_attn_fwd": dict(
@@ -3066,6 +3395,7 @@ def main():
     fit = phase_fit(bare_fps)
     serve = phase_serve(model, frames3)
     item8 = phase_item8(model, frames3)
+    pretrain, _ = phase_pretrain()
     rows = phase_timing(block, per_call, bwd_per_step)
     rows.update(phase_timing_sp(launches))
     phase_fp32_latency(model, frame)
@@ -3102,6 +3432,14 @@ def main():
     for name in ("fused_ln_mlp", "flash_attn_bwd", "flash_attn_bwd_f32",
                  "flash_attn_fwd_dyn", "flash_attn_bwd_dyn"):
         launches[name] += item8[name]
+    # phase 12's launches (the pretrain steps of (b) and (c)): bf16
+    # forwards in row 1, f32 forwards in row 4, the fused MLP's (the bf16
+    # teacher) and both backward kernels'
+    launches["flash_attn_fwd"] += (pretrain["flash_attn_fwd"]
+                                   - pretrain["flash_attn_fwd_f32"])
+    launches["flash_attn_fwd_chunked"] += pretrain["flash_attn_fwd_f32"]
+    for name in ("fused_ln_mlp", "flash_attn_bwd", "flash_attn_bwd_f32"):
+        launches[name] += pretrain[name]
 
     emit({"kernels": [
         dict(name=name, route="cuda", launches=launches[name],

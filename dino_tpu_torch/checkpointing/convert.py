@@ -14,7 +14,10 @@ layout and are mapped here:
   * cnn2 upconv kernel (in, out)     -> ConvTranspose2d weight (in, out, 1, 1)
 
 A backbone pytree with ``layers`` is a cnn1/cnn2 ResNet (its variant: a third
-stage), else a ViT.
+stage), else a ViT.  DINO pretraining trees (``{"vit", "head"}``, the head
+an ``mlp`` list and a weight-normed ``last_layer``) map to the state_dict of
+``train/dino_pretrain.py:DinoModel`` (``vit.``/``head.`` keys; ``v``
+(bottleneck, out) -> (out, bottleneck), ``g`` as is).
 """
 from __future__ import annotations
 
@@ -210,6 +213,55 @@ def _to_jax_resnet(g: Dict[str, np.ndarray]) -> Params:
         out["conv"] = {"kernel": conv("dino.conv.weight"),
                        "bias": g["dino.conv.bias"]}
     return out
+
+
+def from_jax_dino(params: Params) -> Dict[str, torch.Tensor]:
+    """A ``dino_tpu`` pretraining tree (student or teacher: ``vit`` and
+    ``head``, numpy leaves) -> ``DinoModel``'s state_dict.  The head's
+    ``_meta`` is configuration (``DinoConfig``), not a tensor."""
+    sd = {"vit." + k: v for k, v in
+          strip_prefix(from_jax_params(params["vit"]), "dino.").items()}
+    sd.update({"head." + k: v
+               for k, v in dino_head_state_dict(params["head"]).items()})
+    return sd
+
+
+def dino_head_state_dict(head: Params) -> Dict[str, torch.Tensor]:
+    """A ``dino_tpu`` DINO head tree -> ``DINOHead``'s state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, lin in enumerate(head["mlp"]):
+        _linear(sd, f"mlp.{i}", lin)
+    sd["last_layer.v"] = _f32(np.asarray(head["last_layer"]["v"],
+                                         np.float32).T)
+    sd["last_layer.g"] = _f32(head["last_layer"]["g"])
+    return sd
+
+
+def to_jax_dino(sd: Dict[str, torch.Tensor],
+                norm_last_layer: bool = True) -> Params:
+    """Inverse of :func:`from_jax_dino`, with the head's ``_meta``."""
+    vit, _ = to_jax_params({"dino." + k[len("vit."):]: v
+                            for k, v in sd.items() if k.startswith("vit.")})
+    g = {k[len("head."):]: v.detach().cpu().numpy().astype(np.float32)
+         for k, v in sd.items() if k.startswith("head.")}
+    mlp = []
+    while f"mlp.{len(mlp)}.weight" in g:
+        i = len(mlp)
+        mlp.append({"kernel": np.ascontiguousarray(g[f"mlp.{i}.weight"].T),
+                    "bias": g[f"mlp.{i}.bias"]})
+    head = {"mlp": mlp,
+            "last_layer": {"v": np.ascontiguousarray(g["last_layer.v"].T),
+                           "g": g["last_layer.g"]},
+            "_meta": {"norm_last_layer": norm_last_layer,
+                      "nlayers": len(mlp)}}
+    return {"vit": vit, "head": head}
+
+
+def convert_dino_pretrain(path: str) -> Dict[str, torch.Tensor]:
+    """A raw DINO backbone (the reference's ``.pth`` state_dict, or a
+    converted ``.npz``) -> the backbone's state_dict
+    (``dino_tpu/checkpointing/torch_convert.py:convert_dino_pretrain``)."""
+    return load_backbone_state_dict(path)
 
 
 def strip_prefix(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:

@@ -6,8 +6,9 @@ first use, with the flags ``dino_tpu``'s loader uses, and writes nothing
 under ``native/``.  The library name carries the host's CPU tag
 (``-march=native`` makes the binary CPU-specific).  Every function returns
 ``None`` when the library cannot be built or loaded (no ``g++``, no libjpeg
-headers): callers then take the numpy recipe (``data/augment.py``) or the
-Pillow decoder, and ``backend='native'`` raises.  Nothing runs at import.
+headers): callers then take the numpy recipe (``data/augment.py``), the cv2
+multi-crop (``train/dino_pretrain.py``) or the Pillow decoder, and
+``backend='native'`` raises.  Nothing runs at import.
 """
 from __future__ import annotations
 
@@ -55,6 +56,9 @@ _SIGNATURES = {
     "dt_augment_batch": ((_charpp, ctypes.c_int, ctypes.c_int, _f32p,
                           ctypes.POINTER(_i32p), _intp, _intp, _u8p, _i32p,
                           ctypes.c_int), ctypes.c_int),
+    "dt_dino_crops_batch": ((_charpp, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_int, _f32p, _u8p, _u8p,
+                             ctypes.c_int), ctypes.c_int),
     "dt_warp_affine_u8": ((_u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            _f32p, _u8p), None),
     "dt_warp_affine_i32": ((_i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -243,6 +247,33 @@ def augment_batch(paths: List[str], masks: List[np.ndarray], res: int,
         _ptr(out_imgs, _u8p), _ptr(out_masks, _i32p),
         n_threads or min(n, os.cpu_count() or 1))
     return (out_imgs, out_masks) if failures == 0 else None
+
+
+def dino_crops_batch(paths: List[str], params: np.ndarray, n_local: int,
+                     g_size: int, l_size: int, n_threads: int = 0):
+    """The DINO multi-crop of a batch on the C++ thread pool: each JPEG
+    decoded once, its 2 + n_local crops made off the GIL.
+
+    ``params`` is (n, 2 + n_local, 20) float32 from
+    ``train.dino_pretrain.pack_dino_params`` (all randomness is drawn in
+    Python).  Returns (g_crops uint8 (2, n, g, g, 3), l_crops uint8
+    (n_local, n, l, l, 3)), or None without the library or on any failure
+    (the caller then takes the cv2 path)."""
+    lib = get_lib()
+    if lib is None or not paths:
+        return None
+    n = len(paths)
+    params = np.ascontiguousarray(params, np.float32)
+    if params.shape != (n, 2 + n_local, 20):
+        raise ValueError(f"params of shape {params.shape}, want "
+                         f"({n}, {2 + n_local}, 20)")
+    out_g = np.empty((2, n, g_size, g_size, 3), np.uint8)
+    out_l = np.empty((n_local, n, l_size, l_size, 3), np.uint8)
+    failures = lib.dt_dino_crops_batch(
+        _paths(paths), n, n_local, g_size, l_size, _ptr(params, _f32p),
+        _ptr(out_g, _u8p), _ptr(out_l, _u8p),
+        n_threads or min(n, os.cpu_count() or 1))
+    return (out_g, out_l) if failures == 0 else None
 
 
 def warp_affine(img: np.ndarray, M, size: int) -> Optional[np.ndarray]:

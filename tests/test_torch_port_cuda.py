@@ -291,11 +291,13 @@ def test_bf16_fwd_at_tile_edges(cuda, n):
 
 
 @pytest.mark.parametrize("hidden", [64, 1536])
-@pytest.mark.parametrize("m", [1, 63, 64, 65, 129, 3601])
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 129, 3601, 2 * 16 * 785])
 def test_fused_mlp_at_row_edges(cuda, m, hidden):
     """The fused MLP on both sides of its 64-row blocks and cluster pairs,
-    with the model's own init (trunc-normal .02 weights), at hidden 64 and
-    1,536; twice, the same bits."""
+    and at the bf16 DINO pretrain step's teacher rows (2 global views x
+    batch 16 x 785 tokens, half a block past 392 blocks), with the model's
+    own init (trunc-normal .02 weights), at hidden 64 and 1,536; twice,
+    the same bits."""
     gen = torch.Generator().manual_seed(m + hidden)
     norm = torch.nn.LayerNorm(384, eps=1e-6)
     mlp = Mlp(ViTConfig(mlp_ratio=hidden / 384))
@@ -618,3 +620,45 @@ def test_cnn1_fp32_forward_on_card_matches_the_cpu(cuda):
             got = resnet.resnet_features(model.to(cuda), x.to(cuda)).cpu()
     assert got.shape == ref.shape == (2 * 30 * 30, 512)
     assert (got - ref).abs().max() <= chip_smoke.CNN_F32_REL * ref.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bh,n", chip_smoke.PRETRAIN_ATTN)
+def test_flash_kernels_at_the_pretrain_shapes(cuda, dtype, bh, n):
+    """The forward and backward at the DINO pretrain step's (B*nh, N):
+    local views (768, 145) and global views (192, 785), both a 17-row tail
+    past the 128-row blocks."""
+    q, k, v, do, out, lse = chip_smoke.bwd_inputs(bh, n, dtype, seed=n)
+    ref, ref_lse = tatt.attention_plain(q, k, v, chip_smoke.SCALE)
+    atol, rtol = chip_smoke.FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=chip_smoke.LSE_ATOL, rtol=0)
+    before = tatt.flash_attention_bwd.launches
+    got = tatt.flash_attention_bwd(q, k, v, out, lse, do, chip_smoke.SCALE)
+    assert tatt.flash_attention_bwd.launches == before + 1
+    assert chip_smoke.bwd_err(got, tatt.attention_bwd_plain(
+        q, k, v, out, lse, do, chip_smoke.SCALE), dtype)[1]
+
+
+def test_full_depth_pretrain_step_launches(cuda):
+    """One DINO pretrain step at ViT-S/8's full depth (12 blocks, the
+    default DinoConfig, batch 2) on the card: every student and teacher
+    forward on the f32 flash kernel, every student backward on the f32
+    backward, a finite loss and gradient."""
+    from dino_tpu_torch.models.vit import vit_small
+    from dino_tpu_torch.train import dino_pretrain as tdp
+    cfg = tdp.DinoConfig()
+    student, teacher = tdp.init_dino_params(
+        torch.Generator().manual_seed(0), vit_small(patch_size=8), cfg,
+        device=cuda)
+    opt = tdp.make_dino_optimizer(student)
+    g, l = (t.to(cuda) for t in chip_smoke.pretrain_crops(1, 2, cfg))
+    step = tdp.make_dino_train_step(vit_small(patch_size=8), cfg)
+    chip_smoke.zero_counts()
+    loss = step(student, teacher, torch.zeros(1, cfg.out_dim, device=cuda),
+                opt, g, l, 0.04, 0.996, 0.0)
+    torch.cuda.synchronize()
+    assert chip_smoke.all_counts() == chip_smoke.pretrain_want(12)
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(p.grad).all())
+               for p in student.parameters())
