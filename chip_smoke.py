@@ -112,7 +112,25 @@ each printing JSON lines:
      busy ms, idle share, images/s, peak memory) and in bf16, each step's
      launches exact; (d) the pretrain_dino CLI on the card at depth 1 on
      JPEGs written here, and DINOSeg(pretrained_path=<its npz>).predict;
-  13. timing (CUDA events around bursts of back-to-back calls, median of
+  13. training over ranks (dp): the kernels at the ranks' shapes that
+     phases 3, 6 and 12 do not cover against their plain versions, then
+     two rank processes sharing the card over gloo (started and joined
+     here, after phase 12): (a) the bench config (bf16, 480px, global
+     batch 16, 8 a rank in 4 microbatches of 2) under plain data
+     parallelism, ZeRO-1 and FSDP, one warm-up and 3 timed steps each,
+     the ranks' parameters the same bits after every step, host ms, the
+     collectives' ms, peak memory and state bytes per rank, ZeRO and FSDP
+     against plain DP; (b) fp32 at 240px, global batch 4: the DP and FSDP
+     steps' gradients against the world-of-one step from the same weights
+     and batch (ReLU choices replayed), and one fit(parallelism='sp')
+     epoch's step against the world-of-one SP step; (c) a 2-rank fit of
+     one epoch on phase 9's bands (bf16, augmented, beside phase 9 (a)'s
+     frames/s) and the ranks' evaluate, whose confusion matrix equals the
+     world of one's on rank 0's checkpoint; (d) the full-width pretrain step (f32, global
+     batch 16) without and with FSDP (images/s, peak memory, state bytes,
+     the collectives) and the pretrain CLI over the ranks with --fsdp;
+     exact launch counts throughout, summed into the kernels line;
+  14. timing (CUDA events around bursts of back-to-back calls, median of
      the bursts; the bf16 kernels and the f32 backward also replayed from a
      CUDA graph, which takes the host out) at the 480px predict shapes
      (batch 3; the fused MLP also at one frame), the train bench's
@@ -125,13 +143,14 @@ each printing JSON lines:
      forward's and backward's on their route: three TF32 passes); the fp32
      predict latency at 480 and 960px; then the cli/bench line
      (predict and train);
-  14. the per-kernel summary line, the card line, and the final status
+  15. the per-kernel summary line, the card line, and the final status
       line.
 
 ``python3 chip_smoke.py --sp-world W`` (W cards) runs only phase 6's rank
-checks with one rank per card over NCCL.  ``--sp-rank R --sp-world W
---sp-store PATH --sp-backend B`` is one rank process (started by the script
-itself).
+checks with one rank per card over NCCL, ``--dp-world W`` phase 13's DP,
+ZeRO and FSDP checks ((a) and (b)'s steps).  ``--sp-rank R --sp-world W
+--sp-store PATH --sp-backend B`` (and ``--dp-rank ...``) is one rank
+process (started by the script itself).
 """
 import argparse
 import contextlib
@@ -140,6 +159,7 @@ import functools
 import io
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -162,7 +182,7 @@ from dino_tpu_torch.data import native_loader
 from dino_tpu_torch.data.augment import (draw_params, prepare_device_batch,
                                          resize_pair)
 from dino_tpu_torch.data.dataset import (DuckieSegDataset, batched_loader,
-                                         loader_route)
+                                         epoch_indices, loader_route)
 from dino_tpu_torch.models.vit import Mlp, ViTConfig, get_intermediate_layers
 from dino_tpu_torch.ops import _build
 from dino_tpu_torch.ops import attention as tatt
@@ -178,6 +198,7 @@ from dino_tpu_torch.ops.fused_mlp import (fused_ln_mlp_residual,
 from dino_tpu_torch.ops.preprocess import preprocess
 from dino_tpu_torch.ops.resize import resize_nearest
 from dino_tpu_torch.parallel import dist as pdist
+from dino_tpu_torch.parallel.mesh import ShardedOptimizer, materialize
 from dino_tpu_torch.parallel.ring_attention import make_sp_train_step
 from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.serving import predict_program
@@ -1142,47 +1163,59 @@ def phase_sp_world1(model, frames2):
         model.set_resolution(480)
 
 
-def start_sp_ranks(world=SP_WORLD, backend="gloo"):
-    """Start the rank processes of phase 6 (the library is built, so they
-    load it); returns (processes, their start time)."""
-    store = tempfile.mkdtemp(prefix="dtt_sp_")
+def start_ranks(kind, world, backend):
+    """Start the rank processes of phase 6 (``kind`` 'sp') or 13 ('dp'):
+    this script with ``--<kind>-rank R --<kind>-world W --<kind>-store
+    PATH --<kind>-backend B`` (the library is built, so they load it).
+    Returns (processes, their start time, the store's path)."""
+    store = os.path.join(tempfile.mkdtemp(prefix=f"dtt_{kind}_"), "store")
     env = dict(os.environ)
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--sp-rank", str(r),
-         "--sp-world", str(world), "--sp-store", f"{store}/store",
-         "--sp-backend", backend],
+        [sys.executable, os.path.abspath(__file__), f"--{kind}-rank", str(r),
+         f"--{kind}-world", str(world), f"--{kind}-store", store,
+         f"--{kind}-backend", backend],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
         for r in range(world)]
-    return procs, time.perf_counter()
+    return procs, time.perf_counter(), store
 
 
-def join_sp_ranks(started):
-    """Wait for the rank processes (each must exit 0 within
-    SP_RANK_TIMEOUT of the start); re-emit their records; return the
-    summed launch counts of their SP runs."""
-    procs, t0 = started
+def join_ranks(started, kind, timeout):
+    """Wait for the rank processes (each must exit 0 within ``timeout``
+    seconds of the start, and end on its ``<kind>_rank_ok`` summary);
+    re-emit their records with their rank.  Returns (the summaries in rank
+    order, every rank's records)."""
+    procs, t0, _ = started
     outs = []
     try:
         for p in procs:
-            left = max(1.0, SP_RANK_TIMEOUT - (time.perf_counter() - t0))
+            left = max(1.0, timeout - (time.perf_counter() - t0))
             outs.append(p.communicate(timeout=left))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    total = {}
+    summaries, records = [], []
     for r, (p, (out, err)) in enumerate(zip(procs, outs)):
         lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
         for rec in lines:
             emit(dict(rec, rank=r))
-        check(p.returncode == 0, f"SP rank {r} exited {p.returncode}: "
+        records += lines
+        check(p.returncode == 0, f"{kind} rank {r} exited {p.returncode}: "
                                  f"{err[-3000:]}")
-        summary = lines[-1]
-        check(summary.get("sp_rank_ok") is True, f"SP rank {r} summary")
-        for k, v in summary["launches"].items():
-            total[k] = total.get(k, 0) + v
+        check(lines and lines[-1].get(f"{kind}_rank_ok") is True,
+              f"{kind} rank {r} summary")
+        summaries.append(lines[-1])
+    return summaries, records
+
+
+def join_sp_ranks(started):
+    """Wait for phase 6's ranks; return the summed launch counts of their
+    SP runs."""
+    total = {}
+    for summary in join_ranks(started, "sp", SP_RANK_TIMEOUT)[0]:
+        add_counts(total, summary["launches"])
     return total
 
 
@@ -1230,7 +1263,8 @@ def head_relu(record=None, replay=None, rows=None):
     recorded choice, the CLS and padding rows (loss weight 0) their own;
     with ``rows`` None each call takes the recorded mask whole (a step of
     the same shapes on another device).  Yields the list of units per call
-    whose own choice differed."""
+    whose own choice differed.  Calls past the replay's take their own
+    choices (an eval pass after a replayed step)."""
     real, calls, flips = torch.relu, iter(replay or ()), []
 
     def relu(x):
@@ -1238,8 +1272,11 @@ def head_relu(record=None, replay=None, rows=None):
         if record is not None:
             record.append(own)
             return real(x)
+        mask = next(calls, None)
+        if mask is None:  # the replay is used up: own choices after it
+            return real(x)
         if rows is None:
-            mask = next(calls).to(x.device)
+            mask = mask.to(x.device)
             flips.append(int((mask != own).sum()))
             return x * mask.to(x.dtype)
         b, n_patches, d, me = rows
@@ -1248,8 +1285,8 @@ def head_relu(record=None, replay=None, rows=None):
         live = ((pos >= 1) & (pos <= n_patches)).repeat(b)
         src = (torch.arange(b, device=x.device)[:, None] * n_patches
                + pos[None, :] - 1).reshape(-1)
-        mask = own.clone()
-        mask[live] = next(calls)[src[live]]
+        recorded, mask = mask, own.clone()
+        mask[live] = recorded[src[live]]
         flips.append(int((mask != own).sum()))
         return x * mask.to(x.dtype)
 
@@ -1365,7 +1402,7 @@ def sp_cards_main(world, card):
                                        for i in range(world)],
           "nvidia_smi": card, "torch": torch.__version__})
     _build.library()
-    total = join_sp_ranks(start_sp_ranks(world, "nccl"))
+    total = join_sp_ranks(start_ranks("sp", world, "nccl"))
     emit({"phase": "sp_path", "world": world, "backend": "nccl",
           "rank_launches_summed": total})
     check(total["flash_attn_bwd_dyn"] > 0, "an SP kernel was never launched")
@@ -1805,6 +1842,7 @@ PARITY_LR = 1e-6
 FIT_LOSS_RTOL = 1e-5
 FIT_PARAM_TOL = dict(atol=1e-5, rtol=1e-4)
 FIT_DEVICE = None  # the card
+FIT_A_FPS = []  # phase 9 (a)'s train frames/s per epoch, beside phase 13's
 
 
 def memory_split(n, seed, h=480, w=640, n_classes=FIT_CLASSES):
@@ -2269,6 +2307,7 @@ def phase_fit(bare_fps):
     total = {}
     with tempfile.TemporaryDirectory() as tmp:
         got, host_a = fit_unfrozen(splits, tmp, bare_fps)
+        FIT_A_FPS[:] = [e["train_frames_per_s"] for e in host_a["epochs"]]
         add_counts(total, got)
         add_counts(total, fit_frozen_cached(splits, tmp))
         add_counts(total, fit_parity(splits, tmp))
@@ -3292,6 +3331,623 @@ def phase_pretrain():
     return total, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: training over ranks (data parallelism, ZeRO-1, FSDP, the SP fit,
+# DINO pretraining over ranks)
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_RANK_TIMEOUT = 900  # seconds for the rank processes, from their start
+# (a) the bench config: global batch 16 in microbatches of 2 (the train
+# bench's microbatch shapes; 8 a rank in 4 of them over 2 ranks), 3 Adam
+# steps
+DP_BATCH, DP_MICRO, DP_STEPS, DP_LR = 16, 2, 3, 1e-5
+DP_F32_RES, DP_F32_BATCH = 240, 4   # (b)
+DP_SP_FRAMES = {"train": 2, "val": 2, "test": 2}  # (b)'s SP fit, 240x320
+DP_FIT_ACCUM = 4   # (c): 8 a rank, microbatches of 2 as phase 9 (a)'s
+DP_PRETRAIN_STEPS = 2  # (d): timed steps after one warm-up
+# ZeRO-1 sums the same gradients and updates each element as plain DP does,
+# so it must keep DP's bits; FSDP may part from DP by this share of DP's own
+# largest displacement from the initial weights (Adam's first step moves
+# each entry with a gradient by about lr, so that displacement is >= lr)
+DP_FSDP_PART = 1e-3
+
+
+@contextlib.contextmanager
+def collective_timer():
+    """Milliseconds a step spends in its collectives (host clock, the card
+    synchronized before and after each call), by kind: the gradient
+    all-reduce of the train steps ("grad_all_reduce", the clip norms'
+    sum included) and the parameter all-gathers of ZeRO-1 and FSDP
+    ("param_all_gather", the moments' for a resume file included)."""
+    from dino_tpu_torch.parallel import mesh as mesh_mod
+    from dino_tpu_torch.train import dino_pretrain as pretrain_mod
+    from dino_tpu_torch.train import loop as loop_mod
+    spent = {"grad_all_reduce": 0.0, "param_all_gather": 0.0}
+    sites = [(loop_mod, "all_reduce_sum_", "grad_all_reduce"),
+             (pretrain_mod, "all_reduce_sum_", "grad_all_reduce"),
+             (mesh_mod, "all_reduce_sum_", "grad_all_reduce"),
+             (mesh_mod, "all_gather_flat", "param_all_gather")]
+    reals = [getattr(mod, name) for mod, name, _ in sites]
+
+    def timed(real, kind):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            spent[kind] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+    for (mod, name, kind), real in zip(sites, reals):
+        setattr(mod, name, timed(real, kind))
+    try:
+        yield spent
+    finally:
+        for (mod, name, _), real in zip(sites, reals):
+            setattr(mod, name, real)
+
+
+def max_abs_diff(a, b):
+    """The largest |a - b| over two lists of tensors."""
+    return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+
+def replicas_same(tensors):
+    """Whether every rank holds the same bits of ``tensors`` (a digest per
+    rank, all-gathered)."""
+    import hashlib
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    mine = torch.tensor([int.from_bytes(h.digest()[:8], "little",
+                                        signed=True)], device="cuda")
+    got = pdist.all_gather_flat(mine)
+    return bool((got == got[0]).all())
+
+
+def state_bytes(opt, params):
+    """A rank's resident bytes of trainable parameters, gradients and
+    optimizer moments (a sharded optimizer counts its own)."""
+    if isinstance(opt, ShardedOptimizer):
+        return opt.resident_bytes()
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    return {"params": nbytes(params),
+            "grads": nbytes([p.grad for p in params if p.grad is not None]),
+            "moments": nbytes([v for st in opt.state.values()
+                               for v in st.values() if torch.is_tensor(v)
+                               and v.dim() > 0])}
+
+
+def named_grads(model, opt):
+    """{name: full gradient} of the model's trainable parameters: .grad, or
+    a sharded optimizer's shard gradients gathered whole."""
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    if not isinstance(opt, ShardedOptimizer):
+        return {n: p.grad for n, p in named}
+    full = opt.shards._gather_flat([sh.grad for sh in opt.shards.shards])
+    by_id = {id(p): g.view(s) for p, g, s in zip(opt.params, full,
+                                                  opt.shards.shapes)}
+    return {n: by_id[id(p)] for n, p in named}
+
+
+def grads_vs(got, ref):
+    """(worst relative difference, its leaf): each leaf's max |diff|
+    against its reference's max |g|."""
+    worst, leaf = 0.0, None
+    for n, r in ref.items():
+        rel = ((got[n] - r).abs().max().item()
+               / max(r.abs().max().item(), 1e-30))
+        if rel >= worst:
+            worst, leaf = rel, n
+    return worst, leaf
+
+
+def dp_kernel_checks():
+    """The kernels the ranks launch, against their plain versions at the
+    ranks' shapes that phases 3, 6 and 12 do not cover: the forward at
+    B*nh = 12 ((b)'s fp32 240px slab, (c)'s bf16 microbatch), the f32
+    forward and backward at the pretrain slab's (96, 785) and (384, 145),
+    the dynamic-bound pair at (b)'s 2-rank 240px hop (12, 451) and the
+    fused MLP at (c)'s eval slab (2 x 3,601 rows)."""
+    for dtype, bh, n in ((torch.float32, 12, 901), (torch.bfloat16, 12, 3601),
+                         (torch.float32, 96, 785), (torch.float32, 384, 145)):
+        atol, rtol = FLASH_TOL[dtype]
+        q, k, v, do, out, lse = bwd_inputs(bh, n, dtype, seed=bh + n + 3)
+        ref, ref_lse = attention_plain(q, k, v, SCALE)
+        err = (out.float() - ref.float()).abs()
+        got = flash_attention_bwd(q, k, v, out, lse, do, SCALE)
+        torch.cuda.synchronize()
+        b_errs, b_ok = bwd_err(got, attention_bwd_plain(q, k, v, out, lse, do,
+                                                        SCALE), dtype)
+        rec = {"phase": "dp", "part": "kernel_check", "kernel":
+               "flash_attn_fwd + flash_attn_bwd", "dtype": str(dtype)[6:],
+               "bh": bh, "n": n, "fwd_max_abs_err": err.max().item(),
+               "lse_max_abs_err": (lse - ref_lse).abs().max().item(),
+               "bwd_max_abs_err": max(b_errs)}
+        emit(rec)
+        check(bool((err <= atol + rtol * ref.float().abs()).all()),
+              f"flash forward at a rank's shape {rec}")
+        check(rec["lse_max_abs_err"] <= LSE_ATOL, f"flash lse {rec}")
+        check(b_ok, f"flash backward at a rank's shape {rec}")
+        del q, k, v, do, out, lse, ref, ref_lse, err, got
+    n, bounds = sp_shapes(DP_F32_RES ** 2 // 64 + 1, DP_WORLD)
+    q, k, v = flash_inputs(12, n, torch.float32, seed=n)
+    g = torch.Generator(device="cuda").manual_seed(n + 1)
+    do = torch.randn(q.shape, generator=g, device="cuda")
+    for valid in bounds:
+        if not valid:
+            continue
+        out, lse = flash_attention_with_lse_dyn(q, k, v, SCALE, valid)
+        ref, ref_lse = attention_dyn_plain(q, k, v, SCALE, valid)
+        dsum = (do * ref).sum(-1).reshape(12, n)
+        got = flash_attention_bwd_dyn(q, do, ref_lse, dsum, k, v, SCALE,
+                                      valid)
+        torch.cuda.synchronize()
+        b_errs, b_ok = bwd_dyn_err(got, attention_bwd_dyn_plain(
+            q, do, ref_lse, dsum, k, v, SCALE, valid), torch.float32)
+        err = (out - ref).abs()
+        rec = {"phase": "dp", "part": "kernel_check",
+               "kernel": "flash_attn_fwd_dyn + flash_attn_bwd_dyn",
+               "dtype": "float32", "bh": 12, "n_local": n, "valid": valid,
+               "fwd_max_abs_err": err.max().item(),
+               "bwd_max_abs_err": max(b_errs)}
+        emit(rec)
+        atol, rtol = FLASH_TOL[torch.float32]
+        check(bool((err <= atol + rtol * ref.abs()).all()),
+              f"dyn forward at a rank's hop {rec}")
+        check(b_ok, f"dyn backward at a rank's hop {rec}")
+    block = sp_model("bf16").model.dino.blocks[0]
+    check_mlp(block.norm2, block.mlp, 2 * 3601,
+              torch.Generator(device="cuda").manual_seed(23))
+
+
+def dp_bench_steps(rank, world, backend):
+    """(a) the bench config over the ranks: plain DP, ZeRO-1 and FSDP,
+    one warm-up and DP_STEPS timed steps each from the same weights and
+    batch, the collectives timed; after each step the ranks hold the same
+    bits.  Returns the launch counts."""
+    group = dist.group.WORLD
+    rs = np.random.RandomState(21)
+    imgs = rs.randint(0, 255, (DP_BATCH, FIT_RES, FIT_RES, 3)).astype(
+        np.uint8)
+    labels = rs.randint(0, 7, (DP_BATCH, (FIT_RES // 8) ** 2)).astype(
+        np.int32)
+    b_loc = DP_BATCH // world
+    accum = max(1, b_loc // DP_MICRO)
+    rows = slice(rank * b_loc, (rank + 1) * b_loc)
+    x, y = (torch.from_numpy(a[rows]).cuda() for a in (imgs, labels))
+    per_step = 3 * accum  # 3 blocks a microbatch
+    want = launches_want(fwd=per_step, bwd=per_step)
+    total, finals = {}, {}
+    for mode in ("dp", "zero", "fsdp"):
+        m = sp_model("bf16")
+        vit, head = m.model.dino, m.model.clf
+        meshes = dict(zero_mesh=group if mode == "zero" else None,
+                      fsdp_mesh=group if mode == "fsdp" else None)
+        optimizer = make_optimizer("adam", DP_LR)
+        opt = init_opt_state(optimizer, vit, head, False, **meshes)
+        step = make_train_step(m.cfg, "mlp", 7, optimizer, False,
+                               compute_dtype=torch.bfloat16,
+                               accum_steps=accum, dp_group=group, **meshes)
+        params = list(m.model.parameters())
+        if mode == "dp":
+            init = [p.detach().clone() for p in params]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        host, coll, same, losses = [], [], [], []
+        for _ in range(1 + DP_STEPS):
+            with collective_timer() as spent:
+                t0 = time.perf_counter()
+                (loss, _), got = counted(lambda: step(vit, head, opt, x, y))
+                host.append((time.perf_counter() - t0) * 1e3)
+            coll.append(spent)
+            add_counts(total, got)
+            check(got == want, f"DP {mode} step launches {got}, want {want}")
+            losses.append(loss.item())
+            between = state_bytes(opt, params)
+            materialize(opt)
+            same.append(replicas_same(params))
+            if mode == "fsdp":
+                opt.release()
+        rec = {"phase": "dp", "part": "a bench config", "mode": mode,
+               "rank": rank, "world": world, "backend": backend,
+               "res": FIT_RES, "blocks": 3, "global_batch": DP_BATCH,
+               "rank_batch": b_loc, "accum_steps": accum,
+               "host_ms_per_step": host,
+               "host_ms": float(np.median(host[1:])),
+               "collective_ms_per_step": coll,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "state_bytes_between_steps": between,
+               "losses": losses, "replicas_same_bits": same,
+               "launches_per_step": want}
+        emit(rec)
+        check(all(same), f"DP {mode}: the ranks' parameters part {rec}")
+        check(all(np.isfinite(losses)), f"DP {mode} loss {rec}")
+        materialize(opt)
+        finals[mode] = [p.detach().clone() for p in params]
+        del m, vit, head, opt, step, params
+        torch.cuda.empty_cache()
+    moved = max_abs_diff(finals["dp"], init)
+    check(moved >= DP_LR, f"DP's parameters moved {moved} < lr {DP_LR}")
+    for mode in ("zero", "fsdp"):
+        diff = max_abs_diff(finals[mode], finals["dp"])
+        bound = 0.0 if mode == "zero" else DP_FSDP_PART * moved
+        rec = {"phase": "dp", "part": "a vs plain DP", "mode": mode,
+               "rank": rank, "same_bits": diff == 0.0, "max_abs_diff": diff,
+               "dp_moved_from_init": moved, "bound": bound}
+        emit(rec)
+        check(diff <= bound, f"DP {mode} parts from plain DP {rec}")
+    return total
+
+
+def dp_f32_steps(rank, world, backend):
+    """(b) fp32 at 240px, global batch 4: the DP step and the FSDP step
+    against the world-of-one step on this card from the same weights and
+    batch (the head's ReLU choices replayed from it, head_relu): loss
+    rtol STEP_LOSS_RTOL, every gradient leaf within STEP_GRAD_REL of its
+    max.  Returns the launch counts."""
+    group = dist.group.WORLD
+    out = DP_F32_RES // 8
+    rs = np.random.RandomState(22)
+    imgs = torch.from_numpy(rs.randint(0, 255, (DP_F32_BATCH, DP_F32_RES,
+                                                DP_F32_RES, 3)).astype(
+        np.uint8)).cuda()
+    labels = torch.from_numpy(rs.randint(0, 7, (DP_F32_BATCH, out * out))
+                              .astype(np.int32)).cuda()
+    b_loc = DP_F32_BATCH // world
+    rows = slice(rank * b_loc, (rank + 1) * b_loc)
+    masks = []
+    with head_relu(record=masks):
+        ref_m, ref_loss, _ = one_step("fp32", imgs, labels,
+                                      lambda cfg, opt, cdt: make_train_step(
+                                          cfg, "mlp", 7, opt, False))
+    ref = {n: p.grad for n, p in ref_m.model.named_parameters()}
+    n_rows = b_loc * out * out
+    local = [mk[rank * n_rows:(rank + 1) * n_rows] for mk in masks]
+    total = {}
+    for mode in ("dp", "fsdp"):
+        m = sp_model("fp32")
+        vit, head = m.model.dino, m.model.clf
+        fsdp = group if mode == "fsdp" else None
+        optimizer = make_optimizer("adam", 1e-5)
+        opt = init_opt_state(optimizer, vit, head, False, fsdp_mesh=fsdp)
+        step = make_train_step(m.cfg, "mlp", 7, optimizer, False,
+                               dp_group=group, fsdp_mesh=fsdp)
+        with head_relu(replay=local) as flips:
+            (loss, _), got = counted(lambda: step(vit, head, opt,
+                                                  imgs[rows], labels[rows]))
+        add_counts(total, got)
+        worst, leaf = grads_vs(named_grads(m.model, opt), ref)
+        want = launches_want(fwd_f32=3, bwd_f32=3)
+        rec = {"phase": "dp", "part": "b fp32 vs world of one", "mode": mode,
+               "rank": rank, "world": world, "backend": backend,
+               "res": DP_F32_RES, "global_batch": DP_F32_BATCH,
+               "loss": loss.item(), "loss_world_of_one": ref_loss.item(),
+               "grad_worst_rel_diff": worst, "grad_worst_leaf": leaf,
+               "grad_tol": STEP_GRAD_REL, "head_relu_units_replayed": flips,
+               "launches": got, "want": want}
+        emit(rec)
+        check(got == want, f"DP fp32 {mode} launches {rec}")
+        check(abs(loss.item() - ref_loss.item())
+              <= STEP_LOSS_RTOL * abs(ref_loss.item()), f"DP fp32 loss {rec}")
+        check(worst <= STEP_GRAD_REL, f"DP fp32 {mode} gradients {rec}")
+        materialize(opt)
+        del m, opt, step
+    return total
+
+
+def dp_sp_fit(rank, world, tmp):
+    """(b) one fit(parallelism='sp') epoch (one fp32 step at 240px, batch
+    2) over the ranks, its step's gradients against the world-of-one SP
+    step (a process group of this rank alone) from the same weights and
+    batch, the head's ReLU choices replayed from it.  Returns the launch
+    counts."""
+    from dino_tpu_torch import api as api_mod
+    splits = {k: memory_split(n, 30 + i, h=DP_F32_RES, w=320)
+              for i, (k, n) in enumerate(DP_SP_FRAMES.items())}
+    kw = dict(precision="fp32", freeze_backbone=False, batch_size=2,
+              lr=1e-5, augmented=False, train_resolution=DP_F32_RES,
+              max_epochs=1)
+    ref_m = fit_model(splits, os.path.join(tmp, "sp_ref"), **kw)
+    train_ds = ref_m._make_dataset(ref_m.train_path, False, DP_F32_RES)
+    rng = np.random.default_rng([0, 0])
+    idx = epoch_indices(rng, len(train_ds), 2)
+    xb, yb = next(iter(batched_loader(train_ds, idx, 2, rng=rng)))
+    x, y = torch.from_numpy(xb).cuda(), torch.from_numpy(yb).cuda()
+    masks = []
+    optimizer = make_optimizer("adam", 1e-5)
+    vit, head = ref_m.model.dino, ref_m.model.clf
+    alone = [dist.new_group([r]) for r in range(world)][rank]
+    with head_relu(record=masks):
+        make_sp_train_step(ref_m.cfg, "mlp", 7, optimizer, group=alone)(
+            vit, head, init_opt_state(optimizer, vit, head, False), x, y)
+    ref = {n: p.grad for n, p in ref_m.model.named_parameters()}
+    # the recorded rows are every token's: keep the patches' (CLS is 0)
+    n_real = (DP_F32_RES // 8) ** 2 + 1
+    masks = [mk.reshape(2, n_real, -1)[:, 1:].reshape(2 * (n_real - 1), -1)
+             for mk in masks]
+    captured = {}
+    real = api_mod.make_sp_train_step
+
+    def capturing(*a, **k):
+        step = real(*a, **k)
+
+        def wrapped(vit_, head_, opt_, *rest):
+            got_ = step(vit_, head_, opt_, *rest)
+            captured["grads"] = {n: p.grad.clone() for n, p in
+                                 model.model.named_parameters()}
+            return got_
+        return wrapped
+    model = fit_model(splits, os.path.join(tmp, "sp"), **kw)
+    api_mod.make_sp_train_step = capturing
+    try:
+        with head_relu(replay=masks, rows=(2, (DP_F32_RES // 8) ** 2, world,
+                                           rank)) as flips:
+            metrics, got = counted(lambda: model.fit(samples_per_epoch=2,
+                                                     parallelism="sp"))
+    finally:
+        api_mod.make_sp_train_step = real
+    worst, leaf = grads_vs(captured["grads"], ref)
+    rec = {"phase": "dp", "part": "b SP fit vs world of one", "rank": rank,
+           "world": world, "res": DP_F32_RES, "batch": 2,
+           "test_acc": metrics["test_acc"], "grad_worst_rel_diff": worst,
+           "grad_worst_leaf": leaf, "grad_tol": STEP_GRAD_REL,
+           "head_relu_units_replayed": flips, "launches": got,
+           "dyn_entry_launches": {
+               "fwd": flash_attention_with_lse_dyn.launches,
+               "bwd": flash_attention_bwd_dyn.launches}}
+    emit(rec)
+    # the step's ring (3 blocks x world hops each way), then one f32
+    # forward a block for each of the val and test batches
+    want = dict(sp_want(3 * world, bwd_f32=3 * world),
+                flash_attn_fwd=6, flash_attn_fwd_f32=6)
+    check(got == want, f"SP fit launches {got}, want {want}")
+    check(worst <= STEP_GRAD_REL, f"SP fit gradients {rec}")
+    return got
+
+
+def dp_fit(rank, world, tmp):
+    """(c) a 2-rank fit of one epoch on phase 9's in-memory bands (bf16,
+    480px, global batch 16, augmented) and the ranks' evaluate of its test
+    split, batch 2; the main process holds the confusion matrix to its
+    world-of-one evaluate of rank 0's checkpoint.  Returns the launch
+    counts."""
+    splits = {name: memory_split(n, seed) for seed, (name, n) in
+              enumerate(FIT_FRAMES.items())}
+    model = fit_model(splits, os.path.join(tmp, "fit"), precision="bf16",
+                      freeze_backbone=False, batch_size=FIT_BATCH, lr=FIT_LR,
+                      augmented=True, train_resolution=FIT_RES, max_epochs=1)
+    torch.cuda.reset_peak_memory_stats()
+    out, got = counted(lambda: model.fit(samples_per_epoch=FIT_SAMPLES,
+                                         accum_steps=DP_FIT_ACCUM))
+    steps = batches(FIT_SAMPLES, FIT_BATCH)
+    per_rank_eval = 2 * batches(FIT_FRAMES["val"] // world, FIT_BATCH)
+    want = launches_want(fwd=3 * DP_FIT_ACCUM * steps + 3 * per_rank_eval,
+                         mlp=3 * per_rank_eval,
+                         bwd=3 * DP_FIT_ACCUM * steps)
+    cm, got_eval = counted(lambda: model._run_eval(
+        model._eval_step(), model._make_dataset(model.test_path, False,
+                                                FIT_RES), 2))
+    stats = pipeline_stats(model) if rank == 0 else None
+    rec = {"phase": "dp", "part": "c fit", "rank": rank, "world": world,
+           "res": FIT_RES, "global_batch": FIT_BATCH,
+           "accum_steps": DP_FIT_ACCUM, "samples_per_epoch": FIT_SAMPLES,
+           "optimizer_steps": steps, "test": out, "launches": got,
+           "want": want, "epoch_host": stats,
+           "evaluate_cm": cm.tolist(), "evaluate_launches": got_eval,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    emit(rec)
+    check(got == want, f"DP fit launches {got}, want {want}")
+    add_counts(got, got_eval)
+    return got
+
+
+def dp_pretrain(rank, world, tmp):
+    """(d) the full-width pretrain step over the ranks, f32 as the CLI runs
+    it, without and with FSDP (global batch PRETRAIN_BATCH, each rank its
+    slab): one warm-up and DP_PRETRAIN_STEPS timed steps, the ranks'
+    students the same bits after them, images/s, each rank's peak memory
+    and state bytes; then the pretrain CLI over the ranks at depth 1 with
+    --fsdp on JPEGs written here.  Returns the launch counts."""
+    from dino_tpu_torch.cli.pretrain_dino import main as pretrain_main
+    from dino_tpu_torch.train.dino_pretrain import shard_dino_state
+    group = dist.group.WORLD
+    vit_cfg, cfg = vit_small(patch_size=8), DinoConfig()
+    g, l = pretrain_crops(15, PRETRAIN_BATCH, cfg)
+    b_loc = PRETRAIN_BATCH // world
+    g, l = (t[:, rank * b_loc:(rank + 1) * b_loc].cuda() for t in (g, l))
+    want = pretrain_want(PRETRAIN_DEPTH)
+    total, finals = {}, {}
+    for mode in ("dp", "fsdp"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        student, teacher = init_dino_params(
+            torch.Generator().manual_seed(14), vit_cfg, cfg,
+            depth=PRETRAIN_DEPTH)
+        opt = make_dino_optimizer(student, PRETRAIN_LR, PRETRAIN_WD)
+        if mode == "dp":
+            init = [p.detach().clone() for p in student.parameters()]
+        if mode == "fsdp":
+            opt = shard_dino_state(student, teacher, opt, group)
+        step = make_dino_train_step(vit_cfg, cfg, dp_group=group,
+                                    fsdp_mesh=group if mode == "fsdp"
+                                    else None)
+        center = torch.zeros(1, cfg.out_dim, device="cuda")
+        times, losses, coll = [], [], []
+        for _ in range(1 + DP_PRETRAIN_STEPS):
+            torch.cuda.synchronize()
+            with collective_timer() as spent:
+                t0 = time.perf_counter()
+                loss, got = counted(lambda: step(student, teacher, center,
+                                                 opt, g, l, PRETRAIN_TT,
+                                                 PRETRAIN_M, 0.0))
+                times.append((time.perf_counter() - t0) * 1e3)
+            coll.append(spent)
+            losses.append(loss.item())
+            add_counts(total, got)
+            check(got == want, f"pretrain {mode} launches {got}, "
+                               f"want {want}")
+        params = list(student.parameters())
+        if mode == "fsdp":
+            res = opt.resident_bytes()
+            res["teacher"] = opt.followers[0].resident_bytes()
+        else:
+            res = state_bytes(opt, params)
+            res["teacher"] = sum(t.numel() * 4 for t in teacher.parameters())
+        materialize(opt)
+        host_ms = float(np.median(times[1:]))
+        rec = {"phase": "dp", "part": "d pretrain", "mode": mode,
+               "rank": rank, "world": world, "depth": PRETRAIN_DEPTH,
+               "global_batch": PRETRAIN_BATCH, "rank_batch": b_loc,
+               "step_host_ms": times, "host_ms": host_ms,
+               "collective_ms_per_step": coll,
+               "images_per_s": PRETRAIN_BATCH / host_ms * 1e3,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "state_bytes_between_steps": res, "losses": losses,
+               "replicas_same_bits": replicas_same(params),
+               "single_process_peak_gb_phase12": 16.2,
+               "launches_per_step": want}
+        emit(rec)
+        check(rec["replicas_same_bits"], f"pretrain {mode} replicas {rec}")
+        check(all(np.isfinite(losses)), f"pretrain {mode} loss {rec}")
+        finals[mode] = [p.detach().clone() for p in params]
+        del student, teacher, opt, step, center, params
+    moved = max_abs_diff(finals["dp"], init)
+    diff = max_abs_diff(finals["fsdp"], finals["dp"])
+    rec = {"phase": "dp", "part": "d FSDP vs DP student", "rank": rank,
+           "same_bits": diff == 0.0, "max_abs_diff": diff,
+           "dp_moved_from_init": moved, "bound": DP_FSDP_PART * moved}
+    emit(rec)
+    check(moved >= PRETRAIN_LR, f"pretrain DP student did not move {rec}")
+    check(diff <= rec["bound"], f"pretrain FSDP parts from DP {rec}")
+    del finals, init
+    torch.cuda.empty_cache()
+    # the CLI over the ranks: rank 0 writes the JPEGs, the barrier
+    # publishes them
+    data, write = os.path.join(tmp, "imgs"), os.path.join(tmp, "out")
+    if rank == 0:
+        from PIL import Image
+        os.makedirs(data)
+        rs = np.random.RandomState(16)
+        for i in range(4):
+            Image.fromarray(rs.randint(0, 256, (120, 160, 3)).astype(
+                np.uint8)).save(os.path.join(data, f"{i}.jpg"), quality=90)
+    pdist.barrier()
+    t0 = time.perf_counter()
+    npz = pretrain_main(["--data_path", data, "--write_path", write,
+                         "--depth", "1", "--epochs", "1", "--warmup_epochs",
+                         "0", "--batch_size", "2", "--n_local_crops", "2",
+                         "--global_size", "64", "--local_size", "32",
+                         "--out_dim", "1024", "--fsdp"])
+    with np.load(npz) as z:
+        finite = all(bool(np.isfinite(z[k]).all()) for k in z.files)
+    rec = {"phase": "dp", "part": "d CLI over ranks", "rank": rank,
+           "cli_seconds": time.perf_counter() - t0, "fsdp": True,
+           "backbone_finite": finite}
+    emit(rec)
+    check(finite, f"pretrain CLI over ranks {rec}")
+    return total
+
+
+def dp_rank_main(rank, world, store, backend):
+    """One rank of phase 13 (gloo over host-staged collectives with the
+    kernels on a shared card, or NCCL with one card per rank, where only
+    (a) and (b)'s DP and FSDP steps run).  Prints JSON records, the last
+    one its summary."""
+    pdist.init_distributed_mode(backend, f"file://{store}", world, rank)
+    tmp = os.path.dirname(store)
+    total = {}
+    add_counts(total, dp_bench_steps(rank, world, backend))
+    add_counts(total, dp_f32_steps(rank, world, backend))
+    sp = {}
+    if backend == "gloo":
+        zero_counts()
+        sp = dp_sp_fit(rank, world, tmp)
+        add_counts(total, sp)
+        add_counts(total, dp_fit(rank, world, tmp))
+        add_counts(total, dp_pretrain(rank, world, tmp))
+    dist.destroy_process_group()
+    emit({"dp_rank_ok": True, "rank": rank, "launches": total,
+          "sp_fit_launches": sp})
+
+
+def phase_dp():
+    """Phase 13: the kernels at the ranks' new shapes, then two rank
+    processes sharing the card over gloo ((a)-(d)), and the world-of-one
+    evaluate of the ranks' fit checkpoint against their 2-rank evaluate.
+    Returns the ranks' summed launch counts."""
+    t0 = time.perf_counter()
+    dp_kernel_checks()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    started = start_ranks("dp", DP_WORLD, "gloo")
+    summaries, records = join_ranks(started, "dp", DP_RANK_TIMEOUT)
+    total = {}
+    for r, s in enumerate(summaries):
+        c = s["launches"]
+        check(c["flash_attn_fwd"] > c["flash_attn_fwd_f32"]
+              and c["flash_attn_bwd"] > 0,
+              f"DP rank {r} launched no bf16 forward or backward {c}")
+        check(s["sp_fit_launches"].get("flash_attn_fwd_dyn", 0) > 0
+              and s["sp_fit_launches"].get("flash_attn_bwd_f32", 0) > 0,
+              f"DP rank {r}'s SP fit launched no dynamic-bound kernel {s}")
+        add_counts(total, c)
+    # (c): the ranks' evaluate against the world of one's of rank 0's
+    # checkpoint, batch 2 (the shapes each rank ran)
+    tmp = os.path.dirname(started[2])
+    splits = {name: memory_split(n, seed) for seed, (name, n) in
+              enumerate(FIT_FRAMES.items())}
+    ck = os.path.join(tmp, "fit", f"{FIT_BLOCKS}_mlp_finetuned.ckpt.npz")
+    one = fit_model(splits, os.path.join(tmp, "fit_one"), precision="bf16",
+                    freeze_backbone=False, train_resolution=FIT_RES)
+    one.model.load_state_dict(DINOSeg.load_from_checkpoint(
+        ck, device=FIT_DEVICE).model.state_dict())
+    cm = one._run_eval(one._eval_step(), one._make_dataset(
+        one.test_path, False, FIT_RES), 2)
+    ranks_cm = [rec["evaluate_cm"] for rec in records
+                if rec.get("part") == "c fit"]
+    rec = {"phase": "dp", "part": "c evaluate vs world of one",
+           "world_of_one_cm": cm.tolist(),
+           "ranks_equal": all(c == cm.tolist() for c in ranks_cm)}
+    emit(rec)
+    check(len(ranks_cm) == DP_WORLD and rec["ranks_equal"],
+          f"2-rank evaluate differs from the world of one {rec}")
+    emit({"phase": "dp", "part": "c train frames/s",
+          "two_ranks": [e["train_frames_per_s"] for rec in records
+                        if rec.get("part") == "c fit" and rec["epoch_host"]
+                        for e in rec["epoch_host"]],
+          "world_of_one_phase9_a": FIT_A_FPS})
+    emit({"phase": "dp", "rank_launches_summed": total,
+          "seconds": time.perf_counter() - t0})
+    shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
+def dp_cards_main(world, card):
+    """Phase 13's DP, ZeRO and FSDP rank checks with one rank per card over
+    NCCL."""
+    check(torch.cuda.device_count() >= world,
+          f"--dp-world {world} needs {world} cards, found "
+          f"{torch.cuda.device_count()}")
+    emit({"phase": "device", "names": [torch.cuda.get_device_name(i)
+                                       for i in range(world)],
+          "nvidia_smi": card, "torch": torch.__version__})
+    _build.library()
+    summaries, _ = join_ranks(start_ranks("dp", world, "nccl"), "dp",
+                              DP_RANK_TIMEOUT)
+    total = {}
+    for s in summaries:
+        add_counts(total, s["launches"])
+    emit({"phase": "dp", "world": world, "backend": "nccl",
+          "rank_launches_summed": total})
+    check(total["flash_attn_bwd"] > 0, "a DP rank launched no backward")
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
 KERNELS = {
     "flash_attn_fwd": dict(
         source="dino_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -3333,13 +3989,22 @@ def main():
     ap.add_argument("--sp-world", type=int)
     ap.add_argument("--sp-store")
     ap.add_argument("--sp-backend", default="gloo")
+    ap.add_argument("--dp-rank", type=int)
+    ap.add_argument("--dp-world", type=int)
+    ap.add_argument("--dp-store")
+    ap.add_argument("--dp-backend", default="gloo")
     args = ap.parse_args()
     if args.sp_rank is not None:
         return sp_rank_main(args.sp_rank, args.sp_world, args.sp_store,
                             args.sp_backend)
+    if args.dp_rank is not None:
+        return dp_rank_main(args.dp_rank, args.dp_world, args.dp_store,
+                            args.dp_backend)
     card = bench.card_name_and_power_limit()
     if args.sp_world is not None:
         return sp_cards_main(args.sp_world, card)
+    if args.dp_world is not None:
+        return dp_cards_main(args.dp_world, card)
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -3356,7 +4021,7 @@ def main():
                               or r.get("wgmma_serialized") for r in rep),
               f"{name} spills: {rep}")
 
-    ranks = start_sp_ranks()  # they share the card until the timing phase
+    ranks = start_ranks("sp", SP_WORLD, "gloo")  # share the card till phase 7
     try:
         model = DINOSeg(head="mlp", n_blocks=3, n_classes=7,
                         precision="bf16", random_init=True, seed=0)
@@ -3396,6 +4061,7 @@ def main():
     serve = phase_serve(model, frames3)
     item8 = phase_item8(model, frames3)
     pretrain, _ = phase_pretrain()
+    ranks = phase_dp()
     rows = phase_timing(block, per_call, bwd_per_step)
     rows.update(phase_timing_sp(launches))
     phase_fp32_latency(model, frame)
@@ -3440,6 +4106,14 @@ def main():
     launches["flash_attn_fwd_chunked"] += pretrain["flash_attn_fwd_f32"]
     for name in ("fused_ln_mlp", "flash_attn_bwd", "flash_attn_bwd_f32"):
         launches[name] += pretrain[name]
+    # phase 13's rank processes' launches: bf16 forwards in row 1, f32
+    # forwards in row 4, the rest in their rows
+    launches["flash_attn_fwd"] += (ranks["flash_attn_fwd"]
+                                   - ranks["flash_attn_fwd_f32"])
+    launches["flash_attn_fwd_chunked"] += ranks["flash_attn_fwd_f32"]
+    for name in ("fused_ln_mlp", "flash_attn_bwd", "flash_attn_bwd_f32",
+                 "flash_attn_fwd_dyn", "flash_attn_bwd_dyn"):
+        launches[name] += ranks[name]
 
     emit({"kernels": [
         dict(name=name, route="cuda", launches=launches[name],

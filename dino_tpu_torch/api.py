@@ -38,9 +38,17 @@ The counterpart of ``dino_tpu/api.py``'s ``DINOSeg`` for inference:
   * ``parallelism='sp'`` shards the token axis over the ranks of the default
     ``torch.distributed`` process group (ring attention,
     ``parallel/ring_attention.py``); every rank calls with the same frames
-    and gets the full maps.  ``'tp'`` is not ported yet.  ``fit`` and
-    ``evaluate`` refuse a world of more than one process: data
-    parallelism over ranks is not ported (ROADMAP item 11.1).
+    and gets the full maps.  ``'tp'`` is not ported yet.
+  * training over ranks: under a ``torch.distributed`` world of W
+    processes (``torchrun``, or ``parallel.dist.init_distributed_mode``),
+    ``fit`` trains one replica as ``dino_tpu`` does on a mesh of W devices:
+    every rank walks the same global batch windows and takes its slab of
+    each, the gradients are summed over the ranks (data parallelism), and
+    rank 0 alone saves, logs and writes resume files.  ``zero=True``
+    shards the optimizer's moments over the ranks (ZeRO-1), ``fsdp=True``
+    the parameters, gradients and moments (``parallel/mesh.py``);
+    ``parallelism='sp'`` shards the token axis instead.  ``evaluate``
+    splits the samples over the ranks and sums the confusion matrices.
 
 The model runs on the card by default: ``device=None`` means ``"cuda"`` and
 raises when there is none.  Pass ``device="cpu"`` to run on the CPU.
@@ -54,6 +62,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from dino_tpu_torch.checkpointing.async_writer import AsyncCheckpointer
@@ -78,9 +87,13 @@ from dino_tpu_torch.models.vit import (ViTConfig, VisionTransformer,
 from dino_tpu_torch.ops.preprocess import normalize_imagenet, preprocess
 from dino_tpu_torch.ops.quant import quantize_vit
 from dino_tpu_torch.ops.upsample import kron_upsample
-from dino_tpu_torch.parallel.dist import (get_world_size,
+from dino_tpu_torch.parallel.dist import (agree_across_hosts,
+                                          all_reduce_sum_, barrier, get_rank,
+                                          get_world_size,
                                           is_dist_avail_and_initialized)
-from dino_tpu_torch.parallel.ring_attention import vit_forward_seq_parallel
+from dino_tpu_torch.parallel.mesh import ShardedOptimizer, materialize
+from dino_tpu_torch.parallel.ring_attention import (make_sp_train_step,
+                                                    vit_forward_seq_parallel)
 from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.train.loop import (init_opt_state,
                                        make_cached_head_eval_step,
@@ -102,7 +115,7 @@ _HPARAM_KEYS = ("data_path", "write_path", "class_names", "head", "n_blocks",
                 "moe_capacity")
 
 
-def _roadmap(what: str, item: int) -> str:
+def _roadmap(what: str, item: str) -> str:
     return (f"{what} is not ported yet (ROADMAP 'Modules to port' item "
             f"{item})")
 
@@ -116,15 +129,10 @@ def compute_dtype_of(precision: str) -> Optional[torch.dtype]:
     return None if precision == "fp32" else torch.bfloat16
 
 
-def _refuse_world(what: str) -> None:
-    """Raise under a torch.distributed world of more than one process:
-    ``fit`` and ``evaluate`` do not shard by rank yet, and every rank would
-    train on all the data, evaluate every sample and write the same
-    checkpoint."""
-    if is_dist_avail_and_initialized() and get_world_size() > 1:
-        raise NotImplementedError(_roadmap(
-            f"{what} over a torch.distributed world of {get_world_size()} "
-            f"processes (data parallelism over ranks, item 11.1)", 11))
+def _world_group():
+    """The default process group when it has more than one rank, else
+    None (a world of one, or no ``torch.distributed`` at all)."""
+    return dist.group.WORLD if get_world_size() > 1 else None
 
 
 def _pad_tail(arrs, b: int):
@@ -324,7 +332,7 @@ class DINOSeg:
                 raise ValueError(f"parallelism={parallelism!r} is not "
                                  f"supported with int8 params")
         if parallelism == "tp":
-            raise NotImplementedError(_roadmap("parallelism='tp'", 11))
+            raise NotImplementedError(_roadmap("parallelism='tp'", "11.4"))
         if parallelism == "sp" and not is_dist_avail_and_initialized():
             raise RuntimeError(
                 "parallelism='sp' shards the tokens over the default "
@@ -607,9 +615,9 @@ class DINOSeg:
         """Metrics of the current weights over one VOC-style split
         directory (``JPEGImages/`` + ``SegmentationClass/*.npy``):
         ``{prefix}_acc/_F1/_iou/_support``, and with ``per_class`` a
-        ``{prefix}_per_class`` list of rows.  Refuses a torch.distributed
-        world of more than one process (not sharded by rank yet)."""
-        _refuse_world("evaluate")
+        ``{prefix}_per_class`` list of rows.  Under a torch.distributed
+        world every rank calls it: rank r evaluates samples r, r+W, ... and
+        the confusion matrices are summed over the ranks."""
         res = resolution or self.train_resolution
         if res % 8 != 0:
             raise ValueError("Resolution should be a multiple of 8.")
@@ -631,12 +639,16 @@ class DINOSeg:
 
     def _run_eval(self, eval_step, dataset, batch_size: int) -> np.ndarray:
         """The confusion matrix of ``dataset`` (ragged last batch kept), read
-        from the card once."""
+        from the card once.  In a world of W ranks rank r takes samples r,
+        r+W, ... and the matrices are summed over the ranks (a rank with no
+        sample joins the sum with zeros)."""
         cm = torch.zeros((self.n_classes, self.n_classes), dtype=torch.int64,
                          device=self.device)
-        loader = batched_loader(dataset, np.arange(len(dataset)), batch_size)
+        idx = np.arange(len(dataset))[get_rank()::get_world_size()]
+        loader = batched_loader(dataset, idx, batch_size) if len(idx) else ()
         for x, y, _ in self._feed(loader):
             cm += eval_step(self.model.dino, self.model.clf, x, y)
+        all_reduce_sum_([cm], _world_group())
         return cm.cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -646,12 +658,12 @@ class DINOSeg:
     def _cache_plan(self, cache_features, n_train: int, n_val: int):
         """(cache_train, cache_val) for the frozen-feature cache: on with a
         frozen ViT backbone (a BatchNorm backbone's features change as its
-        running stats train); the train cache also needs un-augmented
-        frames.  A budget over both caches' device bytes
+        running stats train) in a world of one process; the train cache
+        also needs un-augmented frames.  A budget over both caches' device bytes
         ($DINO_TPU_FEATURE_CACHE_BYTES, default 2 GB) drops the train cache
         first, then the val cache."""
         if (cache_features is False or not self.freeze_backbone
-                or self.backbone != "vit"):
+                or self.backbone != "vit" or get_world_size() > 1):
             return False, False
         n_patches = (self.train_resolution // 8) ** 2
         cap = int(os.environ.get("DINO_TPU_FEATURE_CACHE_BYTES",
@@ -700,27 +712,66 @@ class DINOSeg:
         ``max(patience, 1)`` epochs without a strict val_acc improvement.
         ``cache_features`` ('auto'/True/False): with a frozen backbone the
         backbone runs once per image and the epochs train the head on the
-        cached features (the train cache needs ``augmented=False``).
-        ``accum_steps`` splits each batch into equal microbatches summed
-        into one update.  ``augment_backend`` picks where the augmentation
-        is computed ('auto': the native library when built, else numpy;
-        'native'; 'cv2': numpy; 'device': crop, flip, jitter and blur on
-        the model's device, with the affine warp and the grid labels on the
-        host); the drawn parameters are the same on every rung.  A ragged
-        last batch is padded and masked.  ``parallelism`` ('sp', 'pp'),
-        ``zero`` and ``fsdp`` are not ported, nor is a torch.distributed
-        world of more than one process (``fit`` raises under one)."""
+        cached features (the train cache needs ``augmented=False``; a world
+        of one process).  ``accum_steps`` splits each batch into equal
+        microbatches summed into one update.  ``augment_backend`` picks
+        where the augmentation is computed ('auto': the native library
+        when built, else numpy; 'native'; 'cv2': numpy; 'device': crop,
+        flip, jitter and blur on the model's device, with the affine warp
+        and the grid labels on the host); the drawn parameters are the same
+        on every rung.  A ragged last batch is padded and masked.
+
+        Under a torch.distributed world of W processes every rank calls
+        ``fit`` with the same arguments.  When W divides ``batch_size``
+        (data parallelism), every rank walks the same batch windows and
+        trains on rows [r*b/W, (r+1)*b/W) of each, its augmentation drawn
+        from ``default_rng([seed, epoch, 1 + r])``; otherwise every rank
+        trains on the whole batch (a warning).  Rank 0 alone logs and
+        writes the checkpoint and the resume file; the ranks meet at a
+        barrier after each epoch.  ``zero=True`` shards the optimizer's
+        moments over the ranks, ``fsdp=True`` the trainable parameters,
+        their gradients and moments (skipped with a warning for a frozen
+        backbone); both are no-ops in a world of one, and the files they
+        write are a plain run's.  ``parallelism='sp'`` shards the token
+        axis over the ranks instead (every rank loads the whole batch;
+        ``zero`` then shards the moments over the same ranks); 'pp' is not
+        ported."""
         if parallelism not in (None, "sp", "pp"):
             raise ValueError(f"unsupported train parallelism {parallelism!r}")
-        if parallelism is not None:
-            raise NotImplementedError(_roadmap(
-                f"fit(parallelism={parallelism!r})", 11))
-        if zero or fsdp:
-            raise NotImplementedError(_roadmap("fit(zero=..., fsdp=...)", 11))
-        _refuse_world("fit")
+        if parallelism == "pp":
+            raise NotImplementedError(_roadmap("fit(parallelism='pp')",
+                                               "11.5"))
+        if fsdp:
+            if zero:
+                raise ValueError("fsdp=True already shards the optimizer "
+                                 "state; drop zero=True")
+            if parallelism == "sp":
+                raise ValueError("fsdp composes with the default DP path; "
+                                 "under parallelism='sp' use zero=True "
+                                 "(token-axis state sharding) instead")
         if accum_steps < 1 or self.batch_size % accum_steps:
             raise ValueError(f"batch_size {self.batch_size} must divide "
                              f"by accum_steps {accum_steps}")
+        world = get_world_size()
+        if accum_steps > 1:
+            if parallelism == "sp":
+                raise ValueError("accum_steps composes with the default DP "
+                                 "path, not parallelism='sp' (the SP step "
+                                 "shards tokens, not the batch)")
+            if (world > 1 and self.batch_size % world == 0
+                    and (self.batch_size // accum_steps) % world):
+                raise ValueError(
+                    f"with data sharding each microbatch "
+                    f"({self.batch_size}//{accum_steps}) must divide by the "
+                    f"world size ({world})")
+        if parallelism == "sp":
+            if self.backbone != "vit":
+                raise ValueError("parallelism='sp' requires the ViT backbone")
+            if self.freeze_backbone:
+                raise ValueError("parallelism='sp' is the unfrozen-finetune "
+                                 "mode; frozen training needs no sequence "
+                                 "sharding (use the feature cache instead)")
+            self._check_parallelism("sp")
         if ck_file_name is None:
             ck_file_name = (str(self.n_blocks) + "_" + self.head
                             + ("_frozen" if self.freeze_backbone
@@ -728,20 +779,19 @@ class DINOSeg:
                             + ("_grayscale" if self.grayscale else ""))
         os.makedirs(self.write_path, exist_ok=True)
         ck_path = os.path.join(self.write_path, ck_file_name + ".ckpt.npz")
+        kw = dict(cache_features=cache_features, accum_steps=accum_steps,
+                  augment_backend=augment_backend, parallelism=parallelism,
+                  zero=zero, fsdp=fsdp)
         if self.pretrain_on_sim:
-            print("Pretraining on simulation data...")
+            if get_rank() == 0:
+                print("Pretraining on simulation data...")
             self._fit_phase(self.train_path_sim, self.val_path, ck_path,
-                            samples_per_epoch, seed, log=False,
-                            cache_features=cache_features,
-                            accum_steps=accum_steps,
-                            augment_backend=augment_backend)
+                            samples_per_epoch, seed, log=False, **kw)
         self._fit_phase(self.train_path, self.val_path, ck_path,
                         samples_per_epoch, seed, log=True, resume=resume,
-                        cache_features=cache_features,
-                        accum_steps=accum_steps,
-                        early_stopping=early_stopping,
-                        augment_backend=augment_backend)
-        # the test pass runs on the reloaded best checkpoint
+                        early_stopping=early_stopping, **kw)
+        # the test pass runs on the reloaded best checkpoint (rank 0's,
+        # published by the barrier at the last epoch's end)
         params, _ = load_checkpoint(ck_path)
         self.model.load_state_dict(from_jax_params(params["vit"],
                                                    params["head"]))
@@ -750,15 +800,40 @@ class DINOSeg:
         metrics = segmentation_metrics(test_cm, prefix="test")
         self._log(metrics, step=-1)
         self.best_ck = ck_path
-        if self.logger is not None and hasattr(self.logger, "log_asset"):
+        if (get_rank() == 0 and self.logger is not None
+                and hasattr(self.logger, "log_asset")):
             self.logger.log_asset(ck_path)
         return metrics
+
+    def _dp_batches(self, train_ds, idx, rng, seed: int, epoch: int,
+                    rank: int, world: int):
+        """Rank ``rank``'s share of an epoch under data parallelism: (its
+        loader, the per-row masks of its slabs).  Every rank walks the same
+        windows of ``batch_size`` indices, each padded to the full batch,
+        and takes rows [rank*b/W, (rank+1)*b/W); an augmented split draws
+        from ``default_rng([seed, epoch, 1 + rank])`` (``dino_tpu``'s
+        process ``rank``'s pixels), else from ``rng``, the epoch's."""
+        bs = self.batch_size
+        b_loc = bs // world
+        slabs, masks = [], []
+        for start in range(0, len(idx), bs):
+            (window,), mask = _pad_tail([idx[start:start + bs]], bs)
+            slabs.append(window[rank * b_loc:(rank + 1) * b_loc])
+            masks.append(mask[rank * b_loc:(rank + 1) * b_loc])
+        if train_ds.augmented:
+            rng = np.random.default_rng([seed, epoch, 1 + rank])
+        loader = (batched_loader(train_ds, np.concatenate(slabs), b_loc,
+                                 rng=rng, device=self.device)
+                  if slabs else ())
+        return loader, masks
 
     def _fit_phase(self, train_path: str, val_path: str, ck_path: str,
                    samples_per_epoch: int, seed: int, log: bool,
                    resume: bool = False, cache_features="auto",
                    accum_steps: int = 1, early_stopping: bool = False,
-                   augment_backend: str = "auto") -> None:
+                   augment_backend: str = "auto",
+                   parallelism: Optional[str] = None, zero: bool = False,
+                   fsdp: bool = False) -> None:
         res, bs = self.train_resolution, self.batch_size
         train_ds = self._make_dataset(train_path, self.augmented, res,
                                       augment_backend)
@@ -766,8 +841,36 @@ class DINOSeg:
         if len(train_ds) == 0:
             raise FileNotFoundError(f"no training images under {train_path}")
         vit, head = self.model.dino, self.model.clf
+        world, rank = get_world_size(), get_rank()
+        group = _world_group()
+        # data parallelism: the batch splits over the ranks when it divides
+        dp = group if parallelism is None and bs % world == 0 else None
+        if group is not None and parallelism is None and dp is None:
+            warnings.warn(
+                f"batch_size {bs} does not divide the world of {world} "
+                "processes: data parallelism cannot engage, every process "
+                "trains on the full data (correct but unscaled)")
+        zero_mesh = fsdp_mesh = None
+        if zero and dp is not None:
+            zero_mesh = dp
+        if fsdp and group is not None:
+            if self.freeze_backbone:
+                warnings.warn("fsdp=True skipped: freeze_backbone leaves "
+                              "only the head trainable (memory-trivial); "
+                              "FSDP shards the UNFROZEN train state")
+            else:
+                fsdp_mesh = group
+                if dp is None:
+                    warnings.warn(
+                        f"fsdp=True with batch_size {bs} not divisible by "
+                        f"{world} processes: every process computes the "
+                        "full batch (state memory still shards 1/N)")
         optimizer = make_optimizer(self.optimizer, self.lr)
-        opt_state = init_opt_state(optimizer, vit, head, self.freeze_backbone)
+        opt_state = init_opt_state(optimizer, vit, head, self.freeze_backbone,
+                                   zero_mesh=zero_mesh, fsdp_mesh=fsdp_mesh)
+        sp_zero = parallelism == "sp" and zero and group is not None
+        if sp_zero:  # ZeRO-1 over the ranks the tokens shard on
+            opt_state = ShardedOptimizer(opt_state, group)
         cache_train, cache_val = self._cache_plan(cache_features,
                                                   len(train_ds), len(val_ds))
         train_feats = val_feats = None
@@ -789,12 +892,19 @@ class DINOSeg:
             print(f"feature cache: train={cache_train} val={cache_val} "
                   f"({cache_bytes / 1e6:.0f} MB on the device; the frozen "
                   f"backbone runs once per image)")
-        if not cache_train:
+        if parallelism == "sp":
+            train_step = make_sp_train_step(
+                self.cfg, self.head, self.n_classes, optimizer,
+                compute_dtype=self.compute_dtype, zero=sp_zero,
+                **self._head_kwargs)
+        elif not cache_train:
             train_step = make_train_step(self.cfg, self.head, self.n_classes,
                                          optimizer, self.freeze_backbone,
                                          compute_dtype=self.compute_dtype,
                                          accum_steps=accum_steps,
                                          backbone=self.backbone,
+                                         zero_mesh=zero_mesh,
+                                         fsdp_mesh=fsdp_mesh, dp_group=dp,
                                          **self._head_kwargs)
         eval_step = self._eval_step()
 
@@ -803,7 +913,11 @@ class DINOSeg:
         ck_writer = AsyncCheckpointer(name="fit-ckpt")
         resume_path = ck_path + ".resume.npz"
         start_epoch, best_acc, since_improve = 0, -1.0, 0
-        if resume and os.path.exists(resume_path):
+        have_resume = os.path.exists(resume_path)
+        if resume and group is not None:
+            # rank 0 alone writes resume files: every rank must see one
+            agree_across_hosts("resume-state visibility", int(have_resume))
+        if resume and have_resume:
             run_vars = {"epoch": 0, "best_acc": -1.0, "since_improve": 0}
             vit_p, head_p = to_jax_params(self.model.state_dict())
             restored = restart_from_checkpoint(
@@ -815,14 +929,18 @@ class DINOSeg:
             start_epoch = int(run_vars["epoch"]) + 1
             best_acc = float(run_vars["best_acc"])
             since_improve = int(run_vars["since_improve"])
+            if group is not None:  # a torn or stale read fails fast
+                agree_across_hosts("resume epoch/best_acc",
+                                   [start_epoch, best_acc])
 
         patience = max(self.patience, 1)
         for epoch in range(start_epoch, self.max_epochs):
             # a resumed run that had already run out of patience stops here
             if early_stopping and since_improve >= patience:
-                print(f"[early stopping] resumed with since_improve="
-                      f"{since_improve} >= patience {self.patience}; not "
-                      f"training further")
+                if rank == 0:
+                    print(f"[early stopping] resumed with since_improve="
+                          f"{since_improve} >= patience {self.patience}; "
+                          f"not training further")
                 break
             t0, cpu0 = time.time(), time.process_time()
             rng = np.random.default_rng([seed, epoch])
@@ -845,6 +963,15 @@ class DINOSeg:
                                                  masks[i])
                     losses.append(loss)
                     cms.append(cm)
+            elif dp is not None:
+                loader, masks = self._dp_batches(train_ds, idx, rng, seed,
+                                                 epoch, rank, world)
+                for (x, y, _), m in zip(self._feed(loader, stats=stats),
+                                        masks):
+                    loss, cm = train_step(vit, head, opt_state, x, y,
+                                          torch.from_numpy(m).to(self.device))
+                    losses.append(loss)
+                    cms.append(cm)
             else:
                 loader = batched_loader(train_ds, idx, bs, rng=rng,
                                         device=self.device)
@@ -856,6 +983,7 @@ class DINOSeg:
             train_cm = torch.stack(cms).sum(0).cpu().numpy()
             train_s = time.time() - t0
             host_cpu_s = time.process_time() - cpu0
+            materialize(opt_state)  # FSDP: every rank gathers the params
 
             if val_feats is not None:
                 val_cm = cached_eval_step(head, val_feats,
@@ -881,38 +1009,54 @@ class DINOSeg:
                 metrics["hbm_util"] = round(hbm["utilization"], 4)
             if log:
                 self._log(metrics, step=epoch)
-                if (self.logger is not None
+                if (rank == 0 and self.logger is not None
                         and hasattr(self.logger, "log_confusion_matrix")):
                     self.logger.log_confusion_matrix(
                         val_cm, title="val", step=epoch,
                         labels=self.class_names,
                         file_name=f"val_epoch_{epoch}.json")
+            # from the summed confusion matrices: the same on every rank
             improved = metrics["val_acc"] > best_acc
             since_improve = 0 if improved else since_improve + 1
-            if improved:
-                self.save(ck_path, extra_hparams={
-                    "best_val_acc": metrics["val_acc"], "epoch": epoch})
-            if resume:
-                vit_p, head_p = to_jax_params(self.model.state_dict())
-                ck_writer.save_train_state(
-                    resume_path,
-                    {"vit": vit_p, "head": head_p,
-                     "opt_state": optimizer_arrays(opt_state)},
-                    run_variables={"epoch": epoch,
-                                   "best_acc": max(best_acc,
-                                                   metrics["val_acc"]),
-                                   "since_improve": since_improve})
+            # the sharded optimizer's state gathers on every rank
+            opt_arrays = optimizer_arrays(opt_state) if resume else None
+            if rank == 0:
+                if improved:
+                    self.save(ck_path, extra_hparams={
+                        "best_val_acc": metrics["val_acc"], "epoch": epoch})
+                if resume:
+                    vit_p, head_p = to_jax_params(self.model.state_dict())
+                    ck_writer.save_train_state(
+                        resume_path,
+                        {"vit": vit_p, "head": head_p,
+                         "opt_state": opt_arrays},
+                        run_variables={"epoch": epoch,
+                                       "best_acc": max(best_acc,
+                                                       metrics["val_acc"]),
+                                       "since_improve": since_improve})
             best_acc = max(best_acc, metrics["val_acc"])
+            if group is not None:
+                # the barrier publishes rank 0's files to the other ranks,
+                # so the resume file's write must land first
+                if rank == 0:
+                    ck_writer.wait()
+                barrier()
+            if isinstance(opt_state, ShardedOptimizer):
+                opt_state.release()  # FSDP: shards only between steps
             # since_improve is 0 right after an improving epoch, so
             # patience 0 must not stop an improving run
             if early_stopping and since_improve >= patience:
-                print(f"[early stopping] val_acc has not improved for "
-                      f"{since_improve} epochs (patience={self.patience}); "
-                      f"stopping at epoch {epoch}")
+                if rank == 0:
+                    print(f"[early stopping] val_acc has not improved for "
+                          f"{since_improve} epochs (patience="
+                          f"{self.patience}); stopping at epoch {epoch}")
                 break
         ck_writer.close()  # the resume file is on disk, the thread joined
+        materialize(opt_state)  # the model leaves fit whole
 
     def _log(self, metrics: Dict[str, float], step: int) -> None:
+        if get_rank() != 0:  # rank 0 logs for the world
+            return
         msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
         print(f"[epoch {step}] {msg}")
         if self.logger is not None and hasattr(self.logger, "log_metrics"):

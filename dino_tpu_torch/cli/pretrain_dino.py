@@ -10,9 +10,17 @@ package).
     python -m dino_tpu_torch.cli.pretrain_dino --data_path images/ \\
         --write_path out/ --epochs 10 --batch_size 16
 
-Runs on the card unless ``--device cpu`` is given, in one process: a
-``torch.distributed`` world of more than one process and ``--fsdp`` raise
-``NotImplementedError`` (ROADMAP item 11).  The recipe is ``dino_tpu``'s:
+Runs on the card unless ``--device cpu`` is given.  Over ranks, one process
+per card (``torchrun --nproc_per_node=N -m dino_tpu_torch.cli.pretrain_dino
+...``, which sets WORLD_SIZE and RANK, or a world the caller initialized):
+each rank loads its slab of every global batch and the step averages the
+gradients, the loss and the centre's batch mean over the ranks; the batch
+must divide by the world size.  ``--fsdp`` shards the student, the teacher
+and the optimizer's moments over the ranks (a no-op in a world of one).
+Rank 0 alone writes files; the ranks agree on a resume file's visibility
+and position, and on a stop signal (every step for the first steps, then
+every ``--stop_poll_secs`` of measured step time), so a SIGTERM to one rank
+stops every rank at the same step.  The recipe is ``dino_tpu``'s:
 AdamW with weight decay on the matrices only, the lr / weight-decay /
 teacher-momentum / teacher-temperature schedules set every step, crops
 keyed by (seed, epoch, image index) and a shuffle keyed by (seed, epoch),
@@ -27,6 +35,8 @@ import signal
 import time
 
 import numpy as np
+
+CADENCE_WARMUP = 8  # steps agreed one by one before the cadence is set
 
 
 def parse_args(argv=None):
@@ -50,8 +60,10 @@ def parse_args(argv=None):
                          "gradient): activation memory scales with "
                          "batch_size/accum_steps")
     ap.add_argument("--fsdp", action="store_true",
-                    help="FSDP/ZeRO-3 of the pretrain state: not ported "
-                         "(ROADMAP item 11); raises")
+                    help="FSDP/ZeRO-3: shard the student, the teacher and "
+                         "the AdamW moments over the ranks (flat shards, "
+                         "parallel/mesh.py); the parameters are gathered "
+                         "for each step.  No-op in a world of one")
     ap.add_argument("--lr", type=float, default=5e-4)
     ap.add_argument("--n_local_crops", type=int, default=8)
     ap.add_argument("--global_size", type=int, default=224)
@@ -75,6 +87,10 @@ def parse_args(argv=None):
     ap.add_argument("--stop_after_steps", type=int, default=None,
                     help="stop gracefully after this many optimizer steps "
                          "of this invocation (the path a SIGTERM takes)")
+    ap.add_argument("--stop_poll_secs", type=float, default=2.0,
+                    help="over ranks: target wall time between the "
+                         "stop-signal agreements; the step cadence comes "
+                         "from the slowest rank's measured step time")
     ap.add_argument("--nan_guard", action="store_true",
                     help="on a non-finite loss, roll the train state back "
                          "to the last checkpoint and skip the batch "
@@ -90,8 +106,8 @@ def main(argv=None):
     args = parse_args(argv)
 
     import torch
+    import torch.distributed as dist
 
-    from dino_tpu_torch.api import _refuse_world
     from dino_tpu_torch.checkpointing.async_writer import AsyncCheckpointer
     from dino_tpu_torch.checkpointing.convert import (from_jax_dino,
                                                       to_jax_dino,
@@ -102,25 +118,45 @@ def main(argv=None):
                                                      restart_from_checkpoint)
     from dino_tpu_torch.data.prefetch import prefetched
     from dino_tpu_torch.models import vit as vit_mod
+    from dino_tpu_torch.parallel.dist import (agree_across_hosts,
+                                              all_gather_flat,
+                                              any_across_hosts, barrier,
+                                              get_rank, get_world_size,
+                                              init_distributed_mode,
+                                              is_dist_avail_and_initialized)
     from dino_tpu_torch.train.dino_pretrain import (DinoConfig,
                                                     dino_multi_crop_batch,
                                                     dino_schedules,
                                                     init_dino_params,
                                                     make_dino_optimizer,
                                                     make_dino_train_step,
-                                                    set_hyperparams)
-    from dino_tpu_torch.train.loop import _roadmap
+                                                    set_hyperparams,
+                                                    shard_dino_state)
     from dino_tpu_torch.utils.device import resolve_device
     from dino_tpu_torch.utils.schedules import schedule_at
 
-    if args.fsdp:
-        raise NotImplementedError(_roadmap(
-            "--fsdp, FSDP / ZeRO-3 of the pretrain state (item 11.3)", 11))
-    _refuse_world("DINO pretraining")
+    if (not is_dist_avail_and_initialized()
+            and int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        init_distributed_mode()  # torchrun's environment
+    world, rank = get_world_size(), get_rank()
+    group = dist.group.WORLD if world > 1 else None
     device = resolve_device(args.device)
     if args.accum_steps > 1 and args.batch_size % args.accum_steps:
         raise ValueError(f"batch_size {args.batch_size} must divide by "
                          f"accum_steps {args.accum_steps}")
+    if world > 1:
+        # without the split every rank would train its own model on its
+        # slab alone
+        if args.batch_size % world:
+            raise ValueError(
+                f"pretraining over ranks needs batch_size divisible by the "
+                f"world size ({world}); got {args.batch_size}")
+        if (args.batch_size // world) % args.accum_steps:
+            raise ValueError(
+                f"with data sharding each microbatch "
+                f"({args.batch_size}//{args.accum_steps}) must divide by the "
+                f"world size ({world})")
+    b_loc = args.batch_size // world
 
     files = sorted(
         glob.glob(os.path.join(args.data_path, "**", "*.jpg"),
@@ -129,6 +165,11 @@ def main(argv=None):
                     recursive=True))
     if not files:
         raise FileNotFoundError(f"no images under {args.data_path}")
+    if world > 1 and len(files) < args.batch_size:
+        raise ValueError(
+            f"sharded pretraining needs at least batch_size "
+            f"({args.batch_size}) images for full batch windows; found "
+            f"{len(files)} (reduce --batch_size or add data)")
     os.makedirs(args.write_path, exist_ok=True)
 
     vit_cfg = getattr(vit_mod, args.arch)(patch_size=args.patch_size)
@@ -140,8 +181,13 @@ def main(argv=None):
         torch.Generator().manual_seed(args.seed), vit_cfg, dino_cfg,
         depth=args.depth, device=device)
     opt = make_dino_optimizer(student, lr=args.lr, weight_decay=0.04)
+    fsdp = args.fsdp and group is not None
+    if fsdp:  # sharded before the first step
+        opt = shard_dino_state(student, teacher, opt, group)
     step = make_dino_train_step(vit_cfg, dino_cfg,
-                                accum_steps=args.accum_steps)
+                                accum_steps=args.accum_steps,
+                                fsdp_mesh=group if fsdp else None,
+                                dp_group=group)
     center = torch.zeros((1, dino_cfg.out_dim), device=device)
 
     niter = max(1, len(files) // args.batch_size)
@@ -168,11 +214,19 @@ def main(argv=None):
         return tree
 
     def save_state(epoch, s):
-        writer.save_train_state(
-            resume_path, {"student": model_tree(student),
-                          "teacher": model_tree(teacher), "center": center,
-                          "opt_state": optimizer_arrays(opt)},
-            run_variables={"epoch": epoch, "step": s})
+        """Rank 0 writes the resume file; every rank calls this at the same
+        point (FSDP gathers the state first, a collective)."""
+        if fsdp:
+            opt.gather()
+        opt_arrays = optimizer_arrays(opt)
+        if rank == 0:
+            writer.save_train_state(
+                resume_path, {"student": model_tree(student),
+                              "teacher": model_tree(teacher),
+                              "center": center, "opt_state": opt_arrays},
+                run_variables={"epoch": epoch, "step": s})
+        if fsdp:
+            opt.release()
 
     def load_state():
         """Restore student, teacher, centre and optimizer from
@@ -181,14 +235,30 @@ def main(argv=None):
         restored = restart_from_checkpoint(
             resume_path, run_vars, student=None, teacher=None, center=None,
             opt_state=None)
+        if fsdp:
+            opt.gather()
         for model, name in ((student, "student"), (teacher, "teacher")):
             model.load_state_dict(from_jax_dino(restored[name]))
         center.copy_(torch.from_numpy(np.asarray(restored["center"])))
         load_optimizer_arrays(opt, restored["opt_state"])
+        if fsdp:  # re-shard what was restored
+            opt.reshard()
+            opt.release()
         return run_vars
 
+    def publish():
+        """Rank 0's pending write lands, then every rank meets."""
+        if group is not None:
+            if rank == 0:
+                writer.wait()
+            barrier()
+
     start_epoch, start_step = 0, 0
-    if args.resume and os.path.exists(resume_path):
+    have_resume = os.path.exists(resume_path)
+    if args.resume and group is not None:
+        agree_across_hosts("pretrain resume-state visibility",
+                           int(have_resume))
+    if args.resume and have_resume:
         run_vars = load_state()
         # "step" is the last completed step of "epoch" (None: all of it)
         last = (niter - 1 if run_vars["step"] is None
@@ -197,6 +267,9 @@ def main(argv=None):
             start_epoch = int(run_vars["epoch"]) + 1
         else:
             start_epoch, start_step = int(run_vars["epoch"]), last + 1
+        if group is not None:  # a torn or stale read fails fast
+            agree_across_hosts("pretrain resume epoch/step",
+                               start_epoch * niter + start_step)
 
     # SIGTERM / SIGINT ask for a graceful stop: the step in flight ends,
     # the state is checkpointed and the run exits 0, to be resumed
@@ -211,6 +284,11 @@ def main(argv=None):
     # which exercises --nan_guard's rollback
     fault_step = int(os.environ.get("DINO_TPU_FAULT_NAN_STEP", "-1"))
     steps_done, rollbacks, stopped = 0, 0, False
+    # over ranks the stop flag is agreed on (a collective): every step for
+    # the first CADENCE_WARMUP steps, then every `cadence` steps, from the
+    # slowest rank's measured step time, so a SIGTERM is answered within
+    # about --stop_poll_secs
+    cadence, poll_t0, poll_base = None, None, 0
     it = start_epoch * niter + start_step
     try:
         for epoch in range(start_epoch, args.epochs):
@@ -221,9 +299,10 @@ def main(argv=None):
             first = start_step if epoch == start_epoch else 0
 
             def load_step(s, _epoch=epoch):
-                return load_crops(
-                    order[s * args.batch_size:(s + 1) * args.batch_size],
-                    _epoch)
+                window = order[s * args.batch_size:(s + 1) * args.batch_size]
+                # this rank's slab
+                return load_crops(window[rank * b_loc:(rank + 1) * b_loc],
+                                  _epoch)
 
             for s, (g_crops, l_crops) in prefetched(range(first, niter),
                                                     load_step, depth=2):
@@ -249,17 +328,47 @@ def main(argv=None):
                             "divergence is persistent (lr too high or "
                             "corrupt data)")
                     writer.wait()
+                    publish()  # rank 0's file lands before anyone reads
                     if not os.path.exists(resume_path):
                         raise RuntimeError(
                             "nan_guard: non-finite loss before the first "
                             "checkpoint exists: nothing to roll back to")
-                    print(f"nan_guard: non-finite loss at epoch {epoch} "
-                          f"step {s}: rolled back to {resume_path} and "
-                          f"skipped the batch ({rollbacks}/3)")
-                    load_state()
+                    if rank == 0:
+                        print(f"nan_guard: non-finite loss at epoch "
+                              f"{epoch} step {s}: rolled back to "
+                              f"{resume_path} and skipped the batch "
+                              f"({rollbacks}/3)")
+                    rb_vars = load_state()
+                    if group is not None:
+                        agree_across_hosts(
+                            "nan_guard rollback epoch/step",
+                            [int(rb_vars["epoch"]),
+                             -1 if rb_vars["step"] is None
+                             else int(rb_vars["step"])])
                     continue
                 rollbacks = 0
-                stopped = (stop_requested["flag"]
+                stop_flag = stop_requested["flag"]
+                if group is not None:
+                    if cadence is None and poll_t0 is None:
+                        # after the first step: its one-off costs are out
+                        poll_t0, poll_base = time.time(), steps_done
+                    elif (cadence is None
+                          and steps_done - poll_base >= CADENCE_WARMUP):
+                        elapsed = all_gather_flat(torch.tensor(
+                            [time.time() - poll_t0], dtype=torch.float32,
+                            device=device)).max().item()
+                        step_t = elapsed / (steps_done - poll_base)
+                        cadence = max(1, min(64, int(
+                            args.stop_poll_secs / max(step_t, 1e-3))))
+                        if rank == 0:
+                            print(f"stop-agreement cadence: every {cadence} "
+                                  f"steps ({step_t:.2f}s/step on the "
+                                  f"slowest rank)")
+                    cad = cadence or 1
+                    stop_flag = (any_across_hosts(stop_flag)
+                                 if s % cad == cad - 1 or s == niter - 1
+                                 else False)
+                stopped = (stop_flag
                            or (args.stop_after_steps is not None
                                and steps_done >= args.stop_after_steps))
                 if stopped or (args.save_every_steps and s != niter - 1
@@ -268,18 +377,23 @@ def main(argv=None):
                 if stopped:
                     break
             if stopped:
+                publish()
                 writer.close()  # the stop's save lands before the exit
-                print(f"graceful stop at epoch {epoch} step "
-                      f"{it - 1 - epoch * niter} (signal or "
-                      f"--stop_after_steps); resume with --resume")
+                if rank == 0:
+                    print(f"graceful stop at epoch {epoch} step "
+                          f"{it - 1 - epoch * niter} (signal or "
+                          f"--stop_after_steps); resume with --resume")
                 return None
-            print(f"[epoch {epoch}] dino_loss={np.mean(losses):.4f} "
-                  f"lr={lr_s[it - 1]:.2e} m={mom_s[it - 1]:.4f} "
-                  f"({time.time() - t0:.1f}s)")
+            if rank == 0:
+                print(f"[epoch {epoch}] dino_loss={np.mean(losses):.4f} "
+                      f"lr={lr_s[it - 1]:.2e} m={mom_s[it - 1]:.4f} "
+                      f"({time.time() - t0:.1f}s)")
             save_state(epoch, niter - 1)
+            publish()
             if args.stop_after is not None and epoch >= args.stop_after:
-                print(f"stopping after epoch {epoch} (--stop_after); resume "
-                      "with --resume")
+                if rank == 0:
+                    print(f"stopping after epoch {epoch} (--stop_after); "
+                          "resume with --resume")
                 break
     finally:
         for sig, h in old_handlers.items():
@@ -289,10 +403,14 @@ def main(argv=None):
     # the teacher's backbone (the better model, per the paper), in the
     # converted-npz layout DINOSeg(pretrained_path=...) loads
     out = os.path.join(args.write_path, "dino_pretrained_backbone.npz")
-    vit_tree, _ = to_jax_params({"dino." + k: v for k, v in
-                                 teacher.vit.state_dict().items()})
-    np.savez(out, **flatten_params(vit_tree))
-    print(f"saved backbone -> {out}")
+    if fsdp:
+        opt.gather()  # both models whole on every rank
+    if rank == 0:
+        vit_tree, _ = to_jax_params({"dino." + k: v for k, v in
+                                     teacher.vit.state_dict().items()})
+        np.savez(out, **flatten_params(vit_tree))
+        print(f"saved backbone -> {out}")
+    barrier()
     return out
 
 

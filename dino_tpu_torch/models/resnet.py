@@ -45,6 +45,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dino_tpu_torch.parallel.dist import GroupSum, get_world_size
+
 VARIANTS = ("cnn1", "cnn2")
 # resnet50 stage layout: (blocks, mid_planes, out_planes, stride)
 _STAGES = [(3, 64, 256, 1), (4, 128, 512, 2), (6, 256, 1024, 2)]
@@ -167,19 +169,30 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor,
 
 
 def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor,
-                     eps: float = BN_EPS, momentum: float = BN_MOMENTUM):
+                     eps: float = BN_EPS, momentum: float = BN_MOMENTUM,
+                     group=None):
     """Train-mode BatchNorm: normalize with the batch statistics (biased
     variance); returns (y, (new running mean, new running var)), the
     running var fed the unbiased variance.  The new stats are detached:
-    state, not a differentiable output."""
+    state, not a differentiable output.  ``group`` (data parallelism, every
+    rank a slab of the same size): the statistics of the global batch, the
+    per-channel sums taken over the group (:class:`GroupSum`, whose
+    backward sums the cotangents), as ``dino_tpu``'s on a sharded batch."""
     xf = x.float()
-    mean_b = xf.mean(dim=(0, 2, 3))
-    var_b = torch.square(xf - mean_b[:, None, None]).mean(dim=(0, 2, 3))
+    world = get_world_size(group) if group is not None else 1
+    if world > 1:
+        n_all = x.shape[0] * x.shape[2] * x.shape[3] * world
+        mean_b = GroupSum.apply(xf.sum(dim=(0, 2, 3)), group) / n_all
+        var_b = GroupSum.apply(torch.square(
+            xf - mean_b[:, None, None]).sum(dim=(0, 2, 3)), group) / n_all
+    else:
+        mean_b = xf.mean(dim=(0, 2, 3))
+        var_b = torch.square(xf - mean_b[:, None, None]).mean(dim=(0, 2, 3))
     y = ((xf - mean_b[:, None, None])
          * torch.rsqrt(var_b + eps)[:, None, None]
          * bn.weight.float()[:, None, None]
          + bn.bias.float()[:, None, None]).to(x.dtype)
-    n = x.shape[0] * x.shape[2] * x.shape[3]
+    n = x.shape[0] * x.shape[2] * x.shape[3] * world
     var_unbiased = var_b.detach() * (n / max(n - 1, 1))
     new = ((1 - momentum) * bn.running_mean + momentum * mean_b.detach(),
            (1 - momentum) * bn.running_var + momentum * var_unbiased)
@@ -222,18 +235,20 @@ def _bottleneck(blk: Bottleneck, x: torch.Tensor, stride: int,
 
 
 def resnet_backbone_apply(model: ResNetBackbone, x: torch.Tensor,
-                          bn_collect: Optional[Dict] = None) -> torch.Tensor:
+                          bn_collect: Optional[Dict] = None,
+                          bn_group=None) -> torch.Tensor:
     """(B, H, W, 3) normalized image -> (B, 512, H/8, W/8) feature map.
 
     A dict as ``bn_collect`` switches BatchNorm to train mode (batch
     statistics, as the reference under PL's ``train()``, even with
     requires_grad off) and fills it with each BatchNorm module's new
-    running stats; :func:`update_bn_stats` writes them back."""
+    running stats; :func:`update_bn_stats` writes them back.  ``bn_group``:
+    the batch statistics over every rank's slab (data parallelism)."""
     if bn_collect is None:
         bn = batch_norm
     else:
         def bn(mod, y):
-            out, new = batch_norm_train(mod, y)
+            out, new = batch_norm_train(mod, y, group=bn_group)
             bn_collect[mod] = new
             return out
     x = x.permute(0, 3, 1, 2)
@@ -255,10 +270,11 @@ def resnet_backbone_apply(model: ResNetBackbone, x: torch.Tensor,
 
 
 def resnet_features(model: ResNetBackbone, x: torch.Tensor,
-                    bn_collect: Optional[Dict] = None) -> torch.Tensor:
+                    bn_collect: Optional[Dict] = None,
+                    bn_group=None) -> torch.Tensor:
     """(B, H, W, 3) -> (B*H/8*W/8, 512) patch features in row-major (h, w)
     order (NCHW permuted to NHWC before the fold)."""
-    feats = resnet_backbone_apply(model, x, bn_collect)
+    feats = resnet_backbone_apply(model, x, bn_collect, bn_group)
     return feats.permute(0, 2, 3, 1).reshape(-1, feats.shape[1])
 
 

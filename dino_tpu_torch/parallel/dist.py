@@ -1,24 +1,34 @@
-"""Multi-process runtime over ``torch.distributed`` and the collectives that
-sequence parallelism needs.
+"""Multi-process runtime over ``torch.distributed``: rank discovery, the
+collectives of sequence and data parallelism, and the agreement helpers of
+training over ranks.
 
 The counterpart of ``dino_tpu/parallel/dist.py`` (which feeds
 ``jax.distributed``): rank discovery from RANK / WORLD_SIZE / MASTER_ADDR,
 NCCL for a CUDA device and gloo for the CPU.  Where the JAX package writes
-``ppermute`` / ``psum`` / ``all_gather`` inside ``shard_map``, the port calls
-:func:`ring_shift`, :func:`all_reduce_sum_` and :func:`all_gather_seq` on a
-process group.
+``ppermute`` / ``psum`` / ``all_gather`` inside ``shard_map`` or lets GSPMD
+place them, the port calls :func:`ring_shift`, :func:`all_reduce_sum_`
+(any dtype: float gradients, int64 confusion matrices),
+:func:`all_gather_seq`, :func:`all_gather_flat` and :class:`GroupSum` (a
+sum whose backward is the same sum) on a process group.
+
+``agree_across_hosts``, ``any_across_hosts`` and ``reduce_dict`` gather
+every rank's value on every rank (so a disagreement raises on every rank,
+the writer included), and :func:`barrier` publishes rank 0's files: the
+decisions ``fit`` and the pretrain CLI must take in lockstep.
 
 Under a gloo group the collectives stage CUDA tensors through host copies:
 gloo's send/recv and all_gather take CPU tensors only, and NCCL refuses two
 ranks on one device, so this is how several ranks share one card (the
-kernels still run on the card).  ``agree_across_hosts``, ``any_across_hosts``
-and ``reduce_dict`` serve ``fit`` and come with it (ROADMAP 'Modules to
-port' item 5).
+kernels still run on the card).  gloo has no reduce-scatter: a sum that
+lands in shards is :func:`all_reduce_sum_` and a slice, on either backend,
+so NCCL and gloo give the same sums.
 """
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
 
 import torch
 import torch.distributed as dist
@@ -143,3 +153,99 @@ def all_gather_seq(t: torch.Tensor, group=None, dim: int = 1) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(d)]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(t.device)
+
+
+def all_gather_flat(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's 1-D ``t`` (the same length on every rank) stacked in
+    rank order: (world, len), on ``t``'s device."""
+    d = get_world_size(group)
+    if d == 1:
+        return t[None]
+    src = t.contiguous()
+    if _staged(group):
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(d)]
+    dist.all_gather(parts, src, group=group)
+    return torch.stack(parts).to(t.device)
+
+
+class GroupSum(torch.autograd.Function):
+    """Sum over the group, whose transpose is the same sum: the forward and
+    the backward each all-reduce (the JAX ``psum`` under ``grad``)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone()
+        all_reduce_sum_([out], group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        all_reduce_sum_([g], ctx.group)
+        return g, None
+
+
+def barrier(group=None) -> None:
+    """Every rank waits here for every other (a no-op in a world of one)."""
+    if get_world_size(group) > 1:
+        dist.barrier(group=group)
+
+
+def _gather_host(values: np.ndarray) -> np.ndarray:
+    """(world, *values.shape): every rank's host array, on every rank."""
+    t = torch.from_numpy(np.ascontiguousarray(values).reshape(-1))
+    if dist.get_backend() == "nccl":
+        t = t.cuda()
+    return all_gather_flat(t).cpu().numpy().reshape(
+        (get_world_size(),) + values.shape)
+
+
+def agree_across_hosts(name: str, value) -> np.ndarray:
+    """Gather every rank's ``value`` (as float32, as the JAX package's
+    gather rounds it) and raise on EVERY rank if any rank's differs from
+    rank 0's; returns rank 0's value.
+
+    Rank 0 alone writes resume and checkpoint files, so on a filesystem
+    that is not shared the other ranks would start from another state.  A
+    broadcast would let rank 0 compare its value with itself and walk on
+    into a collective that never completes; with the gather every rank,
+    the writer included, sees the disagreement.
+    """
+    local = np.atleast_1d(np.asarray(value, np.float32))
+    if get_world_size() < 2:
+        return local
+    gathered = _gather_host(local)
+    bad = [r for r in range(gathered.shape[0])
+           if not np.array_equal(gathered[r], gathered[0])]
+    if bad:
+        raise RuntimeError(
+            f"hosts disagree on {name} (this is rank {get_rank()}; ranks "
+            f"{bad} differ from rank 0: "
+            f"{ {r: gathered[r].tolist() for r in [0] + bad} }): training "
+            "over ranks needs a filesystem that every rank shares")
+    return gathered[0]
+
+
+def any_across_hosts(flag: bool) -> bool:
+    """True on every rank iff ``flag`` is set on any rank: a decision (a
+    stop signal that reached one rank first) taken at the same step
+    everywhere.  Every rank must call it at the same point."""
+    if get_world_size() < 2:
+        return bool(flag)
+    return bool(_gather_host(np.atleast_1d(np.int32(bool(flag)))).any())
+
+
+def reduce_dict(input_dict: Dict[str, float], average: bool = True
+                ) -> Dict[str, float]:
+    """Sum (or average) a dict of scalars over the ranks, in float64."""
+    world = get_world_size()
+    if world < 2:
+        return dict(input_dict)
+    names = sorted(input_dict)
+    values = np.array([float(input_dict[k]) for k in names], np.float64)
+    total = _gather_host(values).sum(axis=0)
+    if average:
+        total = total / world
+    return {k: float(v) for k, v in zip(names, total)}

@@ -18,9 +18,9 @@ summed locally and the dK/dV accumulators travelling with their K/V shard.
 Every rank runs the same collectives in the same order, in the forward and
 in autograd's backward.  ``make_sp_train_step`` builds the unfrozen
 finetune step on top, with the mlp, linear or (dense) MoE head; the MoE
-balance term sums its 2E+1 statistics over the group, not the features.
-SP x TP and ZeRO need ``parallel/tp.py`` and ``parallel/mesh.py`` (ROADMAP
-'Modules to port' item 11).
+balance term sums its 2E+1 statistics over the group, not the features;
+``zero=True`` shards the optimizer's moments over the same group.  SP x TP
+needs ``parallel/tp.py`` (ROADMAP 'Modules to port' item 11.4).
 """
 from __future__ import annotations
 
@@ -35,8 +35,10 @@ from dino_tpu_torch.models.vit import (Block, ViTConfig, VisionTransformer,
 from dino_tpu_torch.ops.attention import (flash_attention_bwd_dyn,
                                           flash_attention_with_lse_dyn)
 from dino_tpu_torch.ops.preprocess import normalize_imagenet
-from dino_tpu_torch.parallel.dist import (all_gather_seq, all_reduce_sum_,
-                                          get_rank, get_world_size, ring_shift)
+from dino_tpu_torch.parallel.dist import (GroupSum, all_gather_seq,
+                                          all_reduce_sum_, get_rank,
+                                          get_world_size, ring_shift)
+from dino_tpu_torch.parallel.mesh import ShardedOptimizer, optimizer_params
 from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.train.loop import MOE_BALANCE_COEF
 from dino_tpu_torch.train.metrics import confusion_matrix
@@ -44,7 +46,7 @@ from dino_tpu_torch.train.metrics import confusion_matrix
 _NEG_INF = -1e30
 
 
-def _roadmap(what: str, item: int) -> str:
+def _roadmap(what: str, item: str) -> str:
     return (f"{what} is not ported yet (ROADMAP 'Modules to port' item "
             f"{item})")
 
@@ -199,34 +201,16 @@ def vit_forward_seq_parallel(vit: VisionTransformer, x: torch.Tensor,
 
 
 def vit_forward_sp_tp(*args, **kwargs):
-    raise NotImplementedError(_roadmap("SP x TP (parallel/tp.py)", 11))
+    raise NotImplementedError(_roadmap("SP x TP (parallel/tp.py)", "11.4"))
 
 
 def make_sp_tp_train_step(*args, **kwargs):
-    raise NotImplementedError(_roadmap("SP x TP (parallel/tp.py)", 11))
+    raise NotImplementedError(_roadmap("SP x TP (parallel/tp.py)", "11.4"))
 
 
 # ---------------------------------------------------------------------------
 # Sequence-parallel training (finetune through the ring)
 # ---------------------------------------------------------------------------
-
-class GroupSum(torch.autograd.Function):
-    """Sum over the group, whose transpose is the same sum: the forward and
-    the backward each all-reduce (the JAX ``psum`` under ``grad``)."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        out = t.clone()
-        all_reduce_sum_([out], group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone()
-        all_reduce_sum_([g], ctx.group)
-        return g, None
-
 
 def moe_balance_sp(head, feats: torch.Tensor, w: torch.Tensor, group
                    ) -> torch.Tensor:
@@ -266,6 +250,13 @@ def make_sp_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
     all-reduce sums their cotangents in the backward, so the summed
     gradient is the replicated step's.  Sparse dispatch would claim
     capacity per token shard, not per batch, and raises.
+
+    ``zero=True``: ZeRO-1 over the same group the tokens shard on.
+    ``opt_state`` is then a ``parallel/mesh.py:ShardedOptimizer`` over it
+    (``ShardedOptimizer(init_opt_state(...), group)``; a plain optimizer is
+    accepted in a world of one): each rank updates its shard of the
+    moments from the summed gradients and the parameters are all-gathered,
+    the same bits as the replicated update.
     """
     if head_type not in ("mlp", "linear", "moe"):
         raise ValueError(f"unknown head for SP training: {head_type!r}")
@@ -274,12 +265,14 @@ def make_sp_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
                          "the capacity semantics (slots allocate per token "
                          "shard, not per batch, so different patches drop): "
                          "use the dense dispatch")
-    if zero:
-        raise NotImplementedError(_roadmap("ZeRO under SP", 11))
 
     def step(vit, head, opt_state, images_u8, labels, mask=None):
         d, me = get_world_size(group), get_rank(group)
-        params = [p for grp in opt_state.param_groups for p in grp["params"]]
+        if zero and d > 1 and not isinstance(opt_state, ShardedOptimizer):
+            raise TypeError("make_sp_train_step(zero=True) needs opt_state "
+                            "as a parallel.mesh.ShardedOptimizer over the "
+                            "SP group")
+        params = optimizer_params(opt_state)
         with matmul_ctx(compute_dtype):
             opt_state.zero_grad(set_to_none=True)
             x = normalize_imagenet(images_u8)

@@ -219,10 +219,10 @@ def export_predict(model, path: str, batch_size: int = 1,
         raise ValueError(f"unsupported export parallelism {parallelism!r}")
     if parallelism == "sp":
         raise NotImplementedError(_roadmap("export_predict(parallelism='sp')",
-                                           11))
+                                           "11.6"))
     if n_devices is not None and n_devices > 1:
         raise NotImplementedError(_roadmap(
-            f"export_predict(n_devices={n_devices})", 11))
+            f"export_predict(n_devices={n_devices})", "11.6"))
     if platforms is not None and list(platforms) != ["cuda"]:
         raise ValueError(f"the port exports for platforms ['cuda'], got "
                          f"{list(platforms)}")

@@ -35,8 +35,17 @@ step up to one rounding.
 The host side draws every crop's randomness in Python from a numpy
 Generator (:func:`draw_dino_params`) and makes the pixels with the native
 loader (``data/native_loader.py:dino_crops_batch``) where it builds, else
-with cv2 (:func:`apply_dino_crop`), as ``dino_tpu`` does.  FSDP of the
-pretrain state is not ported (ROADMAP item 11).
+with cv2 (:func:`apply_dino_crop`), as ``dino_tpu`` does.
+
+Over ranks (``dp_group``): every rank runs its equal slab of the global
+batch; the gradients, the loss and the teacher's batch mean are summed over
+the ranks and divided by their count, so the step is the global batch's
+(the mean of equal slabs' means).  ``fsdp_mesh``: the student, the teacher
+and the optimizer's moments live in flat shards over the ranks between
+steps (:func:`shard_dino_state`); the step gathers both models, reduces the
+gradients to the shards, clips each leaf by its norm over every shard (the
+squared norms summed over the ranks) and runs AdamW and the teacher's EMA
+on the shards.
 """
 from __future__ import annotations
 
@@ -53,8 +62,11 @@ from dino_tpu_torch.models.dino_head import (DINOHead, init_dino_head,
 from dino_tpu_torch.models.vit import (ViTConfig, VisionTransformer,
                                        init_vit_params, vit_forward)
 from dino_tpu_torch.ops.preprocess import normalize_imagenet
+from dino_tpu_torch.parallel.dist import all_reduce_sum_, get_world_size
+from dino_tpu_torch.parallel.mesh import (FlatShards, ShardedOptimizer,
+                                          gradient_norms, materialize,
+                                          optimizer_params)
 from dino_tpu_torch.precision import matmul_ctx
-from dino_tpu_torch.train.loop import _roadmap
 from dino_tpu_torch.train.optim import clip_gradients, get_params_groups
 from dino_tpu_torch.utils.device import resolve_device
 from dino_tpu_torch.utils.schedules import cosine_scheduler
@@ -163,6 +175,35 @@ def ema_update(teacher: nn.Module, student: nn.Module, momentum) -> None:
                                                float(one_m)))
 
 
+def shard_dino_state(student: DinoModel, teacher: DinoModel,
+                     opt: torch.optim.Optimizer, group) -> ShardedOptimizer:
+    """FSDP of the pretrain state over ``group``, before the first step:
+    ``opt`` (:func:`make_dino_optimizer`'s, no step taken yet) moved onto
+    flat shards of the student's parameters, the teacher's parameters
+    sharded alongside, and both models' full tensors dropped.  Pass the
+    result as the step's ``opt_state`` with ``fsdp_mesh=group``;
+    ``gather()`` materializes both models (a collective) for a save."""
+    if any(b.is_floating_point() for m in (student, teacher)
+           for b in m.buffers()):
+        raise TypeError("FSDP of the pretrain state shards parameters only")
+    sharded = ShardedOptimizer(opt, group, fsdp=True)
+    sharded.followers.append(FlatShards(list(teacher.parameters()), group))
+    sharded.release()
+    return sharded
+
+
+@torch.no_grad()
+def _ema_shards(opt_state: ShardedOptimizer, teacher: DinoModel,
+                student: DinoModel, momentum) -> None:
+    """:func:`ema_update` on the shards: the same elementwise math."""
+    m = np.float32(momentum)
+    one_m = np.float32(1.0) - m
+    t_shards = opt_state.followers[0].shards
+    s_shards = [opt_state.shard_of(p) for p in student.parameters()]
+    torch._foreach_mul_(t_shards, float(m))
+    torch._foreach_add_(t_shards, torch._foreach_mul(s_shards, float(one_m)))
+
+
 def dino_forward(model: DinoModel, crops: Sequence[torch.Tensor],
                  vit_cfg: ViTConfig,
                  compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -207,7 +248,7 @@ def set_hyperparams(opt: torch.optim.Optimizer, lr: float,
 def make_dino_train_step(vit_cfg: ViTConfig, dino_cfg: DinoConfig,
                          compute_dtype: Optional[torch.dtype] = None,
                          clip: float = 3.0, accum_steps: int = 1,
-                         fsdp_mesh=None) -> Callable:
+                         fsdp_mesh=None, dp_group=None) -> Callable:
     """Returns ``step(student, teacher, center, opt_state, g_crops,
     l_crops, teacher_temp, ema_momentum, freeze_last) -> loss``.
 
@@ -219,13 +260,18 @@ def make_dino_train_step(vit_cfg: ViTConfig, dino_cfg: DinoConfig,
     leaves the clipped gradients in the student's ``.grad``; it returns the
     loss, a 0-dim float32 tensor on the device.  ``compute_dtype=None`` is
     true float32 (TF32 off inside the step); ``torch.bfloat16`` runs the
-    backbones in bf16.  The batch must divide by ``accum_steps``."""
-    if fsdp_mesh is not None:
-        raise NotImplementedError(_roadmap(
-            "FSDP / ZeRO-3 of the pretrain state (item 11.3)", 11))
+    backbones in bf16.  The batch must divide by ``accum_steps``.
+
+    ``dp_group`` (more than one rank): each rank passes its slab of the
+    global batch, the same size on every rank; gradients, loss and the
+    teacher's batch mean are averaged over the group.  ``fsdp_mesh``:
+    ``opt_state`` is :func:`shard_dino_state`'s over that group; the
+    clipped gradients are then left in the shards' ``.grad``."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     n_crops = 2 + dino_cfg.n_local_crops
+    dp = (dp_group if dp_group is not None and get_world_size(dp_group) > 1
+          else None)
 
     def loss_of(student, teacher, center, g, l, teacher_temp):
         crops = [g[0], g[1]] + list(l.unbind(0))
@@ -249,8 +295,13 @@ def make_dino_train_step(vit_cfg: ViTConfig, dino_cfg: DinoConfig,
         if l_crops.dtype == torch.uint8:
             l_crops = normalize_imagenet(l_crops)
         teacher_temp = float(np.float32(teacher_temp))
-        params = [p for group in opt_state.param_groups
-                  for p in group["params"]]
+        sharded = isinstance(opt_state, ShardedOptimizer)
+        if fsdp_mesh is not None and not (sharded and opt_state.fsdp
+                                          and opt_state.group is fsdp_mesh):
+            raise TypeError("fsdp_mesh needs opt_state from "
+                            "shard_dino_state(..., group=fsdp_mesh)")
+        materialize(opt_state)
+        params = optimizer_params(opt_state)
         k, mb = accum_steps, b // accum_steps
         with matmul_ctx(compute_dtype):
             opt_state.zero_grad(set_to_none=True)
@@ -269,16 +320,35 @@ def make_dino_train_step(vit_cfg: ViTConfig, dino_cfg: DinoConfig,
             grads = [p.grad for p in params]
             if k > 1:
                 torch._foreach_div_(grads, float(k))
-            clip_gradients(grads, clip)
+            t_mean = t_sum / k
+            loss = loss_sum / k
+            if dp is not None:  # the global batch: the mean of the slabs'
+                n = float(get_world_size(dp))
+                all_reduce_sum_(grads + [t_mean, loss], dp)
+                torch._foreach_div_(grads, n)
+                t_mean, loss = t_mean / n, loss / n
             last = student.head.last_layer
-            torch._foreach_mul_([last.v.grad, last.g.grad],
+            last_grads = [last.v, last.g]
+            norms = None
+            if sharded:  # the clip and the update run on the shards
+                grads = opt_state.shard_grads()
+                norms = gradient_norms(grads, opt_state.group)
+                last_grads = [opt_state.shard_of(p) for p in last_grads]
+            clip_gradients(grads, clip, norms)
+            torch._foreach_mul_([p.grad for p in last_grads],
                                 1.0 - float(freeze_last))
-            opt_state.step()
-        ema_update(teacher, student, ema_momentum)
+            if sharded:
+                opt_state.step(grads_sharded=True)
+            else:
+                opt_state.step()
+        if sharded and opt_state.fsdp:  # the shards outlive the release
+            _ema_shards(opt_state, teacher, student, ema_momentum)
+        else:
+            ema_update(teacher, student, ema_momentum)
         with torch.no_grad():
-            center.copy_(center_ema(center, (t_sum / k)[None],
+            center.copy_(center_ema(center, t_mean[None],
                                     dino_cfg.center_momentum))
-        return loss_sum / k
+        return loss
 
     return step
 

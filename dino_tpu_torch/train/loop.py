@@ -20,20 +20,31 @@ ResNet backbones with the MLP, linear or MoE head:
     step returns the loss and an on-device confusion matrix.
 
 PyTorch updates in place: the step changes the modules' parameters and the
-optimizer's state instead of returning new ones.  ZeRO and FSDP are not
-ported (ROADMAP item 11).
+optimizer's state instead of returning new ones.
+
+Over ranks (``dp_group``, one process per card): each rank runs its slab of
+the global batch, the gradients, the loss, the confusion matrix and the
+weight total are summed over the ranks before the one division by the
+global weight total, and every rank makes the same update.  ZeRO-1
+(``zero_mesh``) and FSDP (``fsdp_mesh``) take a
+``parallel/mesh.py:ShardedOptimizer`` over that group
+(:func:`init_opt_state`'s ``zero_mesh`` / ``fsdp_mesh``).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+from torch.distributed import ProcessGroup
 
 from dino_tpu_torch.models.heads import (head_apply, moe_balance_loss,
                                          moe_balance_stats)
 from dino_tpu_torch.models.resnet import resnet_features, update_bn_stats
 from dino_tpu_torch.models.vit import ViTConfig, VisionTransformer, vit_forward
 from dino_tpu_torch.ops.preprocess import normalize_imagenet
+from dino_tpu_torch.parallel.dist import all_reduce_sum_, get_world_size
+from dino_tpu_torch.parallel.mesh import (ShardedOptimizer, materialize,
+                                          optimizer_params)
 from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.train.metrics import confusion_matrix
 
@@ -44,11 +55,6 @@ REMAT_TOKENS = 200_000
 MOE_BALANCE_COEF = 0.01
 
 Optimizer = Callable[[list], torch.optim.Optimizer]
-
-
-def _roadmap(what: str, item: int) -> str:
-    return (f"{what} is not ported yet (ROADMAP 'Modules to port' item "
-            f"{item})")
 
 
 def make_optimizer(name: str, lr: float) -> Optimizer:
@@ -74,23 +80,42 @@ def make_optimizer(name: str, lr: float) -> Optimizer:
 
 
 def init_opt_state(optimizer: Optimizer, vit: VisionTransformer,
-                   head: torch.nn.Module,
-                   freeze_backbone: bool) -> torch.optim.Optimizer:
-    """The optimizer over the head, or over the head and the backbone."""
+                   head: torch.nn.Module, freeze_backbone: bool,
+                   zero_mesh=None, fsdp_mesh=None):
+    """The optimizer over the head, or over the head and the backbone.
+    ``zero_mesh`` / ``fsdp_mesh`` (a process group) move it onto shards of
+    the parameters over that group (ZeRO-1 / FSDP,
+    ``parallel/mesh.py:ShardedOptimizer``)."""
     params = list(head.parameters())
     if not freeze_backbone:
         params += list(vit.parameters())
-    return optimizer(params)
+    opt = optimizer(params)
+    if zero_mesh is not None and fsdp_mesh is not None:
+        raise ValueError("fsdp_mesh and zero_mesh are mutually exclusive: "
+                         "FSDP already shards the optimizer state")
+    group = zero_mesh if zero_mesh is not None else fsdp_mesh
+    if group is not None:
+        opt = ShardedOptimizer(opt, group, fsdp=fsdp_mesh is not None)
+    return opt
+
+
+def _check_group(name: str, group) -> None:
+    if group is not None and not isinstance(group, ProcessGroup):
+        raise TypeError(f"{name} takes a torch.distributed process group "
+                        f"(dist.group.WORLD for the default one), got "
+                        f"{type(group).__name__}")
 
 
 def backbone_features(vit: torch.nn.Module, x: torch.Tensor, cfg: ViTConfig,
                       backbone: str = "vit", remat: bool = False,
-                      bn_collect: Optional[dict] = None) -> torch.Tensor:
+                      bn_collect: Optional[dict] = None,
+                      bn_group=None) -> torch.Tensor:
     """Normalized (B, H, W, 3) -> (B*N_patches, D) patch features: the ViT's
     tokens without CLS, or a ResNet's (B, H/8, W/8, 512) map in row-major
-    order (``bn_collect`` switches its BatchNorm to train mode)."""
+    order (``bn_collect`` switches its BatchNorm to train mode, with batch
+    statistics over ``bn_group``'s ranks' slabs too)."""
     if backbone != "vit":
-        return resnet_features(vit, x, bn_collect)
+        return resnet_features(vit, x, bn_collect, bn_group)
     tokens = vit_forward(vit, x, cfg, remat=remat)
     return tokens[:, 1:, :].reshape(-1, tokens.shape[-1])
 
@@ -104,7 +129,7 @@ def seg_forward(vit: torch.nn.Module, head: torch.nn.Module, cfg: ViTConfig,
                 bn_collect: Optional[dict] = None,
                 feat_sink: Optional[dict] = None,
                 moe_dispatch: str = "dense",
-                moe_capacity: float = 1.25) -> torch.Tensor:
+                moe_capacity: float = 1.25, bn_group=None) -> torch.Tensor:
     """uint8 (B,res,res,3) -> (B*N_patches, n_classes) log-probs.
 
     Backbone -> (ViT: drop CLS) -> fold patches onto the batch axis ->
@@ -114,7 +139,8 @@ def seg_forward(vit: torch.nn.Module, head: torch.nn.Module, cfg: ViTConfig,
     softmax and the final log_softmax stay float32.  ``freeze_backbone``
     runs the backbone under ``torch.no_grad()``; ``remat`` recomputes the
     ViT's blocks in the backward pass.  ``bn_collect`` (a dict) runs a
-    ResNet's BatchNorm in train mode and collects its running stats;
+    ResNet's BatchNorm in train mode and collects its running stats (the
+    batch statistics summed over ``bn_group``'s ranks, if given);
     ``feat_sink`` (a dict) receives the head's input features under
     ``"feats"`` (the MoE balance term's input).
     """
@@ -124,7 +150,8 @@ def seg_forward(vit: torch.nn.Module, head: torch.nn.Module, cfg: ViTConfig,
         x = x.to(compute_dtype)
     with torch.set_grad_enabled(torch.is_grad_enabled()
                                 and not freeze_backbone):
-        feats = backbone_features(vit, x, cfg, backbone, remat, bn_collect)
+        feats = backbone_features(vit, x, cfg, backbone, remat, bn_collect,
+                                  bn_group)
     if feat_sink is not None:
         feat_sink["feats"] = feats
     return head_apply(head_type, head, feats, moe_dispatch, moe_capacity)
@@ -145,7 +172,7 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
                     optimizer: Optimizer, freeze_backbone: bool,
                     compute_dtype: Optional[torch.dtype] = None,
                     accum_steps: int = 1, backbone: str = "vit",
-                    zero_mesh=None, fsdp_mesh=None,
+                    zero_mesh=None, fsdp_mesh=None, dp_group=None,
                     moe_dispatch: str = "dense",
                     moe_capacity: float = 1.25) -> Callable:
     """Returns ``step(vit, head, opt_state, images_u8, labels, mask=None)
@@ -173,11 +200,29 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
     the monolithic step's.  Sparse MoE dispatch and BatchNorm backbones
     cannot split a batch exactly and raise.
     ``compute_dtype=None`` is true float32 (TF32 off inside the step).
+
+    ``dp_group`` (a process group of more than one rank): data
+    parallelism.  Each rank passes its slab of the global batch (the same
+    size on every rank, padded rows masked out) and the step takes the sum
+    form above on it; the gradients, the loss sum, the confusion matrix
+    and the weight total are summed over the group, so every rank divides
+    the same sums by the global weight total and makes the same update.
+    The MoE stats pass sums its routing sums over the group, and a ResNet
+    backbone's BatchNorm takes its batch statistics over the global batch.
+    ``zero_mesh`` / ``fsdp_mesh``: ``opt_state`` must be
+    :func:`init_opt_state`'s ``ShardedOptimizer`` over that group (ZeRO-1
+    moments, or FSDP parameters, gradients and moments, in shards); under
+    FSDP the step gathers the parameters first and drops them after the
+    update.
     """
     if backbone not in ("vit", "cnn1", "cnn2"):
         raise ValueError(f"unknown backbone {backbone!r}")
-    if zero_mesh is not None or fsdp_mesh is not None:
-        raise NotImplementedError(_roadmap("ZeRO / FSDP", 11))
+    if zero_mesh is not None and fsdp_mesh is not None:
+        raise ValueError("fsdp_mesh and zero_mesh are mutually exclusive: "
+                         "FSDP already shards the optimizer state")
+    for name, group in (("zero_mesh", zero_mesh), ("fsdp_mesh", fsdp_mesh),
+                        ("dp_group", dp_group)):
+        _check_group(name, group)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if accum_steps > 1 and head_type == "moe" and moe_dispatch == "sparse":
@@ -188,6 +233,14 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
     if accum_steps > 1 and backbone != "vit":
         raise ValueError("accum_steps>1 needs full-batch BatchNorm "
                          "statistics for cnn backbones: use accum_steps=1")
+    dp = (dp_group if dp_group is not None and get_world_size(dp_group) > 1
+          else None)
+    if dp is not None and head_type == "moe" and moe_dispatch == "sparse":
+        raise ValueError("data parallelism with moe_dispatch='sparse' "
+                         "changes the capacity semantics (slots are "
+                         "allocated per rank's slab, not per batch): use "
+                         "the dense dispatch")
+    sharded = zero_mesh if zero_mesh is not None else fsdp_mesh
     moe = head_type == "moe"
     hk = dict(moe_dispatch=moe_dispatch, moe_capacity=moe_capacity)
 
@@ -198,7 +251,7 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
                            compute_dtype=compute_dtype, remat=remat,
                            freeze_backbone=freeze_backbone,
                            backbone=backbone, bn_collect=bn_collect,
-                           feat_sink=feat_sink, **hk)
+                           feat_sink=feat_sink, bn_group=dp, **hk)
 
     def monolithic(vit, head, images, labels, mask):
         bn_collect = {} if backbone != "vit" else None
@@ -220,7 +273,7 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
     @torch.no_grad()
     def routing_fractions(vit, head, images, w, mb, w_total):
         """The stats pass: the full batch's routing fractions f (E,) from a
-        forward-only pass over the microbatches."""
+        forward-only pass over the microbatches (and the ranks)."""
         a_tot = 0
         for i in range(accum_steps):
             x = normalize_imagenet(images[i * mb:(i + 1) * mb])
@@ -228,6 +281,8 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
                 x = x.to(compute_dtype)
             feats = backbone_features(vit, x, cfg, backbone)
             a_tot = a_tot + moe_balance_stats(head, feats, weights=w[i])[0]
+        if dp is not None:
+            all_reduce_sum_([a_tot], dp)
         return a_tot / w_total
 
     def accumulated(vit, head, params, images, labels, mask):
@@ -238,16 +293,20 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
         m = (torch.ones(b, device=images.device) if mask is None
              else mask.float())
         w = m.repeat_interleave(n_patch).reshape(k, mb * n_patch)
-        w_total = (m.sum() * n_patch).clamp_min(1.0)
+        w_total = m.sum() * n_patch
+        if dp is not None:
+            all_reduce_sum_([w_total], dp)
+        w_total = w_total.clamp_min(1.0)
         f_router = (routing_fractions(vit, head, images, w, mb, w_total)
                     if moe else None)
+        bn_collect = {} if backbone != "vit" else None
         loss_sum = torch.zeros((), device=images.device)
         cm = torch.zeros((n_classes, n_classes), dtype=torch.int64,
                          device=images.device)
         for i in range(k):
             sink = {} if moe else None
             logp = logp_of(vit, head, images[i * mb:(i + 1) * mb],
-                           feat_sink=sink)
+                           bn_collect=bn_collect, feat_sink=sink)
             y = labels[i * mb:(i + 1) * mb].reshape(-1)
             picked = logp.gather(1, y.long()[:, None])[:, 0]
             ls = -(picked * w[i]).sum()
@@ -260,24 +319,34 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
             loss_sum += ls.detach()
             cm += confusion_matrix(logp.detach().argmax(dim=-1), y,
                                    n_classes, w[i])
+        if dp is not None:
+            for p in params:  # every rank sums the same list of tensors
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            all_reduce_sum_([loss_sum, cm] + [p.grad for p in params], dp)
         for p in params:
             if p.grad is not None:
                 p.grad.div_(w_total)
-        return loss_sum / w_total, cm
+        return loss_sum / w_total, cm, bn_collect
 
     def step(vit, head, opt_state, images_u8, labels, mask=None):
         if accum_steps > 1 and images_u8.shape[0] % accum_steps:
             raise ValueError(
                 f"batch {images_u8.shape[0]} must divide by "
                 f"accum_steps={accum_steps} (microbatches are equal-sized)")
-        params = [p for group in opt_state.param_groups
-                  for p in group["params"]]
-        bn_collect = None
+        if sharded is not None and not (
+                isinstance(opt_state, ShardedOptimizer)
+                and opt_state.group is sharded):
+            raise TypeError("zero_mesh / fsdp_mesh need opt_state from "
+                            "init_opt_state(..., zero_mesh= / fsdp_mesh=) "
+                            "over the same group")
+        materialize(opt_state)
+        params = optimizer_params(opt_state)
         with matmul_ctx(compute_dtype):
             opt_state.zero_grad(set_to_none=True)
-            if accum_steps > 1:
-                loss, cm = accumulated(vit, head, params, images_u8, labels,
-                                       mask)
+            if accum_steps > 1 or dp is not None:
+                loss, cm, bn_collect = accumulated(vit, head, params,
+                                                   images_u8, labels, mask)
             else:
                 loss, cm, bn_collect = monolithic(vit, head, images_u8,
                                                   labels, mask)

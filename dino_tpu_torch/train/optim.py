@@ -8,21 +8,24 @@ the same numbers.
 """
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Tuple, Union
+from typing import Callable, Iterable, List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 
-def clip_gradients(grads: List[torch.Tensor],
-                   clip: float) -> List[torch.Tensor]:
+def clip_gradients(grads: List[torch.Tensor], clip: float,
+                   norms: Optional[List[torch.Tensor]] = None
+                   ) -> List[torch.Tensor]:
     """DINO's per-parameter clip, in place: each gradient is scaled by
     min(1, clip / (||g|| + 1e-6)), its own L2 norm, not the global one.
-    Returns the norms (float32 0-dim tensors, on the gradients' device; no
-    host sync)."""
+    ``norms`` gives the norms when ``grads`` are shards of the leaves
+    (``parallel/mesh.py:gradient_norms``).  Returns the norms (float32
+    0-dim tensors, on the gradients' device; no host sync)."""
     if not grads:
         return []
-    norms = [torch.linalg.vector_norm(g.float()) for g in grads]
+    if norms is None:
+        norms = [torch.linalg.vector_norm(g.float()) for g in grads]
     scales = [torch.clamp(clip / (n + 1e-6), max=1.0) for n in norms]
     torch._foreach_mul_(grads, scales)
     return norms

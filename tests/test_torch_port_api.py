@@ -14,7 +14,7 @@ import torch
 from dino_tpu.api import DINOSeg as JaxDINOSeg
 from dino_tpu.ops.preprocess import preprocess as jax_preprocess
 from dino_tpu.train.loop import seg_forward as jax_seg_forward
-from dino_tpu_torch import DINOSeg
+from dino_tpu_torch import DINOSeg, export_predict
 from dino_tpu_torch.api import resolve_device
 from dino_tpu_torch.checkpointing.convert import from_jax_params
 from dino_tpu_torch.models.vit import Mlp, ViTConfig
@@ -263,7 +263,7 @@ def test_unported_methods_raise(pair):
         pm.predict(_frames(1)[0], parallelism="tp")
     with pytest.raises(NotImplementedError, match="item 11"):
         pm.predict_stream(iter(_frames(2)), batch_size=2, parallelism="tp")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pm.fit(parallelism="sp")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pm.fit(zero=True)
+    with pytest.raises(NotImplementedError, match="item 11.5"):
+        pm.fit(parallelism="pp")
+    with pytest.raises(NotImplementedError, match="item 11.6"):
+        export_predict(pm, "unused.dtts", n_devices=2)

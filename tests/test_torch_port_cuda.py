@@ -662,3 +662,73 @@ def test_full_depth_pretrain_step_launches(cuda):
     assert bool(torch.isfinite(loss))
     assert all(bool(torch.isfinite(p.grad).all())
                for p in student.parameters())
+
+
+def test_sharded_fused_adamw_has_the_plain_bits(cuda):
+    """The fused AdamW on flat shards (ZeRO-1's and FSDP's update) takes the
+    same per-element steps as on whole tensors, moments included."""
+    from dino_tpu_torch.parallel.mesh import ShardedOptimizer
+    g = torch.Generator(device=cuda).manual_seed(3)
+    shapes = ((384, 1152), (1152,), (7,))
+    init = [torch.randn(s, generator=g, device=cuda) for s in shapes]
+    whole = [p.clone().requires_grad_() for p in init]
+    flat = [p.clone().requires_grad_() for p in init]
+    opt_w = torch.optim.AdamW(whole, lr=1e-3, fused=True)
+    opt_f = ShardedOptimizer(torch.optim.AdamW(flat, lr=1e-3, fused=True))
+    for _ in range(3):
+        grads = [torch.randn(s, generator=g, device=cuda) for s in shapes]
+        for w, f, gr in zip(whole, flat, grads):
+            w.grad, f.grad = gr.clone(), gr.clone()
+        opt_w.step()
+        opt_f.step()
+    for w, f in zip(whole, flat):
+        assert torch.equal(w, f)
+    got = opt_f.state_dict()["state"]
+    for i, st in opt_w.state_dict()["state"].items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(got[i][k], st[k])
+
+
+_DP_RANK = """
+import hashlib, json, sys
+import torch
+import torch.distributed as dist
+cfg = json.loads(sys.argv[1])
+from dino_tpu_torch import DINOSeg
+from dino_tpu_torch.ops import attention as tatt
+from dino_tpu_torch.parallel import dist as pd
+from dino_tpu_torch.train import loop as tloop
+pd.init_distributed_mode("gloo", cfg["init"], cfg["world"], cfg["rank"])
+m = DINOSeg(head="mlp", n_blocks=1, n_classes=3, random_init=True, seed=1,
+            freeze_backbone=False)
+vit, head, world = m.model.dino, m.model.clf, dist.group.WORLD
+opt = tloop.make_optimizer("adam", 1e-4)
+state = tloop.init_opt_state(opt, vit, head, False, zero_mesh=world)
+step = tloop.make_train_step(m.cfg, "mlp", 3, opt, False,
+                             compute_dtype=torch.bfloat16, zero_mesh=world,
+                             dp_group=world)
+gen = torch.Generator().manual_seed(2)
+x = torch.randint(0, 255, (4, 64, 64, 3), generator=gen, dtype=torch.uint8)
+y = torch.randint(0, 3, (4, 64), generator=gen, dtype=torch.int32)
+rows = slice(2 * cfg["rank"], 2 * cfg["rank"] + 2)
+before = tatt.flash_attention_bwd.launches
+step(vit, head, state, x[rows].cuda(), y[rows].cuda())
+h = hashlib.sha1()
+for p in m.model.parameters():
+    h.update(p.detach().cpu().numpy().tobytes())
+with open(cfg["out"], "w") as fh:
+    json.dump({"digest": h.hexdigest(),
+               "bwd": tatt.flash_attention_bwd.launches - before}, fh)
+"""
+
+
+def test_two_ranks_sharing_the_card_hold_one_replica(cuda, tmp_path):
+    """A ZeRO-1 data-parallel bf16 step over two gloo ranks on the card:
+    both launch the flash backward and end with the same bits."""
+    import json
+
+    from tests.test_torch_port_multiprocess import spawn_ranks
+    outs = [json.load(open(o)) for o in spawn_ranks(tmp_path, 2, _DP_RANK,
+                                                    {})]
+    assert outs[0]["digest"] == outs[1]["digest"]
+    assert all(o["bwd"] == 1 for o in outs)

@@ -5,7 +5,7 @@ A few synthetic JPEGs under ``tmp_path``; ViT-S/8 at depth 1, out_dim 16,
 backbone loads into the port's DINOSeg, which predicts; a stopped and
 resumed run (at an epoch's end and mid-epoch) ends with the uninterrupted
 run's teacher, bit for bit; --nan_guard rolls back over injected NaN
-crops; --fsdp and a world of more than one process raise.
+crops; --fsdp in a world of one is the plain run.
 """
 import os
 
@@ -13,7 +13,6 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from dino_tpu_torch import api
 from dino_tpu_torch.api import DINOSeg
 from dino_tpu_torch.cli.pretrain_dino import main as pretrain_main
 
@@ -99,10 +98,12 @@ def test_cli_nan_guard_rolls_back(images, tmp_path, monkeypatch, capsys):
         assert np.isfinite(v).all()
 
 
-def test_cli_refuses_fsdp_and_worlds(images, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _run(images, str(tmp_path / "a"), "--epochs", "1", "--fsdp")
-    monkeypatch.setattr(api, "is_dist_avail_and_initialized", lambda: True)
-    monkeypatch.setattr(api, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _run(images, str(tmp_path / "b"), "--epochs", "1")
+def test_cli_fsdp_in_a_world_of_one_is_the_plain_run(images, tmp_path):
+    """--fsdp shards over the ranks: with no process group it is a no-op
+    (over ranks: tests/test_torch_port_dp_pretrain.py)."""
+    _run(images, str(tmp_path / "a"), "--epochs", "1", "--fsdp")
+    _run(images, str(tmp_path / "b"), "--epochs", "1")
+    got, want = _backbone(str(tmp_path / "a")), _backbone(str(tmp_path / "b"))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -309,8 +309,11 @@ def test_head_g_takes_adam_and_decay_with_zero_gradient(setup):
 
 
 def test_fsdp_and_bad_accum_raise():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tdp.make_dino_train_step(TVIT, TDINO, fsdp_mesh=object())
+    # FSDP takes shard_dino_state's optimizer, not a plain one
+    step = tdp.make_dino_train_step(TVIT, TDINO, fsdp_mesh=object())
+    with pytest.raises(TypeError, match="shard_dino_state"):
+        step(None, None, None, None, torch.zeros(2, 4, 32, 32, 3),
+             torch.zeros(2, 4, 16, 16, 3), 0.04, 0.99, 0.0)
     step = tdp.make_dino_train_step(TVIT, TDINO, accum_steps=3)
     with pytest.raises(ValueError, match="accum_steps"):
         step(None, None, None, None, torch.zeros(2, 4, 32, 32, 3),

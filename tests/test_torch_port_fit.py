@@ -250,11 +250,14 @@ def test_evaluate_and_dataloaders_equal_dino_tpu(voc_root, tmp_path):
 def test_unported_fit_options_raise(voc_root, tmp_path):
     pm = DINOSeg(write_path=str(tmp_path), device="cpu",
                  **_kwargs(voc_root))
-    for kw, item in ((dict(parallelism="sp"), "item 11"),
-                     (dict(parallelism="pp"), "item 11"),
-                     (dict(zero=True), "item 11"),
-                     (dict(fsdp=True), "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="item 11.5"):
+        pm.fit(parallelism="pp")
+    # sequence parallelism finetunes the backbone (this model's is frozen)
+    with pytest.raises(ValueError, match="unfrozen-finetune"):
+        pm.fit(parallelism="sp", zero=True)
+    for kw, match in ((dict(zero=True, fsdp=True), "drop zero=True"),
+                      (dict(fsdp=True, parallelism="sp"), "use zero=True")):
+        with pytest.raises(ValueError, match=match):
             pm.fit(**kw)
     with pytest.raises(ValueError, match="parallelism"):
         pm.fit(parallelism="dp")

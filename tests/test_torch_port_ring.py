@@ -346,9 +346,9 @@ def test_sp_predict_needs_a_process_group():
     (lambda: tring.make_sp_train_step(ViTConfig(), "moe", 7, None,
                                       moe_dispatch="sparse"),
      ValueError, "sparse"),
-    (lambda: tring.make_sp_train_step(ViTConfig(), "mlp", 7, None,
-                                      zero=True), NotImplementedError,
-     "item 11"),
+    (lambda: tring.make_sp_train_step(ViTConfig(), "seg", 7, None,
+                                      zero=True), ValueError,
+     "unknown head"),
     (lambda: tring.vit_forward_sp_tp(), NotImplementedError, "item 11"),
     (lambda: tring.make_sp_tp_train_step(), NotImplementedError, "item 11"),
 ])

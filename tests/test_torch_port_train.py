@@ -235,8 +235,10 @@ def test_eval_step_and_feature_fn_match_jax(setup):
     (dict(head_type="moe", moe_dispatch="sparse", accum_steps=2),
      ValueError, "sparse"),
     (dict(backbone="cnn1", accum_steps=2), ValueError, "BatchNorm"),
-    (dict(zero_mesh=object()), NotImplementedError, "item 11"),
-    (dict(fsdp_mesh=object()), NotImplementedError, "item 11"),
+    (dict(zero_mesh=object()), TypeError, "process group"),
+    (dict(fsdp_mesh=object()), TypeError, "process group"),
+    (dict(zero_mesh=object(), fsdp_mesh=object()), ValueError,
+     "mutually exclusive"),
     (dict(accum_steps=0), ValueError, "accum_steps"),
 ])
 def test_make_train_step_rejects(kwargs, exc, match):
