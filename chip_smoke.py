@@ -130,7 +130,23 @@ each printing JSON lines:
      batch 16) without and with FSDP (images/s, peak memory, state bytes,
      the collectives) and the pretrain CLI over the ranks with --fsdp;
      exact launch counts throughout, summed into the kernels line;
-  14. timing (CUDA events around bursts of back-to-back calls, median of
+  14. tensor parallelism (tp): the kernels at the TP paths' shapes that
+     earlier phases do not cover (a rank's head group of the 480px
+     predict, the DP x TP microbatch, the 2 x 2 SP x TP hop) against their
+     plain versions, then rank processes sharing the card over gloo: a
+     world of 2 runs (a) predict_batch(parallelism='tp') at the bench
+     config, batch 3 and 1, bf16 and fp32, against the world of one (fp32
+     labels equal except top-2 gaps under MARGIN, bf16 under 1e-2; every
+     rank the same bits; 3 forward launches a call, no fused MLP) and (c)
+     the bf16 unfrozen step at the train bench's shapes with the blocks
+     split over the ranks (host ms, the model group's all-reduce ms, the
+     whole parameters the same bits on every rank); a world of 4 on the 2 x
+     2 grid (parallel/mesh.py:make_grid) runs (b) the fp32 240px DP x TP
+     step without and with ZeRO-1 and the SP x TP step against the world
+     of one (loss, every gradient leaf within STEP_GRAD_REL of its max,
+     ZeRO-1 the plain bits), then the bf16 SP x TP step; exact launch
+     counts, summed into the kernels line;
+  15. timing (CUDA events around bursts of back-to-back calls, median of
      the bursts; the bf16 kernels and the f32 backward also replayed from a
      CUDA graph, which takes the host out) at the 480px predict shapes
      (batch 3; the fused MLP also at one frame), the train bench's
@@ -143,14 +159,18 @@ each printing JSON lines:
      forward's and backward's on their route: three TF32 passes); the fp32
      predict latency at 480 and 960px; then the cli/bench line
      (predict and train);
-  15. the per-kernel summary line, the card line, and the final status
+  16. the per-kernel summary line, the card line, and the final status
       line.
 
 ``python3 chip_smoke.py --sp-world W`` (W cards) runs only phase 6's rank
 checks with one rank per card over NCCL, ``--dp-world W`` phase 13's DP,
-ZeRO and FSDP checks ((a) and (b)'s steps).  ``--sp-rank R --sp-world W
---sp-store PATH --sp-backend B`` (and ``--dp-rank ...``) is one rank
-process (started by the script itself).
+ZeRO and FSDP checks ((a) and (b)'s steps), ``--tp-world W`` phase 14's
+(a) over NCCL in worlds of 2 and W ranks, with the TP predict latency at
+batch 1 and 3 beside the world of one's on card 0, one all-reduce's ms,
+each rank's peak memory and weight bytes, and with W = 4 (b) on 2 x 2
+cards.  ``--sp-rank R --sp-world W --sp-store PATH --sp-backend B`` (and
+``--dp-rank ...``, ``--tp-rank ...``) is one rank process (started by the
+script itself).
 """
 import argparse
 import contextlib
@@ -3948,6 +3968,496 @@ def dp_cards_main(world, card):
                                  "count": torch.cuda.device_count()}})
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: tensor parallelism (TP predict, DP x TP and SP x TP training)
+# ---------------------------------------------------------------------------
+
+TP_RANK_TIMEOUT = 600  # seconds for a world of rank processes, from its start
+TP_PRED_RES = 480      # (a): the bench config, 480x640 frames at 480px
+TP_BF16_MARGIN = 1e-2  # bf16 top-2 gap below which TP labels may differ
+TP_F32_RES = 240       # (b): fp32 steps at 240px
+TP_LAT_CALLS = 20      # timed predicts per reading (--tp-world)
+
+
+def tp_frames(batch, seed=0):
+    return np.random.RandomState(seed).randint(
+        0, 256, (batch, 480, 640, 3)).astype(np.uint8)
+
+
+def head_inputs(b, nh, n, dtype, seed):
+    """q, k, v (b, nh, N, 64) on the card: a rank's head group."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(b, nh, n, 64, generator=g, device="cuda").to(dtype)
+            for _ in range(3)]
+
+
+def tp_kernel_checks():
+    """The kernels at the shapes the TP paths give them that earlier phases
+    do not cover, against their plain versions: the forward (both dtypes)
+    at a rank's head group of the 480px predict (B·nh_l 3 and 9, N
+    3,601), the bf16 backward at the DP x TP bench microbatch (2 x 3
+    heads, N 3,601), the f32 backward at the fp32 240px DP x TP slab (2 x
+    3, N 901), and the dynamic-bound pair at the 2 x 2 SP x TP hop (2 x 3
+    heads, 451 keys a shard) in both dtypes."""
+    n480, n240 = (480 // 8) ** 2 + 1, (TP_F32_RES // 8) ** 2 + 1
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = FLASH_TOL[dtype]
+        for b, nh in ((1, 3), (3, 3), (3, 1)):
+            q, k, v = head_inputs(b, nh, n480, dtype, seed=b * 10 + nh)
+            out, lse = flash_attention(q, k, v, SCALE, return_lse=True)
+            torch.cuda.synchronize()
+            ref, ref_lse = attention_plain(q, k, v, SCALE)
+            err = (out.float() - ref.float()).abs()
+            rec = {"phase": "tp", "part": "kernel_check",
+                   "kernel": "flash_attn_fwd", "dtype": str(dtype)[6:],
+                   "bh": b * nh, "n": n480, "max_abs_err": err.max().item(),
+                   "lse_max_abs_err": (lse - ref_lse).abs().max().item()}
+            emit(rec)
+            check(bool((err <= atol + rtol * ref.float().abs()).all())
+                  and rec["lse_max_abs_err"] <= LSE_ATOL,
+                  f"flash forward at a TP head group {rec}")
+    for dtype, n in ((torch.bfloat16, n480), (torch.float32, n240)):
+        q, k, v = head_inputs(2, 3, n, dtype, seed=n)
+        g = torch.Generator(device="cuda").manual_seed(n + 1)
+        do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+        out, lse = flash_attention(q, k, v, SCALE, return_lse=True)
+        got = flash_attention_bwd(q, k, v, out, lse, do, SCALE)
+        torch.cuda.synchronize()
+        errs, ok = bwd_err(got, attention_bwd_plain(q, k, v, out, lse, do,
+                                                    SCALE), dtype)
+        rec = {"phase": "tp", "part": "kernel_check",
+               "kernel": "flash_attn_bwd", "dtype": str(dtype)[6:], "bh": 6,
+               "n": n, "max_abs_err": max(errs)}
+        emit(rec)
+        check(ok, f"flash backward at a TP head group {rec}")
+    n_local, bounds = sp_shapes(n240, 2)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = head_inputs(2, 3, n_local, dtype, seed=n_local)
+        g = torch.Generator(device="cuda").manual_seed(n_local + 1)
+        do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+        for valid in bounds:
+            if not valid:
+                continue
+            out, lse = flash_attention_with_lse_dyn(q, k, v, SCALE, valid)
+            ref, ref_lse = attention_dyn_plain(q, k, v, SCALE, valid)
+            dsum = (do.float() * ref.float()).sum(-1).reshape(6, n_local)
+            got = flash_attention_bwd_dyn(q, do, ref_lse, dsum, k, v, SCALE,
+                                          valid)
+            torch.cuda.synchronize()
+            b_errs, b_ok = bwd_dyn_err(got, attention_bwd_dyn_plain(
+                q, do, ref_lse, dsum, k, v, SCALE, valid), dtype)
+            err = (out.float() - ref.float()).abs()
+            atol, rtol = FLASH_TOL[dtype]
+            rec = {"phase": "tp", "part": "kernel_check",
+                   "kernel": "flash_attn_fwd_dyn + flash_attn_bwd_dyn",
+                   "dtype": str(dtype)[6:], "bh": 6, "n_local": n_local,
+                   "valid": valid, "fwd_max_abs_err": err.max().item(),
+                   "bwd_max_abs_err": max(b_errs)}
+            emit(rec)
+            check(bool((err <= atol + rtol * ref.float().abs()).all()),
+                  f"dyn forward at the SP x TP hop {rec}")
+            check(b_ok, f"dyn backward at the SP x TP hop {rec}")
+
+
+def tp_predict_checks(rank, world, backend):
+    """(a) DINOSeg.predict_batch(parallelism='tp') at the bench config
+    (ViT-S/8, 3 blocks, MLP head, 7 classes, 480x640 frames at 480px),
+    batch 3 and 1, bf16 and fp32, against the world of one on this card
+    (predict_batch without parallelism): fp32 labels equal except top-2
+    gaps under MARGIN, bf16 under TP_BF16_MARGIN; every rank the same bits;
+    3 forward launches a call of a rank with heads, no fused MLP.  Returns
+    the launch counts."""
+    model = DINOSeg(head="mlp", n_blocks=3, n_classes=7, precision="bf16",
+                    random_init=True, seed=0)
+    model.set_resolution(TP_PRED_RES)
+    heads = model._tp_params()[0][0]["heads"]
+    total = {}
+    for prec, margin in (("bf16", TP_BF16_MARGIN), ("fp32", MARGIN)):
+        for batch in (3, 1):
+            frames = tp_frames(batch)
+            want = model.predict_batch(frames, precision=prec)
+            logp = model.log_probs(torch.from_numpy(frames).cuda(),
+                                   precision=prec).cpu()
+            got, launches = counted(lambda: model.predict_batch(
+                frames, precision=prec, parallelism="tp"))
+            add_counts(total, launches)
+            n_diff, n_far = labels_agree(got, want, near_ties(logp, margin),
+                                         TP_PRED_RES // 8)
+            f32 = 3 * (prec == "fp32") if heads else 0
+            expect = dict(sp_want(0), flash_attn_fwd=3 if heads else 0,
+                          flash_attn_fwd_f32=f32)
+            rec = {"phase": "tp", "part": "a predict vs world of one",
+                   "rank": rank, "world": world, "backend": backend,
+                   "precision": prec, "batch": batch, "heads": heads,
+                   "patches_differing": n_diff, "differing_past_margin":
+                   n_far, "margin": margin,
+                   "ranks_same_bits": replicas_same(
+                       [torch.from_numpy(got)]),
+                   "launches": launches, "want": expect}
+            emit(rec)
+            check(n_far == 0, f"TP labels differ past the margin {rec}")
+            check(rec["ranks_same_bits"], f"TP ranks' labels differ {rec}")
+            check(launches == expect, f"TP predict launches {rec}")
+    return total
+
+
+def tp_bench_step(rank, world, backend):
+    """(c) the bf16 unfrozen step at the train bench's shapes (480px, batch
+    16 in 8 microbatches of 2) with the blocks tensor-parallel over the
+    ranks (make_train_step(tp_group=...); the data group is one rank):
+    one warm-up and DP_STEPS timed steps on the host clock, then one step
+    with the model group's all-reduces timed; the whole parameters the
+    same bits on every rank after each step.  Returns the launch counts."""
+    from dino_tpu_torch.parallel.tp import tp_shard_vit
+    group = dist.group.WORLD
+    rs = np.random.RandomState(21)
+    x = torch.from_numpy(rs.randint(0, 255, (DP_BATCH, FIT_RES, FIT_RES, 3))
+                         .astype(np.uint8)).cuda()
+    y = torch.from_numpy(rs.randint(0, 7, (DP_BATCH, (FIT_RES // 8) ** 2))
+                         .astype(np.int32)).cuda()
+    m = sp_model("bf16")
+    tvit, head = tp_shard_vit(m.model.dino, group), m.model.clf
+    optimizer = make_optimizer("adam", DP_LR)
+    opt = init_opt_state(optimizer, tvit, head, False)
+    accum = DP_BATCH // DP_MICRO
+    step = make_train_step(m.cfg, "mlp", 7, optimizer, False,
+                           compute_dtype=torch.bfloat16, accum_steps=accum,
+                           tp_group=group)
+    whole = [p for n, p in tvit.named_parameters()
+             if n.split(".")[-1] not in ("qkv_w", "qkv_b", "proj_w", "fc1_w",
+                                         "fc1_b", "fc2_w")]
+    whole += list(head.parameters())
+    want = launches_want(fwd=3 * accum, bwd=3 * accum)
+    total, host, same, losses = {}, [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(1 + DP_STEPS):
+        t0 = time.perf_counter()
+        (loss, _), got = counted(lambda: step(tvit, head, opt, x, y))
+        host.append((time.perf_counter() - t0) * 1e3)
+        add_counts(total, got)
+        check(got == want, f"TP step launches {got}, want {want}")
+        losses.append(loss.item())
+        same.append(replicas_same(whole))
+    spent = {"tp_all_reduce": 0.0}
+    real = pdist.all_reduce_sum_
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(*a, **k)
+        torch.cuda.synchronize()
+        spent["tp_all_reduce"] += (time.perf_counter() - t0) * 1e3
+    pdist.all_reduce_sum_ = timed
+    try:
+        t0 = time.perf_counter()
+        step(tvit, head, opt, x, y)
+        torch.cuda.synchronize()
+        timed_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        pdist.all_reduce_sum_ = real
+    rec = {"phase": "tp", "part": "c bf16 TP step at the bench shape",
+           "rank": rank, "world": world, "backend": backend,
+           "res": FIT_RES, "batch": DP_BATCH, "accum_steps": accum,
+           "host_ms_per_step": host, "host_ms": float(np.median(host[1:])),
+           "frames_per_s": DP_BATCH / float(np.median(host[1:])) * 1e3,
+           "instrumented_step_ms": timed_ms,
+           "model_group_all_reduce_ms": spent["tp_all_reduce"],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "losses": losses, "whole_params_same_bits": same,
+           "launches_per_step": want}
+    emit(rec)
+    check(all(same), f"TP step: the whole parameters part {rec}")
+    check(all(np.isfinite(losses)), f"TP step loss {rec}")
+    return total
+
+
+def tp_grads(tvit, head, group):
+    """{name: full gradient} of a rank's shard and head, in the standard
+    layout (a collective over the model group)."""
+    from dino_tpu_torch.parallel.tp import tp_gather_state
+    out = {"dino." + k: v for k, v in
+           tp_gather_state(tvit, group, grads=True).items()}
+    out.update({"clf." + k: p.grad for k, p in head.named_parameters()})
+    return out
+
+
+def tp_f32_steps(rank, world, backend):
+    """(b) on the 2 x 2 grid (parallel/mesh.py:make_grid(2)), fp32 at 240px:
+    the DP x TP step (global batch 4, 2 a data rank) without and with ZeRO-1
+    and the SP x TP step (batch 2) against the world-of-one step from the
+    same weights and batch (the head's ReLU choices replayed from it): loss
+    rtol STEP_LOSS_RTOL, every gradient leaf within STEP_GRAD_REL of its
+    max, ZeRO-1 the plain DP x TP bits; then the bf16 SP x TP step, its
+    loss within SP_BF16_LOSS_RTOL of the world of one's.  Returns the
+    launch counts."""
+    from dino_tpu_torch.parallel.mesh import make_grid
+    from dino_tpu_torch.parallel.ring_attention import make_sp_tp_train_step
+    from dino_tpu_torch.parallel.tp import tp_gather_state, tp_shard_vit
+    dg, mg = make_grid(2)
+    d = dist.get_rank(dg)
+    out = TP_F32_RES // 8
+    rs = np.random.RandomState(24)
+    imgs = torch.from_numpy(rs.randint(0, 255, (4, TP_F32_RES, TP_F32_RES,
+                                                3)).astype(np.uint8)).cuda()
+    labels = torch.from_numpy(rs.randint(0, 7, (4, out * out)).astype(
+        np.int32)).cuda()
+    total = {}
+
+    def single(cfg, opt, cdt):
+        return make_train_step(cfg, "mlp", 7, opt, False, compute_dtype=cdt)
+
+    masks = []
+    with head_relu(record=masks):
+        ref_m, ref_loss, _ = one_step("fp32", imgs, labels, single)
+    ref = {n: p.grad for n, p in ref_m.model.named_parameters()}
+    n_rows = 2 * out * out
+    local = [mk[d * n_rows:(d + 1) * n_rows] for mk in masks]
+    finals = {}
+    for mode in ("plain", "zero"):
+        m = sp_model("fp32")
+        tvit, head = tp_shard_vit(m.model.dino, mg), m.model.clf
+        zm = dg if mode == "zero" else None
+        optimizer = make_optimizer("adam", 1e-5)
+        opt = init_opt_state(optimizer, tvit, head, False, zero_mesh=zm)
+        seen = {}
+        if mode == "zero":
+            shards, real = opt.shards, opt.inner.step
+
+            def gathered_step():
+                full = shards._gather_flat([s.grad for s in shards.shards])
+                seen.update({id(p): g.view(s) for p, g, s in
+                             zip(opt.params, full, shards.shapes)})
+                real()
+            opt.inner.step = gathered_step
+        step = make_train_step(m.cfg, "mlp", 7, optimizer, False,
+                               dp_group=dg, tp_group=mg, zero_mesh=zm)
+        with head_relu(replay=local) as flips:
+            (loss, _), got = counted(lambda: step(
+                tvit, head, opt, imgs[2 * d:2 * d + 2],
+                labels[2 * d:2 * d + 2]))
+        add_counts(total, got)
+        if mode == "zero":
+            for p in list(tvit.parameters()) + list(head.parameters()):
+                p.grad = seen[id(p)]
+        worst, leaf = grads_vs(tp_grads(tvit, head, mg), ref)
+        finals[mode] = tp_gather_state(tvit, mg)
+        want = launches_want(fwd_f32=3, bwd_f32=3)
+        rec = {"phase": "tp", "part": "b fp32 DP x TP vs world of one",
+               "mode": mode, "rank": rank, "world": world,
+               "backend": backend, "res": TP_F32_RES, "global_batch": 4,
+               "grid": [2, 2], "loss": loss.item(),
+               "loss_world_of_one": ref_loss.item(),
+               "grad_worst_rel_diff": worst, "grad_worst_leaf": leaf,
+               "grad_tol": STEP_GRAD_REL, "head_relu_units_replayed": flips,
+               "launches": got, "want": want}
+        if mode == "zero":
+            rec["moment_shard_elems_vs_slice"] = [
+                [int(opt.inner.state[sh]["exp_avg"].numel()), n]
+                for sh, n in zip(opt.shards.shards, opt.shards.numels)][:4]
+            rec["state_bytes"] = opt.resident_bytes()
+        emit(rec)
+        check(got == want, f"DP x TP fp32 launches {rec}")
+        check(abs(loss.item() - ref_loss.item())
+              <= STEP_LOSS_RTOL * abs(ref_loss.item()),
+              f"DP x TP fp32 loss {rec}")
+        check(worst <= STEP_GRAD_REL, f"DP x TP fp32 gradients {rec}")
+        del m, tvit, head, opt, step
+    diff = max((finals["zero"][k] - v).abs().max().item()
+               for k, v in finals["plain"].items())
+    emit({"phase": "tp", "part": "b ZeRO-1 vs plain DP x TP", "rank": rank,
+          "max_abs_diff": diff})
+    check(diff == 0.0, f"DP x TP ZeRO-1 parts from plain: {diff}")
+
+    # SP x TP, batch 2: the world-of-one step on the first two frames
+    imgs2, labels2 = imgs[:2], labels[:2]
+    for prec in ("fp32", "bf16"):
+        masks = [] if prec == "fp32" else None
+        with (head_relu(record=masks) if masks is not None
+              else contextlib.nullcontext()):
+            ref_m, ref_loss, _ = one_step(prec, imgs2, labels2, single)
+        ref = {n: p.grad for n, p in ref_m.model.named_parameters()}
+        with (head_relu(replay=masks, rows=(2, out * out, 2, d))
+              if masks is not None else contextlib.nullcontext()) as flips:
+            (sp_m, loss, _), got = counted(lambda: one_step(
+                prec, imgs2, labels2, lambda cfg, opt, cdt:
+                make_sp_tp_train_step(cfg, "mlp", 7, opt, dg, mg,
+                                      compute_dtype=cdt)))
+        add_counts(total, got)
+        worst, leaf = grads_vs({n: p.grad for n, p in
+                                sp_m.model.named_parameters()}, ref)
+        want = (sp_want(3 * 2, bwd_f32=3 * 2) if prec == "fp32"
+                else sp_want(3 * 2, bwd_dyn=3 * 2))
+        rec = {"phase": "tp", "part": "b SP x TP vs world of one",
+               "precision": prec, "rank": rank, "world": world,
+               "backend": backend, "res": TP_F32_RES, "batch": 2,
+               "grid": [2, 2], "loss": loss.item(),
+               "loss_world_of_one": ref_loss.item(),
+               "grad_worst_rel_diff": worst, "grad_worst_leaf": leaf,
+               "head_relu_units_replayed": flips, "launches": got,
+               "want": want}
+        emit(rec)
+        check(got == want, f"SP x TP launches {rec}")
+        check(bool(torch.isfinite(loss)), f"SP x TP loss {rec}")
+        if prec == "fp32":
+            check(abs(loss.item() - ref_loss.item())
+                  <= STEP_LOSS_RTOL * abs(ref_loss.item()),
+                  f"SP x TP fp32 loss {rec}")
+            check(worst <= STEP_GRAD_REL, f"SP x TP fp32 gradients {rec}")
+        else:
+            check(abs(loss.item() - ref_loss.item())
+                  <= SP_BF16_LOSS_RTOL * abs(ref_loss.item()),
+                  f"SP x TP bf16 loss {rec}")
+        del ref_m, sp_m
+    return total
+
+
+def predict_latency(model, batch, parallelism=None, precision="bf16"):
+    """Host ms of DINOSeg.predict_device at the bench config (frames already
+    on the card, labels left there, the card synchronized after each
+    call): the median of TP_LAT_CALLS calls after 3 untimed ones, and the
+    readings.  Every rank of a TP world calls it in step."""
+    imgs = torch.from_numpy(tp_frames(batch)).cuda()
+    for _ in range(3):
+        model.predict_device(imgs, precision, parallelism)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TP_LAT_CALLS):
+        t0 = time.perf_counter()
+        model.predict_device(imgs, precision, parallelism)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), times
+
+
+def tp_latency(rank, world, backend):
+    """--tp-world: TP predict latency at batch 1 and 3 (bf16, the bench
+    config), beside one all-reduce of a block's (B, 3,601, 384) float32
+    partial (a predict makes two a block, six in all), the rank's peak
+    memory over the calls, and its weight bytes (its blocks' slices and
+    the whole embeddings, norms and head) against the whole model's."""
+    model = DINOSeg(head="mlp", n_blocks=3, n_classes=7, precision="bf16",
+                    random_init=True, seed=0)
+    model.set_resolution(TP_PRED_RES)
+    blocks, head, _ = model._tp_params()
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    sliced = nbytes([v for b in blocks for v in b.values()
+                     if torch.is_tensor(v)])
+    whole_vit = nbytes(list(model.model.dino.parameters()))
+    blocks_whole = nbytes(list(model.model.dino.blocks.parameters()))
+    rank_bytes = sliced + whole_vit - blocks_whole + nbytes(
+        list(head.parameters()))
+    n = (TP_PRED_RES // 8) ** 2 + 1
+    for batch in (1, 3):
+        torch.cuda.reset_peak_memory_stats()
+        ms, times = predict_latency(model, batch, "tp")
+        peak = torch.cuda.max_memory_allocated()
+        part = torch.zeros(batch, n, 384, device="cuda")
+        ar = []
+        for _ in range(TP_LAT_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pdist.all_reduce_sum_([part])
+            torch.cuda.synchronize()
+            ar.append((time.perf_counter() - t0) * 1e3)
+        emit({"phase": "tp", "part": "tp-world predict latency",
+              "rank": rank, "world": world, "backend": backend,
+              "batch": batch, "res": TP_PRED_RES, "precision": "bf16",
+              "host_ms": ms, "host_ms_per_call": times,
+              "all_reduce_ms": float(np.median(ar)),
+              "all_reduces_per_predict": 6, "peak_bytes": peak,
+              "rank_weight_bytes": rank_bytes,
+              "whole_model_bytes": whole_vit + nbytes(
+                  list(model.model.clf.parameters()))})
+
+
+def tp_rank_main(rank, world, store, backend):
+    """One rank of phase 14 (gloo, ranks sharing the card: a world of 2
+    runs (a) and (c), a world of 4 (b)) or of --tp-world (NCCL, one card a
+    rank: (a) and the latency readings, and (b) in a world of 4).  Prints
+    JSON records, the last one its summary."""
+    pdist.init_distributed_mode(backend, f"file://{store}", world, rank)
+    total = {}
+    if backend == "gloo" and world == 2:
+        add_counts(total, tp_predict_checks(rank, world, backend))
+        add_counts(total, tp_bench_step(rank, world, backend))
+    elif backend == "gloo":
+        add_counts(total, tp_f32_steps(rank, world, backend))
+    else:
+        add_counts(total, tp_predict_checks(rank, world, backend))
+        tp_latency(rank, world, backend)
+        if world == 4:
+            add_counts(total, tp_f32_steps(rank, world, backend))
+    dist.destroy_process_group()
+    emit({"tp_rank_ok": True, "rank": rank, "launches": total})
+
+
+def phase_tp(bare_fps):
+    """Phase 14: the kernels at the TP paths' new shapes, then rank
+    processes sharing the card over gloo: a world of 2 ((a) TP predict,
+    (c) the bf16 TP step) and a world of 4 ((b) the fp32 DP x TP and SP x
+    TP steps on the 2 x 2 grid).  Returns the ranks' summed launch
+    counts."""
+    t0 = time.perf_counter()
+    tp_kernel_checks()
+    torch.cuda.empty_cache()
+    total, fps = {}, []
+    for world in (2, 4):
+        summaries, records = join_ranks(start_ranks("tp", world, "gloo"),
+                                        "tp", TP_RANK_TIMEOUT)
+        for s in summaries:
+            add_counts(total, s["launches"])
+        fps += [r["frames_per_s"] for r in records
+                if r.get("part", "").startswith("c ")]
+    for name in ("flash_attn_fwd", "flash_attn_fwd_f32", "flash_attn_bwd",
+                 "flash_attn_bwd_f32", "flash_attn_fwd_dyn",
+                 "flash_attn_bwd_dyn"):
+        check(total.get(name, 0) > 0, f"phase 14 never launched {name}")
+    check(total.get("fused_ln_mlp", 0) == 0,
+          "a TP path launched the fused MLP")
+    emit({"phase": "tp", "rank_launches_summed": total,
+          "c_frames_per_s_per_rank": fps,
+          "world_of_one_bare_step_frames_per_s_phase5": bare_fps,
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
+def tp_cards_main(world, card):
+    """--tp-world: TP predict over NCCL with one rank a card, in worlds of 2
+    and ``world`` (4 splits the 6 heads 2, 2, 1, 1), against the world of
+    one on card 0 in the same call; with 4 cards also (b)'s steps on the
+    2 x 2 grid."""
+    check(torch.cuda.device_count() >= world,
+          f"--tp-world {world} needs {world} cards, found "
+          f"{torch.cuda.device_count()}")
+    emit({"phase": "device", "names": [torch.cuda.get_device_name(i)
+                                       for i in range(world)],
+          "nvidia_smi": card, "torch": torch.__version__})
+    _build.library()
+    model = DINOSeg(head="mlp", n_blocks=3, n_classes=7, precision="bf16",
+                    random_init=True, seed=0)
+    model.set_resolution(TP_PRED_RES)
+    for batch in (1, 3):
+        ms, times = predict_latency(model, batch)
+        emit({"phase": "tp", "part": "tp-world predict latency", "world": 1,
+              "batch": batch, "res": TP_PRED_RES, "precision": "bf16",
+              "host_ms": ms, "host_ms_per_call": times})
+    del model
+    torch.cuda.empty_cache()
+    total = {}
+    for t in sorted({2, world}):
+        summaries, _ = join_ranks(start_ranks("tp", t, "nccl"), "tp",
+                                  TP_RANK_TIMEOUT)
+        for s in summaries:
+            add_counts(total, s["launches"])
+    emit({"phase": "tp", "world": world, "backend": "nccl",
+          "rank_launches_summed": total})
+    check(total.get("flash_attn_fwd", 0) > 0, "a TP rank launched no forward")
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
 KERNELS = {
     "flash_attn_fwd": dict(
         source="dino_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -3993,6 +4503,10 @@ def main():
     ap.add_argument("--dp-world", type=int)
     ap.add_argument("--dp-store")
     ap.add_argument("--dp-backend", default="gloo")
+    ap.add_argument("--tp-rank", type=int)
+    ap.add_argument("--tp-world", type=int)
+    ap.add_argument("--tp-store")
+    ap.add_argument("--tp-backend", default="gloo")
     args = ap.parse_args()
     if args.sp_rank is not None:
         return sp_rank_main(args.sp_rank, args.sp_world, args.sp_store,
@@ -4000,11 +4514,16 @@ def main():
     if args.dp_rank is not None:
         return dp_rank_main(args.dp_rank, args.dp_world, args.dp_store,
                             args.dp_backend)
+    if args.tp_rank is not None:
+        return tp_rank_main(args.tp_rank, args.tp_world, args.tp_store,
+                            args.tp_backend)
     card = bench.card_name_and_power_limit()
     if args.sp_world is not None:
         return sp_cards_main(args.sp_world, card)
     if args.dp_world is not None:
         return dp_cards_main(args.dp_world, card)
+    if args.tp_world is not None:
+        return tp_cards_main(args.tp_world, card)
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -4062,6 +4581,7 @@ def main():
     item8 = phase_item8(model, frames3)
     pretrain, _ = phase_pretrain()
     ranks = phase_dp()
+    tp = phase_tp(bare_fps)
     rows = phase_timing(block, per_call, bwd_per_step)
     rows.update(phase_timing_sp(launches))
     phase_fp32_latency(model, frame)
@@ -4114,6 +4634,13 @@ def main():
     for name in ("fused_ln_mlp", "flash_attn_bwd", "flash_attn_bwd_f32",
                  "flash_attn_fwd_dyn", "flash_attn_bwd_dyn"):
         launches[name] += ranks[name]
+    # phase 14's rank processes' launches, the same way (no fused MLP)
+    launches["flash_attn_fwd"] += (tp["flash_attn_fwd"]
+                                   - tp["flash_attn_fwd_f32"])
+    launches["flash_attn_fwd_chunked"] += tp["flash_attn_fwd_f32"]
+    for name in ("fused_ln_mlp", "flash_attn_bwd", "flash_attn_bwd_f32",
+                 "flash_attn_fwd_dyn", "flash_attn_bwd_dyn"):
+        launches[name] += tp.get(name, 0)
 
     emit({"kernels": [
         dict(name=name, route="cuda", launches=launches[name],

@@ -37,8 +37,11 @@ The counterpart of ``dino_tpu/api.py``'s ``DINOSeg`` for inference:
     choose what the train step (``train/loop.py``) updates.
   * ``parallelism='sp'`` shards the token axis over the ranks of the default
     ``torch.distributed`` process group (ring attention,
-    ``parallel/ring_attention.py``); every rank calls with the same frames
-    and gets the full maps.  ``'tp'`` is not ported yet.
+    ``parallel/ring_attention.py``); ``'tp'`` splits every block's heads and
+    hidden columns over them instead (Megatron tensor parallelism,
+    ``parallel/tp.py``: the multi-card batch-1 latency mode) and the MoE
+    head's experts.  Either way every rank calls with the same frames and
+    gets the full maps.
   * training over ranks: under a ``torch.distributed`` world of W
     processes (``torchrun``, or ``parallel.dist.init_distributed_mode``),
     ``fit`` trains one replica as ``dino_tpu`` does on a mesh of W devices:
@@ -94,6 +97,9 @@ from dino_tpu_torch.parallel.dist import (agree_across_hosts,
 from dino_tpu_torch.parallel.mesh import ShardedOptimizer, materialize
 from dino_tpu_torch.parallel.ring_attention import (make_sp_train_step,
                                                     vit_forward_seq_parallel)
+from dino_tpu_torch.parallel.tp import (check_tp_world, tp_head_apply,
+                                        tp_serving_slices, tp_slice_experts,
+                                        vit_forward_tp)
 from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.train.loop import (init_opt_state,
                                        make_cached_head_eval_step,
@@ -105,7 +111,7 @@ from dino_tpu_torch.train.metrics import (per_class_metrics_from_cm,
                                           segmentation_metrics)
 from dino_tpu_torch.utils.device import resolve_device
 from dino_tpu_torch.utils.logging import hbm_stats
-from dino_tpu_torch.utils.weights import weights_key
+from dino_tpu_torch.utils.weights import watch_optimizer_steps, weights_key
 
 _HPARAM_KEYS = ("data_path", "write_path", "class_names", "head", "n_blocks",
                 "batch_size", "lr", "optimizer", "freeze_backbone",
@@ -239,6 +245,9 @@ class DINOSeg:
                                  moe_capacity=float(moe_capacity))
         # (weights_key of the float backbone, its int8 serving copy)
         self._int8_cache = None
+        # (weights key of the backbone and head, the world, this rank's
+        # tensor-parallel serving slices)
+        self._tp_cache = None
         self.mlp_input_dim = (self.cfg.embed_dim if backbone == "vit"
                               else OUTPUT_DIM)
         self.resolution = 480
@@ -331,14 +340,39 @@ class DINOSeg:
             if self._check_precision(precision) == "int8":
                 raise ValueError(f"parallelism={parallelism!r} is not "
                                  f"supported with int8 params")
-        if parallelism == "tp":
-            raise NotImplementedError(_roadmap("parallelism='tp'", "11.4"))
-        if parallelism == "sp" and not is_dist_avail_and_initialized():
+        if parallelism is not None and not is_dist_avail_and_initialized():
+            what = "the tokens" if parallelism == "sp" else "the weights"
             raise RuntimeError(
-                "parallelism='sp' shards the tokens over the default "
+                f"parallelism={parallelism!r} shards {what} over the default "
                 "torch.distributed process group, and none is initialized: "
                 "call dino_tpu_torch.parallel.dist.init_distributed_mode "
                 "first (a world of one is allowed)")
+        if parallelism == "tp":
+            world = get_world_size()
+            if self.head == "moe" and self.n_experts % world:
+                raise ValueError(
+                    f"parallelism='tp' with head='moe' needs n_experts "
+                    f"divisible by the world size ({world}); got "
+                    f"{self.n_experts}")
+            check_tp_world(self.cfg, world)
+
+    def _tp_params(self):
+        """This rank's tensor-parallel serving weights over the default
+        group: (each block's rank slice, the head (the MoE head: this rank's
+        experts), the index of its first expert), rebuilt when the
+        backbone's or the head's weights change (see ``utils/weights.py``;
+        ``dino_tpu``'s ``_tp_cache``)."""
+        watch_optimizer_steps()
+        world, rank = get_world_size(), get_rank()
+        key = (weights_key(self.model.dino), weights_key(self.model.clf),
+               world, rank)
+        if self._tp_cache is None or self._tp_cache[0] != key:
+            blocks = tp_serving_slices(self.model.dino, self.cfg, rank,
+                                       world)
+            head, e0 = ((self.model.clf, 0) if self.head != "moe" else
+                        tp_slice_experts(self.model.clf, rank, world))
+            self._tp_cache = (key, (blocks, head, e0))
+        return self._tp_cache[1]
 
     @torch.no_grad()
     def log_probs(self, imgs_u8: torch.Tensor,
@@ -347,10 +381,12 @@ class DINOSeg:
         """uint8 (B, H, W, 3) on the model's device -> (B*N, n_classes)
         log-probs at the current resolution (the predict path before argmax).
         ``parallelism='sp'``: the backbone runs sequence-parallel over the
-        default process group, and every rank gets every row."""
+        default process group, and every rank gets every row; ``'tp'``:
+        tensor-parallel over it, with the MoE head's experts split over the
+        ranks."""
         self._check_parallelism(parallelism, precision)
         cdt = self._compute_dtype_for(precision)
-        if parallelism != "sp":
+        if parallelism is None:
             return seg_log_probs(self._serving_model(precision), self.cfg,
                                  self.head, imgs_u8, self.resolution, cdt,
                                  self.backbone, **self._head_kwargs)
@@ -358,10 +394,20 @@ class DINOSeg:
             x = preprocess(imgs_u8, self.resolution)
             if cdt is not None:
                 x = x.to(cdt)
-            tokens = vit_forward_seq_parallel(self.model.dino, x, self.cfg)
+            if parallelism == "sp":
+                tokens = vit_forward_seq_parallel(self.model.dino, x,
+                                                  self.cfg)
+                head, e0 = self.model.clf, None
+            else:
+                blocks, head, e0 = self._tp_params()
+                tokens = vit_forward_tp(self.model.dino, x, self.cfg,
+                                        _world_group(), blocks)
             feats = tokens[:, 1:, :].reshape(-1, self.cfg.embed_dim)
-            return head_apply(self.head, self.model.clf, feats,
-                              **self._head_kwargs)
+            if e0 is None:
+                return head_apply(self.head, head, feats,
+                                  **self._head_kwargs)
+            return tp_head_apply(self.head, head, feats, _world_group(), e0,
+                                 **self._head_kwargs)
 
     @torch.no_grad()
     def predict_device(self, imgs_u8: torch.Tensor,
@@ -388,8 +434,9 @@ class DINOSeg:
     def predict_batch(self, images, precision: Optional[str] = None,
                       parallelism: Optional[str] = None) -> np.ndarray:
         """Batched inference: uint8 (B, H, W, 3) -> (B, 480, 480) int32.
-        ``parallelism='sp'``: sequence-parallel over the default process
-        group; every rank passes the same frames and gets every map."""
+        ``parallelism='sp'`` (sequence-parallel) or ``'tp'``
+        (tensor-parallel) over the default process group; every rank passes
+        the same frames and gets every map."""
         self._check_parallelism(parallelism, precision)
         if isinstance(images, (list, tuple)):
             images = np.stack([np.asarray(im) for im in images])

@@ -88,21 +88,25 @@ def init_head(head_type: str, n_classes: int, input_dim: int = 384,
     return head
 
 
-def _linear_once(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+def _linear_once(x2: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                  dtype: torch.dtype) -> torch.Tensor:
     """b + x2 @ w^T summed in float32 and rounded once to ``dtype``.  On the
     card the product is one cuBLAS call with a float32 result
     (``mm`` with ``out_dtype``; ``addmm``'s float32-bias form first copies
     the bias over the whole output and reads it back), then one pass adds
     the bias and rounds; on the CPU float32 arithmetic on the same
-    operands."""
+    operands.  ``b=None``: the product alone (a row-parallel partial,
+    summed over the ranks before its bias)."""
     if x2.device.type == "cuda":
         y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        if b is None:
+            return y.to(dtype)
         out = y if dtype == torch.float32 else torch.empty_like(y,
                                                                 dtype=dtype)
         return torch.add(y, b, out=out)
     if x2.device.type == "cpu":
-        return (F.linear(x2.float(), w.float()) + b).to(dtype)
+        y = F.linear(x2.float(), w.float())
+        return (y if b is None else y + b).to(dtype)
     raise ValueError(f"linear_once: unsupported device {x2.device}")
 
 
@@ -127,16 +131,17 @@ class _LinearOnce(torch.autograd.Function):
                 g.float().sum(0) if ctx.needs_input_grad[2] else None, None)
 
 
-def linear_once(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+def linear_once(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                 dtype: torch.dtype) -> torch.Tensor:
     """x @ w^T + b for x, w in a low-precision dtype (bf16): the product
     accumulated in float32, the float32 bias added, and one rounding to
     ``dtype`` (float32: none), as ``dino_tpu``'s ``jnp.dot(x, w,
-    preferred_element_type=float32) + b`` and its cast."""
-    b = b.float()
+    preferred_element_type=float32) + b`` and its cast.  ``b=None``: the
+    product alone."""
+    b = b.float() if b is not None else None
     x2 = x.reshape(-1, x.shape[-1])
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
-                                    or b.requires_grad):
+                                    or (b is not None and b.requires_grad)):
         y = _LinearOnce.apply(x2, w, b, dtype)
     else:
         y = _linear_once(x2, w, b, dtype)
@@ -148,10 +153,19 @@ def affine(lin: nn.Linear, x: torch.Tensor,
     """``dino_tpu``'s head ``_affine``: x @ W^T + bias in float32, rounded
     once to ``dtype`` (float32: not at all).  float32 inputs keep their
     earlier form (``F.linear``, then the bias)."""
-    w = lin.weight.to(x.dtype)
+    return affine_t(x, lin.weight, lin.bias, dtype)
+
+
+def affine_t(x: torch.Tensor, weight: torch.Tensor,
+             bias: Optional[torch.Tensor],
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """:func:`affine` of a weight (out, in) and bias given as tensors;
+    ``bias=None`` returns the float32 product alone."""
+    w = weight.to(x.dtype)
     if x.dtype == torch.float32:
-        return (F.linear(x, w) + lin.bias.float()).to(dtype)
-    return linear_once(x, w, lin.bias, dtype)
+        y = F.linear(x, w)
+        return y if bias is None else (y + bias.float()).to(dtype)
+    return linear_once(x, w, bias, dtype)
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor,
@@ -318,22 +332,40 @@ def moe_head_apply_sparse(head: MoEHead, x: torch.Tensor,
     adds the results into M + 1 rows; every real row receives at most one
     addend, so ``index_add_`` keeps the bits."""
     gate = moe_gate(head, x)
-    m, n_experts = gate.shape
-    cap = moe_capacity_of(m, n_experts, capacity_factor)
     best, top_w = _top1(gate)
+    idx = moe_dispatch_table(best, gate.shape[-1], capacity_factor)
+    return torch.log_softmax(moe_combine_sparse(head, x, idx) * top_w,
+                             dim=-1)
+
+
+def moe_dispatch_table(best: torch.Tensor, n_experts: int,
+                       capacity_factor: float) -> torch.Tensor:
+    """(E, capacity) patch ids of each expert's slots from the top-1 choices
+    ``best`` (M,): slots claimed in batch order, empty slots holding the
+    sentinel M (see :func:`moe_head_apply_sparse`)."""
+    m = best.shape[0]
+    cap = moe_capacity_of(m, n_experts, capacity_factor)
     one_hot = F.one_hot(best, n_experts)
     slot = (one_hot.cumsum(0) - 1).gather(1, best[:, None])[:, 0]
     flat = torch.where(slot < cap, best * cap + slot,
                        torch.full_like(slot, n_experts * cap))
     idx = torch.full((n_experts * cap + 1,), m, dtype=torch.int64,
-                     device=x.device)
-    idx.scatter_(0, flat, torch.arange(m, device=x.device))
-    idx = idx[:-1].reshape(n_experts, cap)
+                     device=best.device)
+    idx.scatter_(0, flat, torch.arange(m, device=best.device))
+    return idx[:-1].reshape(n_experts, cap)
+
+
+def moe_combine_sparse(head: MoEHead, x: torch.Tensor,
+                       idx: torch.Tensor) -> torch.Tensor:
+    """(M, C) float32 logits of ``head``'s experts over the patches of their
+    slot rows ``idx`` (E_head, capacity), each patch's expert logits added
+    into its row (zero where no slot of these experts holds it)."""
+    m = x.shape[0]
     x_pad = torch.cat([x, x.new_zeros(1, x.shape[1])])
     y = _experts(head, x_pad[idx], x.dtype)                   # (E, cap, C)
     out = torch.zeros(m + 1, y.shape[-1], device=x.device).index_add_(
         0, idx.reshape(-1), y.reshape(-1, y.shape[-1]))
-    return torch.log_softmax(out[:m] * top_w, dim=-1)
+    return out[:m]
 
 
 def head_apply(head_type: str, head: nn.Module, x: torch.Tensor,

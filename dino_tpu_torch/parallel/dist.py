@@ -9,7 +9,9 @@ NCCL for a CUDA device and gloo for the CPU.  Where the JAX package writes
 place them, the port calls :func:`ring_shift`, :func:`all_reduce_sum_`
 (any dtype: float gradients, int64 confusion matrices),
 :func:`all_gather_seq`, :func:`all_gather_flat` and :class:`GroupSum` (a
-sum whose backward is the same sum) on a process group.
+sum whose backward is the same sum) on a process group; tensor
+parallelism's two operators are :class:`CopyToGroup` (Megatron's f) and
+:class:`SumFromGroup` (g).
 
 ``agree_across_hosts``, ``any_across_hosts`` and ``reduce_dict`` gather
 every rank's value on every rank (so a disagreement raises on every rank,
@@ -185,6 +187,60 @@ class GroupSum(torch.autograd.Function):
         g = g.clone()
         all_reduce_sum_([g], ctx.group)
         return g, None
+
+
+class CopyToGroup(torch.autograd.Function):
+    """Megatron's f: the identity forward, an all-reduce backward.  It goes
+    on the input of a column-parallel layer (qkv, fc1): each rank's
+    gradient of the input covers only its own output columns, and the sum
+    over the group is the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        all_reduce_sum_([g], ctx.group)
+        return g, None
+
+
+class SumFromGroup(torch.autograd.Function):
+    """Megatron's g: an all-reduce forward, the identity backward.  It goes
+    on the output of a row-parallel layer (proj, fc2): the sum is the same
+    on every rank, and so is its cotangent, which each rank's partial takes
+    whole."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.clone()
+        all_reduce_sum_([out], group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(t: torch.Tensor, group=None) -> torch.Tensor:
+    """:class:`CopyToGroup` where autograd needs it, else ``t``."""
+    if (get_world_size(group) > 1 and torch.is_grad_enabled()
+            and t.requires_grad):
+        return CopyToGroup.apply(t, group)
+    return t
+
+
+def sum_from_group(t: torch.Tensor, group=None) -> torch.Tensor:
+    """:class:`SumFromGroup` where autograd needs it; otherwise ``t`` summed
+    over the group in place (the caller's partial) and returned."""
+    if get_world_size(group) == 1:
+        return t
+    if torch.is_grad_enabled() and t.requires_grad:
+        return SumFromGroup.apply(t, group)
+    all_reduce_sum_([t], group)
+    return t
 
 
 def barrier(group=None) -> None:

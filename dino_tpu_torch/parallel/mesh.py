@@ -1,4 +1,9 @@
-"""State sharding over the ranks of a process group: ZeRO-1 and FSDP.
+"""The 2-D rank grid of tensor parallelism, and state sharding over the
+ranks of a process group: ZeRO-1 and FSDP.
+
+:func:`make_grid` is the counterpart of ``dino_tpu/parallel/mesh.py``'s
+``make_mesh(n, model_axis)``: the (data, model) groups of a world, tensor
+parallel partners on consecutive ranks.
 
 The counterpart of ``dino_tpu/parallel/mesh.py``'s ``zero_constrain``,
 ``fsdp_spec``, ``fsdp_place`` and ``gather_if_sharded``.  The JAX package
@@ -29,9 +34,39 @@ from __future__ import annotations
 from typing import Dict, List, Sequence
 
 import torch
+import torch.distributed as dist
 
 from dino_tpu_torch.parallel.dist import (all_gather_flat, all_reduce_sum_,
-                                          get_rank, get_world_size)
+                                          get_rank, get_world_size,
+                                          is_dist_avail_and_initialized)
+
+
+def make_grid(model: int, group=None):
+    """(data group, model group) of this rank on the (data, model) grid of
+    ``group``'s ranks (the default group when None): the counterpart of
+    ``dino_tpu``'s ``make_mesh(n, model_axis=model)``, whose grid is
+    ``devices.reshape(n // model, model)``.  Group rank r sits at data index
+    r // model and model index r % model, so tensor-parallel partners are
+    consecutive ranks.
+
+    A collective: ``dist.new_group`` is one, so every rank of ``group``
+    calls this at the same point and creates every group of the grid, its
+    own or not, in the same order.  Without ``torch.distributed`` (a world
+    of one) both groups are None."""
+    world = get_world_size(group)
+    if model < 1 or world % model:
+        raise ValueError(f"{world} ranks not divisible by model axis {model}")
+    if not is_dist_avail_and_initialized():
+        return None, None
+    ranks = (list(range(world)) if group in (None, dist.group.WORLD)
+             else dist.get_process_group_ranks(group))
+    data = [dist.new_group([ranks[d * model + m]
+                            for d in range(world // model)])
+            for m in range(model)]
+    tensor = [dist.new_group(ranks[d * model:(d + 1) * model])
+              for d in range(world // model)]
+    me = get_rank(group)
+    return data[me % model], tensor[me // model]
 
 
 class FlatShards:

@@ -19,8 +19,12 @@ Every rank runs the same collectives in the same order, in the forward and
 in autograd's backward.  ``make_sp_train_step`` builds the unfrozen
 finetune step on top, with the mlp, linear or (dense) MoE head; the MoE
 balance term sums its 2E+1 statistics over the group, not the features;
-``zero=True`` shards the optimizer's moments over the same group.  SP x TP
-needs ``parallel/tp.py`` (ROADMAP 'Modules to port' item 11.4).
+``zero=True`` shards the optimizer's moments over the same group.
+
+SP x TP (``vit_forward_sp_tp``, ``make_sp_tp_train_step``) composes the
+ring over a data group with the Megatron block of ``parallel/tp.py`` over a
+model group (``parallel/mesh.py:make_grid``): each rank rings its token
+shard of its head group's q/k/v.
 """
 from __future__ import annotations
 
@@ -39,16 +43,14 @@ from dino_tpu_torch.parallel.dist import (GroupSum, all_gather_seq,
                                           all_reduce_sum_, get_rank,
                                           get_world_size, ring_shift)
 from dino_tpu_torch.parallel.mesh import ShardedOptimizer, optimizer_params
+from dino_tpu_torch.parallel.tp import (make_composed_train_step,
+                                        tp_block_apply, tp_pack_block,
+                                        tp_rank_slice)
 from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.train.loop import MOE_BALANCE_COEF
 from dino_tpu_torch.train.metrics import confusion_matrix
 
 _NEG_INF = -1e30
-
-
-def _roadmap(what: str, item: str) -> str:
-    return (f"{what} is not ported yet (ROADMAP 'Modules to port' item "
-            f"{item})")
 
 
 def _hop_valid(n_real: int, src: int, n_local: int) -> int:
@@ -200,12 +202,82 @@ def vit_forward_seq_parallel(vit: VisionTransformer, x: torch.Tensor,
     return all_gather_seq(tok, group, dim=1)[:, :n_real]
 
 
-def vit_forward_sp_tp(*args, **kwargs):
-    raise NotImplementedError(_roadmap("SP x TP (parallel/tp.py)", "11.4"))
+# ---------------------------------------------------------------------------
+# SP x TP: ring attention over a data group, Megatron-split blocks over a
+# model group
+# ---------------------------------------------------------------------------
+
+def _sp_tp_tokens(vit: VisionTransformer, x: torch.Tensor, cfg: ViTConfig,
+                  data_group, model_group):
+    """This rank's token shard after every SP x TP block and the final LN:
+    (tokens (B, N_local, D), n_real, n_pad).  Each block is
+    ``tp_block_apply`` on the rank's head group, its attention the ring
+    over ``data_group``.  Raises where ``dino_tpu`` does: the model group's
+    size must divide the heads and the hidden width."""
+    t = get_world_size(model_group)
+    if cfg.num_heads % t or cfg.mlp_hidden % t:
+        raise ValueError(f"tensor-parallel degree {t} must divide both "
+                         f"num_heads ({cfg.num_heads}) and mlp_hidden "
+                         f"({cfg.mlp_hidden})")
+    tok, n_real, n_pad = _local_tokens(vit, x, cfg, data_group)
+    me = get_rank(model_group)
+
+    def attn(q, k, v):
+        return ring_attention(q, k, v, cfg.scale, n_real, data_group)
+    for blk in vit.blocks:
+        p = tp_rank_slice(tp_pack_block(blk, cfg), cfg, me, t)
+        tok = tp_block_apply(p, tok, cfg, model_group, attn)
+    return layer_norm(vit.norm, tok, cfg.ln_eps), n_real, n_pad
 
 
-def make_sp_tp_train_step(*args, **kwargs):
-    raise NotImplementedError(_roadmap("SP x TP (parallel/tp.py)", "11.4"))
+def vit_forward_sp_tp(vit: VisionTransformer, x: torch.Tensor,
+                      cfg: ViTConfig, data_group=None,
+                      model_group=None) -> torch.Tensor:
+    """ViT forward with the tokens sharded over ``data_group`` and the block
+    weights Megatron-split over ``model_group`` (``parallel/mesh.py:
+    make_grid``): the counterpart of ``dino_tpu``'s ``vit_forward_sp_tp``
+    on a (data, model) mesh.  ``vit`` is the standard module, the same on
+    every rank; x (B, H, W, 3) normalized, the same on every rank.  Returns
+    the normed tokens (B, N+1, D), gathered on every rank; matches
+    ``vit_forward`` up to reduction order."""
+    tok, n_real, _ = _sp_tp_tokens(vit, x, cfg, data_group, model_group)
+    return all_gather_seq(tok, data_group, dim=1)[:, :n_real]
+
+
+def make_sp_tp_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
+                          optimizer, data_group=None, model_group=None,
+                          compute_dtype: Optional[torch.dtype] = None
+                          ) -> Callable:
+    """The unfrozen finetune step through the SP x TP forward: ``dino_tpu``'s
+    ``make_sp_tp_train_step`` contract, ``step(vit, head, opt_state,
+    images_u8, labels, mask=None) -> (loss, cm)`` with the parameters in
+    the standard layout (the head-aligned packing and the rank's slice are
+    taken under autograd inside the step) and one update, the same on
+    every rank, of a plain optimizer over them.
+
+    Each rank's loss covers its token shard's patches over the global
+    denominator (``make_sp_train_step``'s form).  The gradients of the
+    split weights (qkv, proj and fc1's kernels and the column biases; a
+    rank's cover its slice) are summed over ``model_group``; the norms,
+    the row-parallel biases, the embeddings and the head, whole on every
+    rank of a model group, are not.  Then one sum over ``data_group``
+    adds the loss, the confusion matrix and every gradient.  The mlp and
+    linear heads only, as in ``dino_tpu``."""
+    def features(vit, x):
+        tok, n_real, _ = _sp_tp_tokens(vit, x, cfg, data_group, model_group)
+        b, n_local, dim = tok.shape
+        pos = (get_rank(data_group) * n_local
+               + torch.arange(n_local, device=x.device))
+        live = (pos >= 1) & (pos < n_real)
+        rows = (torch.arange(b, device=x.device)[:, None] * (n_real - 1)
+                + pos[None, :] - 1)
+        return (tok.reshape(-1, dim),
+                torch.where(live[None, :], rows, -1).reshape(-1))
+
+    return make_composed_train_step(
+        features, "SPxTP", head_type, n_classes, optimizer,
+        loss_group=data_group, model_group=model_group,
+        compute_dtype=compute_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,12 @@ global weight total, and every rank makes the same update.  ZeRO-1
 (``zero_mesh``) and FSDP (``fsdp_mesh``) take a
 ``parallel/mesh.py:ShardedOptimizer`` over that group
 (:func:`init_opt_state`'s ``zero_mesh`` / ``fsdp_mesh``).
+
+Tensor parallelism (``tp_group``, DP x TP on a ``parallel/mesh.py:
+make_grid`` grid): the backbone is this rank's Megatron shard
+(``parallel/tp.py:tp_shard_vit``) and its blocks run ``tp_block_apply`` over
+the model group; ``dp_group`` is then the data group, and ZeRO-1 shards each
+rank's tensor-parallel slice over it.
 """
 from __future__ import annotations
 
@@ -42,9 +48,11 @@ from dino_tpu_torch.models.heads import (head_apply, moe_balance_loss,
 from dino_tpu_torch.models.resnet import resnet_features, update_bn_stats
 from dino_tpu_torch.models.vit import ViTConfig, VisionTransformer, vit_forward
 from dino_tpu_torch.ops.preprocess import normalize_imagenet
-from dino_tpu_torch.parallel.dist import all_reduce_sum_, get_world_size
+from dino_tpu_torch.parallel.dist import (all_reduce_sum_, get_rank,
+                                          get_world_size)
 from dino_tpu_torch.parallel.mesh import (ShardedOptimizer, materialize,
                                           optimizer_params)
+from dino_tpu_torch.parallel.tp import TPVisionTransformer, vit_forward_tp
 from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.train.metrics import confusion_matrix
 
@@ -109,13 +117,18 @@ def _check_group(name: str, group) -> None:
 def backbone_features(vit: torch.nn.Module, x: torch.Tensor, cfg: ViTConfig,
                       backbone: str = "vit", remat: bool = False,
                       bn_collect: Optional[dict] = None,
-                      bn_group=None) -> torch.Tensor:
+                      bn_group=None, tp_group=None) -> torch.Tensor:
     """Normalized (B, H, W, 3) -> (B*N_patches, D) patch features: the ViT's
     tokens without CLS, or a ResNet's (B, H/8, W/8, 512) map in row-major
     order (``bn_collect`` switches its BatchNorm to train mode, with batch
-    statistics over ``bn_group``'s ranks' slabs too)."""
+    statistics over ``bn_group``'s ranks' slabs too).  A
+    :class:`~dino_tpu_torch.parallel.tp.TPVisionTransformer` runs
+    tensor-parallel over ``tp_group``."""
     if backbone != "vit":
         return resnet_features(vit, x, bn_collect, bn_group)
+    if isinstance(vit, TPVisionTransformer):
+        tokens = vit_forward_tp(vit, x, cfg, tp_group, remat=remat)
+        return tokens[:, 1:, :].reshape(-1, tokens.shape[-1])
     tokens = vit_forward(vit, x, cfg, remat=remat)
     return tokens[:, 1:, :].reshape(-1, tokens.shape[-1])
 
@@ -129,7 +142,8 @@ def seg_forward(vit: torch.nn.Module, head: torch.nn.Module, cfg: ViTConfig,
                 bn_collect: Optional[dict] = None,
                 feat_sink: Optional[dict] = None,
                 moe_dispatch: str = "dense",
-                moe_capacity: float = 1.25, bn_group=None) -> torch.Tensor:
+                moe_capacity: float = 1.25, bn_group=None,
+                tp_group=None) -> torch.Tensor:
     """uint8 (B,res,res,3) -> (B*N_patches, n_classes) log-probs.
 
     Backbone -> (ViT: drop CLS) -> fold patches onto the batch axis ->
@@ -142,7 +156,8 @@ def seg_forward(vit: torch.nn.Module, head: torch.nn.Module, cfg: ViTConfig,
     ResNet's BatchNorm in train mode and collects its running stats (the
     batch statistics summed over ``bn_group``'s ranks, if given);
     ``feat_sink`` (a dict) receives the head's input features under
-    ``"feats"`` (the MoE balance term's input).
+    ``"feats"`` (the MoE balance term's input).  ``tp_group``: the model
+    group of a tensor-parallel backbone.
     """
     x = (pre_normalized if pre_normalized is not None
          else normalize_imagenet(images_u8))
@@ -151,7 +166,7 @@ def seg_forward(vit: torch.nn.Module, head: torch.nn.Module, cfg: ViTConfig,
     with torch.set_grad_enabled(torch.is_grad_enabled()
                                 and not freeze_backbone):
         feats = backbone_features(vit, x, cfg, backbone, remat, bn_collect,
-                                  bn_group)
+                                  bn_group, tp_group)
     if feat_sink is not None:
         feat_sink["feats"] = feats
     return head_apply(head_type, head, feats, moe_dispatch, moe_capacity)
@@ -174,7 +189,7 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
                     accum_steps: int = 1, backbone: str = "vit",
                     zero_mesh=None, fsdp_mesh=None, dp_group=None,
                     moe_dispatch: str = "dense",
-                    moe_capacity: float = 1.25) -> Callable:
+                    moe_capacity: float = 1.25, tp_group=None) -> Callable:
     """Returns ``step(vit, head, opt_state, images_u8, labels, mask=None)
     -> (loss, cm)``, which updates ``vit``/``head`` and ``opt_state`` (from
     :func:`init_opt_state` with the same ``optimizer``) in place.  ``vit``
@@ -214,6 +229,18 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
     moments, or FSDP parameters, gradients and moments, in shards); under
     FSDP the step gathers the parameters first and drops them after the
     update.
+
+    ``tp_group`` (DP x TP, the model group of ``parallel/mesh.py:make_grid``,
+    ``dp_group`` its data group): ``vit`` is this rank's shard
+    (``parallel/tp.py:tp_shard_vit(vit, tp_group)``), whose blocks run
+    tensor-parallel, and ``opt_state`` is over its parameters.  A slice's
+    gradient covers the rank's slice and the whole parameters' are whole
+    on every rank of the model group, so the gradients are summed over the
+    data group only; with ``zero_mesh`` (the data group) each slice's
+    moments shard over it on top of the tensor-parallel split (the
+    counterpart of ``dino_tpu``'s ``zero_param_spec``).  The MoE head runs
+    whole on every rank (the same function as ``dino_tpu``'s
+    expert-sharded one).
     """
     if backbone not in ("vit", "cnn1", "cnn2"):
         raise ValueError(f"unknown backbone {backbone!r}")
@@ -221,8 +248,11 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
         raise ValueError("fsdp_mesh and zero_mesh are mutually exclusive: "
                          "FSDP already shards the optimizer state")
     for name, group in (("zero_mesh", zero_mesh), ("fsdp_mesh", fsdp_mesh),
-                        ("dp_group", dp_group)):
+                        ("dp_group", dp_group), ("tp_group", tp_group)):
         _check_group(name, group)
+    if tp_group is not None and backbone != "vit":
+        raise ValueError("tensor parallelism (tp_group) needs the ViT "
+                         "backbone")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if accum_steps > 1 and head_type == "moe" and moe_dispatch == "sparse":
@@ -251,7 +281,8 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
                            compute_dtype=compute_dtype, remat=remat,
                            freeze_backbone=freeze_backbone,
                            backbone=backbone, bn_collect=bn_collect,
-                           feat_sink=feat_sink, bn_group=dp, **hk)
+                           feat_sink=feat_sink, bn_group=dp,
+                           tp_group=tp_group, **hk)
 
     def monolithic(vit, head, images, labels, mask):
         bn_collect = {} if backbone != "vit" else None
@@ -279,7 +310,8 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
             x = normalize_imagenet(images[i * mb:(i + 1) * mb])
             if compute_dtype is not None:
                 x = x.to(compute_dtype)
-            feats = backbone_features(vit, x, cfg, backbone)
+            feats = backbone_features(vit, x, cfg, backbone,
+                                      tp_group=tp_group)
             a_tot = a_tot + moe_balance_stats(head, feats, weights=w[i])[0]
         if dp is not None:
             all_reduce_sum_([a_tot], dp)
@@ -340,6 +372,13 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
             raise TypeError("zero_mesh / fsdp_mesh need opt_state from "
                             "init_opt_state(..., zero_mesh= / fsdp_mesh=) "
                             "over the same group")
+        if tp_group is not None and not (
+                isinstance(vit, TPVisionTransformer)
+                and vit.rank == get_rank(tp_group)
+                and vit.world == get_world_size(tp_group)):
+            raise TypeError("make_train_step(tp_group=...) trains this "
+                            "rank's shard of the backbone: pass "
+                            "parallel.tp.tp_shard_vit(vit, tp_group)")
         materialize(opt_state)
         params = optimizer_params(opt_state)
         with matmul_ctx(compute_dtype):

@@ -13,6 +13,7 @@ import chip_smoke
 from dino_tpu_torch import DINOSeg
 from dino_tpu_torch.models import heads
 from dino_tpu_torch.models.vit import Block, Mlp, ViTConfig
+from dino_tpu_torch.models.vit import layer_norm as tvit_layer_norm
 from dino_tpu_torch.ops import attention as tatt
 from dino_tpu_torch.ops import fused_mlp as tfm
 from dino_tpu_torch.train import loop as tloop
@@ -732,3 +733,70 @@ def test_two_ranks_sharing_the_card_hold_one_replica(cuda, tmp_path):
                                                     {})]
     assert outs[0]["digest"] == outs[1]["digest"]
     assert all(o["bwd"] == 1 for o in outs)
+
+
+def _tp_block(cuda, dtype):
+    """A full-width block on the card with random weights, and LayerNorm'd
+    tokens of the 480px batch-3 predict (3 x 3,601 rows) in ``dtype``."""
+    g = torch.Generator().manual_seed(5)
+    cfg = ViTConfig()
+    block = Block(cfg)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    block = block.to(cuda)
+    x = torch.randn(3, 3601, 384, generator=g).to(cuda, dtype)
+    return cfg, block, x
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("world", [2, 4])
+def test_tp_column_parallel_bits_on_card(cuda, dtype, world):
+    """Each rank's column-parallel qkv and fc1 on the card: the single-rank
+    layer's bits on its columns (6 heads on 4 ranks split 2, 2, 1, 1)."""
+    from dino_tpu_torch.parallel import tp
+    cfg, block, x = _tp_block(cuda, dtype)
+    nh, hd = cfg.num_heads, cfg.head_dim
+    with torch.no_grad():
+        h = tvit_layer_norm(block.norm1, x, cfg.ln_eps)
+        qkv = heads.dense(h, block.attn.qkv.weight, block.attn.qkv.bias)
+        qkv = qkv.reshape(3, 3601, 3, nh, hd)
+        fc1 = heads.affine(block.mlp.fc1, h, dtype)
+        k = cfg.mlp_hidden // world
+        for rank, (h0, h1) in enumerate(tp.head_groups(nh, world)):
+            p = tp.tp_rank_slice(tp.tp_pack_block(block, cfg), cfg, rank,
+                                 world)
+            got = tp.qkv_local(p, h).reshape(3, 3601, h1 - h0, 3, hd)
+            assert torch.equal(got, qkv[:, :, :, h0:h1].permute(0, 1, 3, 2,
+                                                                4)), rank
+            assert torch.equal(tp.fc1_local(p, h),
+                               fc1[..., rank * k:(rank + 1) * k]), rank
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("world", [2, 4])
+def test_tp_row_parallel_sum_on_card(cuda, dtype, world):
+    """The ranks' float32 proj and fc2 partials, summed with the float32
+    bias, against the single-rank layer's float32 output on the same
+    inputs: the same products added in another order."""
+    from dino_tpu_torch.parallel import tp
+    cfg, block, x = _tp_block(cuda, dtype)
+    nh, hd = cfg.num_heads, cfg.head_dim
+    k = cfg.mlp_hidden // world
+    h1 = torch.randn(3, 3601, cfg.mlp_hidden, device=cuda).to(dtype)
+    with torch.no_grad():
+        want = {"proj": heads.affine(block.attn.proj, x),
+                "fc2": heads.affine(block.mlp.fc2, h1)}
+        got = {"proj": block.attn.proj.bias.float().clone(),
+               "fc2": block.mlp.fc2.bias.float().clone()}
+        for rank, (h0, h1_) in enumerate(tp.head_groups(nh, world)):
+            p = tp.tp_rank_slice(tp.tp_pack_block(block, cfg), cfg, rank,
+                                 world)
+            if h1_ > h0:
+                got["proj"] = got["proj"] + heads.affine_t(
+                    x[..., h0 * hd:h1_ * hd], p["proj_w"], None)
+            got["fc2"] = got["fc2"] + heads.affine_t(
+                h1[..., rank * k:(rank + 1) * k], p["fc2_w"], None)
+    for name in ("proj", "fc2"):
+        err = (got[name] - want[name]).abs().max().item()
+        assert err <= 1e-5 * want[name].abs().max().item(), (name, err)

@@ -336,7 +336,7 @@ def test_sp_predict_needs_a_process_group():
     frame = np.zeros((48, 48, 3), np.uint8)
     with pytest.raises(RuntimeError, match="init_distributed_mode"):
         pm.predict(frame, parallelism="sp")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(RuntimeError, match="init_distributed_mode"):
         pm.predict_batch(frame[None], parallelism="tp")
     with pytest.raises(ValueError, match="parallelism"):
         pm.predict_batch(frame[None], parallelism="pp")
@@ -349,8 +349,10 @@ def test_sp_predict_needs_a_process_group():
     (lambda: tring.make_sp_train_step(ViTConfig(), "seg", 7, None,
                                       zero=True), ValueError,
      "unknown head"),
-    (lambda: tring.vit_forward_sp_tp(), NotImplementedError, "item 11"),
-    (lambda: tring.make_sp_tp_train_step(), NotImplementedError, "item 11"),
+    (lambda: tring.make_sp_tp_train_step(ViTConfig(), "moe", 7, None),
+     ValueError, "mlp/linear"),
+    (lambda: tring.make_sp_tp_train_step(ViTConfig(), "seg", 7, None),
+     ValueError, "mlp/linear"),
 ])
 def test_unported_sp_options_raise(call, exc, match):
     with pytest.raises(exc, match=match):

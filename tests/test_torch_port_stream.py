@@ -131,7 +131,7 @@ def test_stream_edge_cases(pair, frames):
 
 
 @pytest.mark.parametrize("kwargs,exc,match", [
-    (dict(parallelism="tp"), NotImplementedError, "item 11"),
+    (dict(parallelism="tp"), RuntimeError, "process group"),
     (dict(parallelism="sp"), RuntimeError, "process group"),
     (dict(parallelism="dp"), ValueError, "parallelism"),
     (dict(precision="fp16"), ValueError, "precision"),
