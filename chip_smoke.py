@@ -146,7 +146,24 @@ each printing JSON lines:
      of one (loss, every gradient leaf within STEP_GRAD_REL of its max,
      ZeRO-1 the plain bits), then the bf16 SP x TP step; exact launch
      counts, summed into the kernels line;
-  15. timing (CUDA events around bursts of back-to-back calls, median of
+  15. pipeline parallelism (pp) on the whole 12-block ViT-S/8 (MLP head, 7
+     classes): the kernels at the PP paths' shapes that earlier phases do
+     not cover, the plain 12-block bf16 step at the bench shape (the world
+     of one), then rank processes sharing the card over gloo: a world of 2
+     runs (a) fp32 at 240px, batch 2 in 2 microbatches, the 1F1B,
+     interleaved 1F1B (V = 2) and GPipe steps, every gradient leaf within
+     STEP_GRAD_REL of its max of the world-of-one step (ReLU choices
+     replayed), (b) bf16 at the bench shape (480px, batch 16 in 8
+     microbatches) the pipelined forward against vit_forward and 3 timed
+     1F1B steps (step ms, frames/s, hop ms, each rank's bytes of blocks and
+     moments against the whole model's, the peak; every step's loss within
+     2e-2 of the world of one's, and the first step's gradients within
+     PP_BF16_GRAD_REL of the world of one's bf16 step on the same
+     microbatches), (c) one fp32 fit(parallelism='pp') epoch
+     on phase 9's bands, its train metrics the plain fit's; a world of 4
+     runs (d) the DP x PP x TP step (data 1 x stage 2 x model 2) against
+     the world of one; exact launch counts, summed into the kernels line;
+  16. timing (CUDA events around bursts of back-to-back calls, median of
      the bursts; the bf16 kernels and the f32 backward also replayed from a
      CUDA graph, which takes the host out) at the 480px predict shapes
      (batch 3; the fused MLP also at one frame), the train bench's
@@ -159,7 +176,7 @@ each printing JSON lines:
      forward's and backward's on their route: three TF32 passes); the fp32
      predict latency at 480 and 960px; then the cli/bench line
      (predict and train);
-  16. the per-kernel summary line, the card line, and the final status
+  17. the per-kernel summary line, the card line, and the final status
       line.
 
 ``python3 chip_smoke.py --sp-world W`` (W cards) runs only phase 6's rank
@@ -168,9 +185,12 @@ ZeRO and FSDP checks ((a) and (b)'s steps), ``--tp-world W`` phase 14's
 (a) over NCCL in worlds of 2 and W ranks, with the TP predict latency at
 batch 1 and 3 beside the world of one's on card 0, one all-reduce's ms,
 each rank's peak memory and weight bytes, and with W = 4 (b) on 2 x 2
-cards.  ``--sp-rank R --sp-world W --sp-store PATH --sp-backend B`` (and
-``--dp-rank ...``, ``--tp-rank ...``) is one rank process (started by the
-script itself).
+cards.  ``--pp-world W`` runs phase 15's (b) over NCCL with one rank a card
+(S = W, the 1F1B and interleaved 1F1B steps), beside the world of one's
+12-block step on card 0 in the same call, with the hop ms, each rank's
+bytes and peak.  ``--sp-rank R --sp-world W --sp-store PATH --sp-backend
+B`` (and ``--dp-rank ...``, ``--tp-rank ...``, ``--pp-rank ...``) is one
+rank process (started by the script itself).
 """
 import argparse
 import contextlib
@@ -1184,7 +1204,8 @@ def phase_sp_world1(model, frames2):
 
 
 def start_ranks(kind, world, backend):
-    """Start the rank processes of phase 6 (``kind`` 'sp') or 13 ('dp'):
+    """Start the rank processes of phase 6 (``kind`` 'sp'), 13 ('dp'), 14
+    ('tp') or 15 ('pp'):
     this script with ``--<kind>-rank R --<kind>-world W --<kind>-store
     PATH --<kind>-backend B`` (the library is built, so they load it).
     Returns (processes, their start time, the store's path)."""
@@ -4458,6 +4479,541 @@ def tp_cards_main(world, card):
                                  "count": torch.cuda.device_count()}})
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: pipeline parallelism (the 1F1B, interleaved 1F1B and GPipe
+# steps, PP x TP, fit(parallelism='pp'))
+# ---------------------------------------------------------------------------
+
+PP_DEPTH = 12          # the whole ViT-S/8 backbone
+PP_RANK_TIMEOUT = 600  # seconds for a world of rank processes, from its start
+PP_F32_RES, PP_F32_BATCH, PP_F32_MB = 240, 2, 2   # (a) and (d)
+PP_MB = 8              # (b): the bench batch (DP_BATCH at FIT_RES) in 8
+# (b): the bf16 1F1B loss against the plain bf16 step's (dino_tpu's bound,
+# tests/test_pipeline.py:404), and the bf16 pipelined forward against the
+# world of one's, max |err| against max |ref| (cuBLAS may round the
+# microbatch's products another way than the batch's)
+PP_BF16_LOSS_TOL = 2e-2
+PP_FWD_REL = 2e-2
+# (b): the first bf16 1F1B step's gradients (the bf16 stash, both hops and
+# the pending cotangent) against the world of one's bf16 step on the same
+# 8 microbatches, each leaf's max |diff| against its max |g| (bf16 keeps 8
+# bits; the backward kernel's own bf16 bound, BWD_BF16_REL)
+PP_BF16_GRAD_REL = 2e-2
+PP_FIT_SAMPLES = 3     # (c): 2 steps of batch 2, the second a ragged tail
+
+
+def pp_model(prec):
+    """Phase 15's model: random ViT-S/8 weights from seed 5, all 12 blocks,
+    MLP head, 7 classes, backbone trainable."""
+    return DINOSeg(head="mlp", n_blocks=PP_DEPTH, n_classes=7,
+                   precision=prec, random_init=True, seed=5,
+                   freeze_backbone=False)
+
+
+def pp_batch(batch, res, seed):
+    rs = np.random.RandomState(seed)
+    x = rs.randint(0, 255, (batch, res, res, 3)).astype(np.uint8)
+    y = rs.randint(0, 7, (batch, (res // 8) ** 2)).astype(np.int32)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+
+def pp_chunks(world):
+    """V of --pp-world's interleaved step: chunks that divide the depth."""
+    return next(v for v in (2, 3) if PP_DEPTH % (world * v) == 0)
+
+
+def pp_kernel_checks():
+    """The kernels at the PP paths' shapes that earlier phases do not
+    cover, against their plain versions: the fused MLP at the bf16
+    pipelined forward's microbatch (2 x 3,601 rows), and the f32 forward
+    and backward at the PP x TP stage's head group of (d) (1 x 3 heads, N
+    901)."""
+    from dino_tpu_torch.models.vit import Block
+    g = torch.Generator().manual_seed(15)
+    block = Block(ViTConfig())
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    block = block.cuda()
+    check_mlp(block.norm2, block.mlp, 2 * ((FIT_RES // 8) ** 2 + 1),
+              torch.Generator(device="cuda").manual_seed(15))
+    n = (PP_F32_RES // 8) ** 2 + 1
+    atol, rtol = FLASH_TOL[torch.float32]
+    q, k, v = head_inputs(1, 3, n, torch.float32, seed=n + 15)
+    do = torch.randn(q.shape, generator=torch.Generator(
+        device="cuda").manual_seed(n), device="cuda")
+    out, lse = flash_attention(q, k, v, SCALE, return_lse=True)
+    got = flash_attention_bwd(q, k, v, out, lse, do, SCALE)
+    torch.cuda.synchronize()
+    ref, ref_lse = attention_plain(q, k, v, SCALE)
+    err = (out - ref).abs()
+    errs, ok = bwd_err(got, attention_bwd_plain(q, k, v, out, lse, do,
+                                                SCALE), torch.float32)
+    rec = {"phase": "pp", "part": "kernel_check",
+           "kernel": "flash_attn_fwd + flash_attn_bwd", "dtype": "float32",
+           "bh": 3, "n": n, "fwd_max_abs_err": err.max().item(),
+           "lse_max_abs_err": (lse - ref_lse).abs().max().item(),
+           "bwd_max_abs_err": max(errs)}
+    emit(rec)
+    check(bool((err <= atol + rtol * ref.abs()).all())
+          and rec["lse_max_abs_err"] <= LSE_ATOL,
+          f"f32 forward at the PP x TP head group {rec}")
+    check(ok, f"f32 backward at the PP x TP head group {rec}")
+
+
+@contextlib.contextmanager
+def hop_timer():
+    """Milliseconds spent in the pipeline's stage hops (host clock, the card
+    synchronized around each), and their count."""
+    from dino_tpu_torch.parallel import pipeline as pp_mod
+    real, spent = pp_mod.stage_hop, {"hop_ms": 0.0, "hops": 0}
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        spent["hop_ms"] += (time.perf_counter() - t0) * 1e3
+        spent["hops"] += 1
+        return out
+    pp_mod.stage_hop = timed
+    try:
+        yield spent
+    finally:
+        pp_mod.stage_hop = real
+
+
+def pp_grads(svit, vit, head, group):
+    """{name: gradient} of a stage's rank in the standard layout (the
+    stages' gather, a collective) and of the head."""
+    from dino_tpu_torch.parallel.pipeline import pp_gather_state
+    out = {"dino." + k: v for k, v in
+           pp_gather_state(svit, vit, group, grads=True).items()}
+    out.update({"clf." + k: p.grad for k, p in head.named_parameters()})
+    return out
+
+
+def pp_plain_step(prec, imgs, labels, record=None, accum_steps=1):
+    """One Adam 1e-5 step of make_train_step on a fresh pp_model (over
+    ``accum_steps`` microbatches): (the model with its gradients, loss,
+    launches), the head's ReLU masks in ``record`` (head_relu) when
+    given."""
+    m = pp_model(prec)
+    vit, head = m.model.dino, m.model.clf
+    opt = make_optimizer("adam", DP_LR)
+    step = make_train_step(m.cfg, "mlp", 7, opt, False,
+                           compute_dtype=torch.bfloat16 if prec == "bf16"
+                           else None, accum_steps=accum_steps)
+    state = init_opt_state(opt, vit, head, False)
+    with (head_relu(record=record) if record is not None
+          else contextlib.nullcontext()):
+        (loss, _), got = counted(lambda: step(vit, head, state, imgs,
+                                              labels))
+    return m, loss, got
+
+
+def pp_f32_steps(rank, world, backend):
+    """(a) fp32 at 240px, batch 2 in 2 microbatches: the 1F1B, interleaved
+    1F1B (V = 2) and GPipe steps against the world-of-one step on this card
+    from the same weights and batch (the head's ReLU choices replayed from
+    it, cut to the rows each rank's head scores): loss rtol
+    STEP_LOSS_RTOL, every gradient leaf within STEP_GRAD_REL of its max,
+    the launches the schedule's.  Returns the launch counts."""
+    from dino_tpu_torch.parallel import pipeline as pp_mod
+    group = dist.group.WORLD
+    x, y = pp_batch(PP_F32_BATCH, PP_F32_RES, 31)
+    masks = []
+    ref_m, ref_loss, got = pp_plain_step("fp32", x, y, record=masks)
+    total = dict(got)
+    ref = {n: p.grad for n, p in ref_m.model.named_parameters()}
+    rows = y.numel()
+    mb_rows = rows // PP_F32_MB
+    last = rank == world - 1
+    per = PP_DEPTH // world
+    lo, hi = pp_mod._chunk_rows(rows, world, rank)
+    runs = (("1f1b", 1, pp_mod.make_pp_1f1b_train_step, {}),
+            ("interleaved_1f1b", 2,
+             pp_mod.make_pp_interleaved_1f1b_train_step, {"n_chunks": 2}),
+            ("gpipe", 1, pp_mod.make_pp_train_step, {}))
+    for name, chunks, make, kw in runs:
+        m = pp_model("fp32")
+        vit, head = m.model.dino, m.model.clf
+        svit = pp_mod.pp_shard_vit(vit, group, chunks)
+        opt = make_optimizer("adam", DP_LR)
+        state = init_opt_state(opt, svit, head, False)
+        step = make(m.cfg, "mlp", 7, opt, group, n_microbatches=PP_F32_MB,
+                    **kw)
+        if name == "gpipe":  # each rank scores its chunk of the rows
+            cuts = [slice(lo, hi)]
+        else:  # the last stage scores each microbatch in turn
+            cuts = [slice(i * mb_rows, (i + 1) * mb_rows)
+                    for i in range(PP_F32_MB)] if last else []
+        replay = [mk[c] for c in cuts for mk in masks]
+        with head_relu(replay=replay) as flips:
+            res, got = counted(lambda: step(svit, head, state, x, y))
+        add_counts(total, got)
+        loss = res[0] if isinstance(res, tuple) else res
+        worst, leaf = grads_vs(pp_grads(svit, vit, head, group), ref)
+        slots = 1 if name == "gpipe" else 2  # 1F1B: slot + recompute
+        want = launches_want(fwd_f32=slots * PP_F32_MB * per,
+                             bwd_f32=PP_F32_MB * per)
+        rec = {"phase": "pp", "part": "a fp32 step vs world of one",
+               "schedule": name, "chunks": chunks, "rank": rank,
+               "world": world, "backend": backend, "res": PP_F32_RES,
+               "batch": PP_F32_BATCH, "microbatches": PP_F32_MB,
+               "blocks": PP_DEPTH, "loss": loss.item(),
+               "loss_world_of_one": ref_loss.item(),
+               "grad_worst_rel_diff": worst, "grad_worst_leaf": leaf,
+               "grad_tol": STEP_GRAD_REL, "head_relu_units_replayed": flips,
+               "stage_blocks": svit.block_ids, "launches": got,
+               "want": want}
+        emit(rec)
+        check(got == want, f"PP fp32 launches {rec}")
+        check(abs(loss.item() - ref_loss.item())
+              <= STEP_LOSS_RTOL * abs(ref_loss.item()),
+              f"PP fp32 loss {rec}")
+        check(worst <= STEP_GRAD_REL, f"PP fp32 gradients {rec}")
+        del m, vit, head, svit, state, step
+    del ref_m, ref
+    torch.cuda.empty_cache()
+    return total
+
+
+def pp_bench_steps(rank, world, backend, schedules):
+    """(b) the bf16 bench step (480px, batch 16 in PP_MB microbatches of 2)
+    with the 12 blocks over the ranks, for each (schedule, V): first the
+    bf16 pipelined forward of the batch against vit_forward on this card
+    (PP_MB * per forward and fused-MLP launches a rank), then one warm-up
+    and DP_STEPS timed steps on the host clock (each rank's launches the
+    schedule's; the warm-up's loss and every gradient leaf against the
+    world of one's bf16 step on the same microbatches, run here first),
+    one step with its hops timed, each rank's resident bytes of blocks and
+    moments against the whole model's, and the peak.  Returns the launch
+    counts."""
+    from dino_tpu_torch.models.vit import vit_forward
+    from dino_tpu_torch.parallel import pipeline as pp_mod
+    from dino_tpu_torch.ops.preprocess import normalize_imagenet
+    group = dist.group.WORLD
+    x, y = pp_batch(DP_BATCH, FIT_RES, 21)
+    per = PP_DEPTH // world
+    ref_m, ref_loss, total = pp_plain_step("bf16", x, y, accum_steps=PP_MB)
+    ref = {n: p.grad.cpu() for n, p in ref_m.model.named_parameters()}
+    ref_loss = ref_loss.item()
+    del ref_m
+    torch.cuda.empty_cache()
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    for schedule, chunks in schedules:
+        m = pp_model("bf16")
+        vit, head = m.model.dino, m.model.clf
+        whole = 3 * nbytes(list(vit.blocks.parameters()))  # + 2 moments
+        svit = pp_mod.pp_shard_vit(vit, group, chunks)
+        fwd = {}
+        if chunks == 1:
+            with torch.no_grad(), matmul_ctx(torch.bfloat16):
+                xn = normalize_imagenet(x).to(torch.bfloat16)
+                want_tok = vit_forward(vit, xn, m.cfg)
+                tok, got = counted(lambda: pp_mod.vit_forward_pipelined(
+                    svit, xn, m.cfg, group, n_microbatches=PP_MB))
+            add_counts(total, got)
+            err = (tok.float() - want_tok.float()).abs().max().item()
+            fwd = {"fwd_max_abs_err": err,
+                   "fwd_max_abs_ref": want_tok.float().abs().max().item(),
+                   "fwd_launches": got,
+                   "fwd_want": launches_want(fwd=PP_MB * per,
+                                             mlp=PP_MB * per)}
+            check(got == fwd["fwd_want"], f"PP forward launches {fwd}")
+            check(err <= PP_FWD_REL * fwd["fwd_max_abs_ref"],
+                  f"PP bf16 forward vs the world of one {fwd}")
+            del tok, want_tok, xn
+        vit.blocks.to("cpu")  # the rank holds only its stage, as fit does
+        torch.cuda.empty_cache()
+        optimizer = make_optimizer("adam", DP_LR)
+        opt = init_opt_state(optimizer, svit, head, False)
+        make = (pp_mod.make_pp_1f1b_train_step if chunks == 1 else
+                functools.partial(pp_mod.make_pp_interleaved_1f1b_train_step,
+                                  n_chunks=chunks))
+        step = make(m.cfg, "mlp", 7, optimizer, group, n_microbatches=PP_MB,
+                    compute_dtype=torch.bfloat16)
+        want = launches_want(fwd=2 * PP_MB * per, bwd=PP_MB * per)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        host, losses = [], []
+        for i in range(1 + DP_STEPS):
+            t0 = time.perf_counter()
+            (loss, _), got = counted(lambda: step(svit, head, opt, x, y))
+            host.append((time.perf_counter() - t0) * 1e3)
+            add_counts(total, got)
+            check(got == want, f"PP {schedule} launches {got}, want {want}")
+            losses.append(loss.item())
+            if i == 0:  # the gradients of the weights the world of one had
+                worst, leaf = grads_vs({k: g.cpu() for k, g in pp_grads(
+                    svit, vit, head, group).items()}, ref)
+        peak = torch.cuda.max_memory_allocated()
+        with hop_timer() as hops:
+            t0 = time.perf_counter()
+            _, got = counted(lambda: step(svit, head, opt, x, y))
+            instrumented = (time.perf_counter() - t0) * 1e3
+        add_counts(total, got)
+        blocks = list(svit.blocks.parameters())
+        rank_bytes = nbytes(blocks) + nbytes(
+            [v for p in blocks for v in opt.state[p].values()
+             if torch.is_tensor(v) and v.dim() > 0])
+        rec = {"phase": "pp", "part": "b bf16 step at the bench shape",
+               "schedule": schedule, "chunks": chunks, "rank": rank,
+               "world": world, "backend": backend, "res": FIT_RES,
+               "batch": DP_BATCH, "microbatches": PP_MB,
+               "blocks": PP_DEPTH, "stage_blocks": svit.block_ids,
+               "host_ms_per_step": host,
+               "host_ms": float(np.median(host[1:])),
+               "frames_per_s": DP_BATCH / float(np.median(host[1:])) * 1e3,
+               "instrumented_step_ms": instrumented, **hops,
+               "peak_bytes": peak, "rank_block_and_moment_bytes": rank_bytes,
+               "whole_block_and_moment_bytes": whole,
+               "bound_bytes": whole / world + whole / PP_DEPTH,
+               "losses": losses, "loss_first_world_of_one": ref_loss,
+               "grad_worst_rel_diff": worst, "grad_worst_leaf": leaf,
+               "grad_tol": PP_BF16_GRAD_REL, "launches_per_step": want,
+               **fwd}
+        emit(rec)
+        check(worst <= PP_BF16_GRAD_REL, f"PP bf16 gradients {rec}")
+        check(abs(losses[0] - ref_loss) <= PP_BF16_LOSS_TOL
+              * (1 + abs(ref_loss)), f"PP bf16 first loss {rec}")
+        check(rank_bytes <= rec["bound_bytes"],
+              f"PP rank holds more than its stage {rec}")
+        check(all(np.isfinite(losses)), f"PP {schedule} loss {rec}")
+        del m, vit, head, svit, opt, step
+        torch.cuda.empty_cache()
+    return total
+
+
+def pp_fit_kw():
+    return dict(precision="fp32", freeze_backbone=False,
+                batch_size=PARITY_BATCH, lr=PARITY_LR, augmented=False,
+                train_resolution=PARITY_RES, n_blocks=PP_DEPTH, max_epochs=1)
+
+
+def pp_fit(rank, world, tmp):
+    """(c) one fp32 fit(parallelism='pp') epoch on phase 9's bands at 240px
+    (batch 2 in 2 microbatches, 3 samples: a ragged tail), every rank;
+    rank 0 records the logged train metrics.  Returns the launch
+    counts."""
+    splits = {name: memory_split(n, seed) for seed, (name, n) in
+              enumerate(FIT_FRAMES.items())}
+    model = fit_model(splits, os.path.join(tmp, "pp_fit"), **pp_fit_kw())
+    test, got = counted(lambda: model.fit(
+        samples_per_epoch=PP_FIT_SAMPLES, parallelism="pp",
+        pp_microbatches=PARITY_BATCH))
+    per = PP_DEPTH // world
+    steps = batches(PP_FIT_SAMPLES, PARITY_BATCH)
+    evals = sum(batches(len(range(rank, FIT_FRAMES[s], world)),
+                        PARITY_BATCH) for s in ("val", "test"))
+    want = launches_want(fwd_f32=steps * 2 * PARITY_BATCH * per
+                         + evals * PP_DEPTH,
+                         bwd_f32=steps * PARITY_BATCH * per)
+    metrics = epoch_metrics(model)
+    rec = {"phase": "pp", "part": "c fit", "rank": rank, "world": world,
+           "res": PARITY_RES, "samples_per_epoch": PP_FIT_SAMPLES,
+           "train": metrics[0][1] if metrics else None, "test": test,
+           "launches": got, "want": want}
+    emit(rec)
+    check(got == want, f"PP fit launches {rec}")
+    return got
+
+
+def pp_tp_step(rank, world, backend):
+    """(d) DP x PP x TP on 4 ranks sharing the card (data 1 x stage 2 x
+    model 2, parallel/mesh.py:make_grid(2, stage=2)), fp32 at 240px, batch
+    2 in 2 microbatches: the step against the world-of-one step (ReLU
+    choices replayed on each rank's rows), loss and every gradient leaf
+    as (a).  Returns the launch counts."""
+    from dino_tpu_torch.parallel import pipeline as pp_mod
+    from dino_tpu_torch.parallel.mesh import make_grid
+    dg, sg, mg = make_grid(2, stage=2)
+    s = dist.get_rank(sg)
+    x, y = pp_batch(PP_F32_BATCH, PP_F32_RES, 31)
+    masks = []
+    ref_m, ref_loss, total = pp_plain_step("fp32", x, y, record=masks)
+    ref = {n: p.grad for n, p in ref_m.model.named_parameters()}
+    lo, hi = pp_mod._chunk_rows(y.numel(), 2, s)
+    m = pp_model("fp32")
+    vit, head = m.model.dino, m.model.clf
+    opt = make_optimizer("adam", DP_LR)
+    step = pp_mod.make_dp_pp_tp_train_step(m.cfg, "mlp", 7, opt, dg, sg, mg,
+                                           n_microbatches=PP_F32_MB)
+    with head_relu(replay=[mk[lo:hi] for mk in masks]) as flips:
+        (loss, _), got = counted(lambda: step(
+            vit, head, init_opt_state(opt, vit, head, False), x, y))
+    add_counts(total, got)
+    worst, leaf = grads_vs({n: p.grad for n, p in
+                            m.model.named_parameters()}, ref)
+    per = PP_DEPTH // 2
+    want = launches_want(fwd_f32=PP_F32_MB * per, bwd_f32=PP_F32_MB * per)
+    rec = {"phase": "pp", "part": "d fp32 DP x PP x TP vs world of one",
+           "rank": rank, "world": world, "backend": backend,
+           "grid": [1, 2, 2], "res": PP_F32_RES, "batch": PP_F32_BATCH,
+           "loss": loss.item(), "loss_world_of_one": ref_loss.item(),
+           "grad_worst_rel_diff": worst, "grad_worst_leaf": leaf,
+           "head_relu_units_replayed": flips, "launches": got,
+           "want": want}
+    emit(rec)
+    check(got == want, f"PP x TP launches {rec}")
+    check(abs(loss.item() - ref_loss.item())
+          <= STEP_LOSS_RTOL * abs(ref_loss.item()), f"PP x TP loss {rec}")
+    check(worst <= STEP_GRAD_REL, f"PP x TP gradients {rec}")
+    return total
+
+
+def pp_rank_main(rank, world, store, backend):
+    """One rank of phase 15 (gloo, ranks sharing the card: a world of 2
+    runs (a), (b) and (c), a world of 4 (d)) or of --pp-world (NCCL, one
+    card a rank: (b) with both 1F1B schedules).  Prints JSON records, the
+    last one its summary."""
+    pdist.init_distributed_mode(backend, f"file://{store}", world, rank)
+    total = {}
+    if backend == "gloo" and world == 2:
+        add_counts(total, pp_f32_steps(rank, world, backend))
+        add_counts(total, pp_bench_steps(rank, world, backend,
+                                         (("1f1b", 1),)))
+        add_counts(total, pp_fit(rank, world, os.path.dirname(store)))
+    elif backend == "gloo":
+        add_counts(total, pp_tp_step(rank, world, backend))
+    else:
+        add_counts(total, pp_bench_steps(
+            rank, world, backend,
+            (("1f1b", 1), ("interleaved_1f1b", pp_chunks(world)))))
+    dist.destroy_process_group()
+    emit({"pp_rank_ok": True, "rank": rank, "launches": total})
+
+
+def pp_world_of_one():
+    """The plain 12-block bf16 step at (b)'s bench shape on this card (one
+    warm-up and DP_STEPS timed steps): its record, and its launch
+    counts."""
+    x, y = pp_batch(DP_BATCH, FIT_RES, 21)
+    torch.cuda.reset_peak_memory_stats()
+    m = pp_model("bf16")
+    vit, head = m.model.dino, m.model.clf
+    opt = make_optimizer("adam", DP_LR)
+    state = init_opt_state(opt, vit, head, False)
+    step = make_train_step(m.cfg, "mlp", 7, opt, False, accum_steps=PP_MB,
+                           compute_dtype=torch.bfloat16)
+    total, host, losses = {}, [], []
+    for _ in range(1 + DP_STEPS):
+        t0 = time.perf_counter()
+        (loss, _), got = counted(lambda: step(vit, head, state, x, y))
+        host.append((time.perf_counter() - t0) * 1e3)
+        add_counts(total, got)
+        losses.append(loss.item())
+    rec = {"phase": "pp", "part": "b world of one, 12 blocks",
+           "res": FIT_RES, "batch": DP_BATCH, "accum_steps": PP_MB,
+           "host_ms_per_step": host, "host_ms": float(np.median(host[1:])),
+           "frames_per_s": DP_BATCH / float(np.median(host[1:])) * 1e3,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "losses": losses}
+    emit(rec)
+    del m, vit, head, state, step
+    torch.cuda.empty_cache()
+    return rec, total
+
+
+def pp_check_losses(plain, records):
+    """(b)'s 1F1B losses on every rank against the plain step's, step by
+    step (the same weights, batch and updates): after the first step each
+    loss reads the update the step before made."""
+    for rec in records:
+        if rec.get("part", "").startswith("b bf16"):
+            a, b = rec["losses"], plain["losses"]
+            ok = len(a) == len(b) and all(
+                abs(u - v) <= PP_BF16_LOSS_TOL * (1 + abs(v))
+                for u, v in zip(a, b))
+            emit({"phase": "pp", "part": "b loss vs world of one",
+                  "rank": rec["rank"], "schedule": rec["schedule"],
+                  "losses": a, "losses_world_of_one": b, "within": ok})
+            check(ok, f"PP bf16 losses {a} vs the world of one's {b}")
+
+
+def pp_check_fit(records, tmp):
+    """(c): the plain fit on the same batches, here, against rank 0's
+    logged train metrics (atol 1e-6, the loss FIT_LOSS_RTOL).  Returns its
+    launch counts."""
+    splits = {name: memory_split(n, seed) for seed, (name, n) in
+              enumerate(FIT_FRAMES.items())}
+    one = fit_model(splits, os.path.join(tmp, "fit_one"), **pp_fit_kw())
+    test, got = counted(lambda: one.fit(samples_per_epoch=PP_FIT_SAMPLES))
+    want = epoch_metrics(one)[0][1]
+    ranks = [r for r in records if r.get("part") == "c fit" and r["train"]]
+    keys = ("train_acc", "train_F1", "train_iou", "train_support")
+    check(len(ranks) == 1, "the PP fit logs on rank 0 alone")
+    rec = {"phase": "pp", "part": "c fit vs world of one",
+           "train_pp": {k: ranks[0]["train"][k] for k in keys
+                        + ("train_loss",)},
+           "train_world_of_one": {k: want[k] for k in keys
+                                  + ("train_loss",)},
+           "test_pp": ranks[0]["test"], "test_world_of_one": test}
+    emit(rec)
+    check(all(abs(rec["train_pp"][k] - want[k]) <= 1e-6 for k in keys),
+          f"PP fit train metrics differ from the plain fit's {rec}")
+    check(abs(rec["train_pp"]["train_loss"] - want["train_loss"])
+          <= FIT_LOSS_RTOL * abs(want["train_loss"]),
+          f"PP fit train loss differs from the plain fit's {rec}")
+    return got
+
+
+def phase_pp():
+    """Phase 15: the kernels at the PP paths' new shapes, the world of
+    one's 12-block bf16 step, then rank processes sharing the card over
+    gloo: a world of 2 ((a) the fp32 steps, (b) the bf16 1F1B step, (c) a
+    fit epoch, held to the world of one's fit here) and a world of 4 ((d)
+    DP x PP x TP).  Returns the summed launch counts."""
+    t0 = time.perf_counter()
+    pp_kernel_checks()
+    plain, total = pp_world_of_one()
+    started = start_ranks("pp", 2, "gloo")
+    summaries, records = join_ranks(started, "pp", PP_RANK_TIMEOUT)
+    for s in summaries:
+        add_counts(total, s["launches"])
+    pp_check_losses(plain, records)
+    add_counts(total, pp_check_fit(records, os.path.dirname(started[2])))
+    shutil.rmtree(os.path.dirname(started[2]), ignore_errors=True)
+    summaries, _ = join_ranks(start_ranks("pp", 4, "gloo"), "pp",
+                              PP_RANK_TIMEOUT)
+    for s in summaries:
+        add_counts(total, s["launches"])
+    for name in ("flash_attn_fwd", "flash_attn_fwd_f32", "fused_ln_mlp",
+                 "flash_attn_bwd", "flash_attn_bwd_f32"):
+        check(total.get(name, 0) > 0, f"phase 15 never launched {name}")
+    emit({"phase": "pp", "launches_summed": total,
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
+def pp_cards_main(world, card):
+    """--pp-world: (b) over NCCL with one rank a card (S = world, the 1F1B
+    and interleaved 1F1B steps), beside the world of one's 12-block step
+    on card 0 in the same call."""
+    check(torch.cuda.device_count() >= world,
+          f"--pp-world {world} needs {world} cards, found "
+          f"{torch.cuda.device_count()}")
+    emit({"phase": "device", "names": [torch.cuda.get_device_name(i)
+                                       for i in range(world)],
+          "nvidia_smi": card, "torch": torch.__version__})
+    _build.library()
+    plain, total = pp_world_of_one()
+    summaries, records = join_ranks(start_ranks("pp", world, "nccl"), "pp",
+                                    PP_RANK_TIMEOUT)
+    for s in summaries:
+        add_counts(total, s["launches"])
+    pp_check_losses(plain, records)
+    emit({"phase": "pp", "world": world, "backend": "nccl",
+          "launches_summed": total})
+    check(total.get("flash_attn_bwd", 0) > 0, "a PP rank launched no "
+                                              "backward")
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
 KERNELS = {
     "flash_attn_fwd": dict(
         source="dino_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -4507,6 +5063,10 @@ def main():
     ap.add_argument("--tp-world", type=int)
     ap.add_argument("--tp-store")
     ap.add_argument("--tp-backend", default="gloo")
+    ap.add_argument("--pp-rank", type=int)
+    ap.add_argument("--pp-world", type=int)
+    ap.add_argument("--pp-store")
+    ap.add_argument("--pp-backend", default="gloo")
     args = ap.parse_args()
     if args.sp_rank is not None:
         return sp_rank_main(args.sp_rank, args.sp_world, args.sp_store,
@@ -4517,6 +5077,9 @@ def main():
     if args.tp_rank is not None:
         return tp_rank_main(args.tp_rank, args.tp_world, args.tp_store,
                             args.tp_backend)
+    if args.pp_rank is not None:
+        return pp_rank_main(args.pp_rank, args.pp_world, args.pp_store,
+                            args.pp_backend)
     card = bench.card_name_and_power_limit()
     if args.sp_world is not None:
         return sp_cards_main(args.sp_world, card)
@@ -4524,6 +5087,8 @@ def main():
         return dp_cards_main(args.dp_world, card)
     if args.tp_world is not None:
         return tp_cards_main(args.tp_world, card)
+    if args.pp_world is not None:
+        return pp_cards_main(args.pp_world, card)
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -4582,6 +5147,7 @@ def main():
     pretrain, _ = phase_pretrain()
     ranks = phase_dp()
     tp = phase_tp(bare_fps)
+    pp = phase_pp()
     rows = phase_timing(block, per_call, bwd_per_step)
     rows.update(phase_timing_sp(launches))
     phase_fp32_latency(model, frame)
@@ -4641,6 +5207,13 @@ def main():
     for name in ("fused_ln_mlp", "flash_attn_bwd", "flash_attn_bwd_f32",
                  "flash_attn_fwd_dyn", "flash_attn_bwd_dyn"):
         launches[name] += tp.get(name, 0)
+    # phase 15's launches (its world of one and its ranks), the same way
+    launches["flash_attn_fwd"] += (pp["flash_attn_fwd"]
+                                   - pp["flash_attn_fwd_f32"])
+    launches["flash_attn_fwd_chunked"] += pp["flash_attn_fwd_f32"]
+    for name in ("fused_ln_mlp", "flash_attn_bwd", "flash_attn_bwd_f32",
+                 "flash_attn_fwd_dyn", "flash_attn_bwd_dyn"):
+        launches[name] += pp.get(name, 0)
 
     emit({"kernels": [
         dict(name=name, route="cuda", launches=launches[name],

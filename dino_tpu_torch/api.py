@@ -50,7 +50,9 @@ The counterpart of ``dino_tpu/api.py``'s ``DINOSeg`` for inference:
     rank 0 alone saves, logs and writes resume files.  ``zero=True``
     shards the optimizer's moments over the ranks (ZeRO-1), ``fsdp=True``
     the parameters, gradients and moments (``parallel/mesh.py``);
-    ``parallelism='sp'`` shards the token axis instead.  ``evaluate``
+    ``parallelism='sp'`` shards the token axis instead, and
+    ``parallelism='pp'`` pipelines the blocks over the ranks, one stage a
+    rank, on the 1F1B schedules (``parallel/pipeline.py``).  ``evaluate``
     splits the samples over the ranks and sums the confusion matrices.
 
 The model runs on the card by default: ``device=None`` means ``"cuda"`` and
@@ -95,6 +97,10 @@ from dino_tpu_torch.parallel.dist import (agree_across_hosts,
                                           get_world_size,
                                           is_dist_avail_and_initialized)
 from dino_tpu_torch.parallel.mesh import ShardedOptimizer, materialize
+from dino_tpu_torch.parallel.pipeline import (
+    make_pp_1f1b_train_step, make_pp_interleaved_1f1b_train_step,
+    pp_gather_state, pp_load_optimizer_state, pp_optimizer_state,
+    pp_shard_vit)
 from dino_tpu_torch.parallel.ring_attention import (make_sp_train_step,
                                                     vit_forward_seq_parallel)
 from dino_tpu_torch.parallel.tp import (check_tp_world, tp_head_apply,
@@ -747,7 +753,9 @@ class DINOSeg:
             parallelism: Optional[str] = None,
             accum_steps: int = 1, zero: bool = False, fsdp: bool = False,
             early_stopping: bool = False,
-            augment_backend: str = "auto") -> Dict[str, float]:
+            augment_backend: str = "auto", pp_schedule: str = "1f1b",
+            pp_microbatches: Optional[int] = None, pp_chunks: int = 2,
+            pp_stages: Optional[int] = None) -> Dict[str, float]:
         """Train on ``data_path``'s splits, keep the best-val checkpoint in
         ``write_path`` and return the test metrics of that checkpoint.
 
@@ -781,13 +789,28 @@ class DINOSeg:
         backbone); both are no-ops in a world of one, and the files they
         write are a plain run's.  ``parallelism='sp'`` shards the token
         axis over the ranks instead (every rank loads the whole batch;
-        ``zero`` then shards the moments over the same ranks); 'pp' is not
-        ported."""
+        ``zero`` then shards the moments over the same ranks).
+
+        ``parallelism='pp'`` pipelines the backbone's blocks over ranks [0,
+        ``pp_stages``) (default: every rank), one stage a rank
+        (``parallel/pipeline.py``): ``pp_schedule='1f1b'`` on contiguous
+        stages, or ``'interleaved_1f1b'`` with ``pp_chunks`` chunks a rank;
+        ``pp_microbatches`` is M (default ``batch_size``).  Every rank
+        loads the whole batch with the shared shuffle rng; a ragged tail
+        pads and masks.  During an epoch each rank holds only its stage's
+        blocks and their Adam moments on the card; at its end every rank
+        joins the gather that rebuilds the standard backbone for eval, the
+        best checkpoint and the resume file (written by rank 0, the
+        optimizer state in the plain layout).  Ranks past ``pp_stages``
+        hold no stage: they take rank 0's parameters and train metrics at
+        each epoch's end.  The ViT backbone, unfrozen, with the mlp or
+        linear head; not with ``zero``, ``fsdp`` or ``accum_steps``.  A
+        world of one runs one stage."""
         if parallelism not in (None, "sp", "pp"):
             raise ValueError(f"unsupported train parallelism {parallelism!r}")
         if parallelism == "pp":
-            raise NotImplementedError(_roadmap("fit(parallelism='pp')",
-                                               "11.5"))
+            self._check_pp(pp_schedule, zero, fsdp, accum_steps, pp_stages,
+                           pp_microbatches)
         if fsdp:
             if zero:
                 raise ValueError("fsdp=True already shards the optimizer "
@@ -829,6 +852,10 @@ class DINOSeg:
         kw = dict(cache_features=cache_features, accum_steps=accum_steps,
                   augment_backend=augment_backend, parallelism=parallelism,
                   zero=zero, fsdp=fsdp)
+        if parallelism == "pp":
+            kw["pp"] = dict(schedule=pp_schedule, chunks=pp_chunks,
+                            stages=pp_stages or get_world_size(),
+                            microbatches=pp_microbatches or self.batch_size)
         if self.pretrain_on_sim:
             if get_rank() == 0:
                 print("Pretraining on simulation data...")
@@ -851,6 +878,38 @@ class DINOSeg:
                 and hasattr(self.logger, "log_asset")):
             self.logger.log_asset(ck_path)
         return metrics
+
+    def _check_pp(self, schedule: str, zero: bool, fsdp: bool,
+                  accum_steps: int, stages: Optional[int],
+                  microbatches: Optional[int]) -> None:
+        """``dino_tpu``'s refusals of ``fit(parallelism='pp')``."""
+        if schedule not in ("1f1b", "interleaved_1f1b"):
+            raise ValueError(f"pp_schedule must be '1f1b' or "
+                             f"'interleaved_1f1b', got {schedule!r}")
+        if self.backbone != "vit":
+            raise ValueError("parallelism='pp' requires the ViT backbone")
+        if self.freeze_backbone:
+            raise ValueError("parallelism='pp' pipelines the UNFROZEN "
+                             "backbone; frozen training has no backbone "
+                             "weights to shard (use the feature cache)")
+        if self.head not in ("mlp", "linear"):
+            raise ValueError("parallelism='pp' supports the mlp/linear "
+                             "heads")
+        if zero or fsdp:
+            raise ValueError("parallelism='pp' already shards the block "
+                             "weights AND their Adam moments per stage; "
+                             "drop zero/fsdp")
+        if accum_steps > 1:
+            raise ValueError("parallelism='pp' accumulates via "
+                             "pp_microbatches (the schedule's native "
+                             "form); drop accum_steps")
+        if stages is not None and stages > get_world_size():
+            raise ValueError(f"pp_stages ({stages}) exceeds the world size "
+                             f"({get_world_size()})")
+        m = microbatches or self.batch_size
+        if self.batch_size % m:
+            raise ValueError(f"batch_size {self.batch_size} must divide "
+                             f"by pp_microbatches {m}")
 
     def _dp_batches(self, train_ds, idx, rng, seed: int, epoch: int,
                     rank: int, world: int):
@@ -880,7 +939,7 @@ class DINOSeg:
                    accum_steps: int = 1, early_stopping: bool = False,
                    augment_backend: str = "auto",
                    parallelism: Optional[str] = None, zero: bool = False,
-                   fsdp: bool = False) -> None:
+                   fsdp: bool = False, pp: Optional[dict] = None) -> None:
         res, bs = self.train_resolution, self.batch_size
         train_ds = self._make_dataset(train_path, self.augmented, res,
                                       augment_backend)
@@ -913,8 +972,11 @@ class DINOSeg:
                         f"{world} processes: every process computes the "
                         "full batch (state memory still shards 1/N)")
         optimizer = make_optimizer(self.optimizer, self.lr)
-        opt_state = init_opt_state(optimizer, vit, head, self.freeze_backbone,
-                                   zero_mesh=zero_mesh, fsdp_mesh=fsdp_mesh)
+        # pipeline parallelism builds its optimizer over the rank's stage
+        # after a resume restore (below)
+        opt_state = (None if pp is not None else init_opt_state(
+            optimizer, vit, head, self.freeze_backbone, zero_mesh=zero_mesh,
+            fsdp_mesh=fsdp_mesh))
         sp_zero = parallelism == "sp" and zero and group is not None
         if sp_zero:  # ZeRO-1 over the ranks the tokens shard on
             opt_state = ShardedOptimizer(opt_state, group)
@@ -939,7 +1001,9 @@ class DINOSeg:
             print(f"feature cache: train={cache_train} val={cache_val} "
                   f"({cache_bytes / 1e6:.0f} MB on the device; the frozen "
                   f"backbone runs once per image)")
-        if parallelism == "sp":
+        if pp is not None:
+            stage_group, train_step = self._pp_plan(pp, optimizer, group)
+        elif parallelism == "sp":
             train_step = make_sp_train_step(
                 self.cfg, self.head, self.n_classes, optimizer,
                 compute_dtype=self.compute_dtype, zero=sp_zero,
@@ -960,6 +1024,7 @@ class DINOSeg:
         ck_writer = AsyncCheckpointer(name="fit-ckpt")
         resume_path = ck_path + ".resume.npz"
         start_epoch, best_acc, since_improve = 0, -1.0, 0
+        pp_restored = svit = None
         have_resume = os.path.exists(resume_path)
         if resume and group is not None:
             # rank 0 alone writes resume files: every rank must see one
@@ -969,16 +1034,30 @@ class DINOSeg:
             vit_p, head_p = to_jax_params(self.model.state_dict())
             restored = restart_from_checkpoint(
                 resume_path, run_vars, vit=vit_p, head=head_p,
-                opt_state=optimizer_arrays(opt_state))
+                opt_state=(None if opt_state is None
+                           else optimizer_arrays(opt_state)))
             self.model.load_state_dict(from_jax_params(restored["vit"],
                                                        restored["head"]))
-            load_optimizer_arrays(opt_state, restored["opt_state"])
+            if pp is None:
+                load_optimizer_arrays(opt_state, restored["opt_state"])
+            else:  # the plain layout: each stage takes its entries below
+                pp_restored = restored["opt_state"]
             start_epoch = int(run_vars["epoch"]) + 1
             best_acc = float(run_vars["best_acc"])
             since_improve = int(run_vars["since_improve"])
             if group is not None:  # a torn or stale read fails fast
                 agree_across_hosts("resume epoch/best_acc",
                                    [start_epoch, best_acc])
+
+        if pp is not None and get_rank() < pp["stages"]:
+            # this rank's stage, restacked from the (restored) backbone
+            svit = pp_shard_vit(vit, stage_group,
+                                pp["chunks"] if pp["schedule"]
+                                == "interleaved_1f1b" else 1)
+            opt_state = init_opt_state(optimizer, svit, head, False)
+            if pp_restored is not None:
+                pp_load_optimizer_state(opt_state, svit, head, vit,
+                                        pp_restored)
 
         patience = max(self.patience, 1)
         for epoch in range(start_epoch, self.max_epochs):
@@ -1010,6 +1089,21 @@ class DINOSeg:
                                                  masks[i])
                     losses.append(loss)
                     cms.append(cm)
+            elif pp is not None:
+                if svit is not None:
+                    # the epoch holds only the stage's blocks on the card
+                    vit.blocks.to("cpu")
+                    loader = batched_loader(train_ds, idx, bs, rng=rng,
+                                            device=self.device)
+                    for x, y, mask in self._feed(loader, pad_to=bs,
+                                                 stats=stats):
+                        loss, cm = train_step(svit, head, opt_state, x, y,
+                                              mask)
+                        losses.append(loss)
+                        cms.append(cm)
+                losses, cms = self._pp_epoch_end(
+                    svit, stage_group, losses, cms, -(-len(idx) // bs),
+                    pp["stages"])
             elif dp is not None:
                 loader, masks = self._dp_batches(train_ds, idx, rng, seed,
                                                  epoch, rank, world)
@@ -1065,8 +1159,14 @@ class DINOSeg:
             # from the summed confusion matrices: the same on every rank
             improved = metrics["val_acc"] > best_acc
             since_improve = 0 if improved else since_improve + 1
-            # the sharded optimizer's state gathers on every rank
-            opt_arrays = optimizer_arrays(opt_state) if resume else None
+            # the sharded optimizer's state gathers on every rank (a PP
+            # stage's over the stage group, in the plain layout)
+            opt_arrays = None
+            if resume and pp is None:
+                opt_arrays = optimizer_arrays(opt_state)
+            elif resume and svit is not None:
+                opt_arrays = pp_optimizer_state(opt_state, svit, head, vit,
+                                                stage_group)
             if rank == 0:
                 if improved:
                     self.save(ck_path, extra_hparams={
@@ -1100,6 +1200,54 @@ class DINOSeg:
                 break
         ck_writer.close()  # the resume file is on disk, the thread joined
         materialize(opt_state)  # the model leaves fit whole
+
+    def _pp_plan(self, pp: dict, optimizer, group):
+        """(stage group, 1F1B step) of fit(parallelism='pp'): the stage
+        group is ranks [0, S) (``dist.new_group``, a collective every rank
+        joins, when S is less than the world); a rank past it gets no
+        step."""
+        stage_group = group
+        if group is not None and pp["stages"] < get_world_size():
+            stage_group = dist.new_group(list(range(pp["stages"])))
+        if get_rank() >= pp["stages"]:
+            return stage_group, None
+        kw = dict(n_microbatches=pp["microbatches"],
+                  compute_dtype=self.compute_dtype)
+        if pp["schedule"] == "interleaved_1f1b":
+            return stage_group, make_pp_interleaved_1f1b_train_step(
+                self.cfg, self.head, self.n_classes, optimizer, stage_group,
+                n_chunks=pp["chunks"], **kw)
+        return stage_group, make_pp_1f1b_train_step(
+            self.cfg, self.head, self.n_classes, optimizer, stage_group, **kw)
+
+    def _pp_epoch_end(self, svit, stage_group, losses, cms, n_steps: int,
+                      n_stages: int):
+        """The end of a pipelined epoch on every rank: the stages' gather
+        writes the standard backbone (its blocks back on the card), and
+        ranks past the stage group take rank 0's parameters, losses and
+        confusion matrix.  Returns (losses, confusion matrices) as the
+        epoch loop keeps them."""
+        vit = self.model.dino
+        if svit is not None:
+            state = pp_gather_state(svit, vit, stage_group)
+            vit.blocks.to(self.device)
+            with torch.no_grad():
+                for name, p in vit.named_parameters():
+                    p.copy_(state[name])
+            loss_vec, cm = torch.stack(losses), torch.stack(cms).sum(0)
+        else:
+            loss_vec = torch.zeros(n_steps, device=self.device)
+            cm = torch.zeros((self.n_classes, self.n_classes),
+                             dtype=torch.int64, device=self.device)
+        if n_stages < get_world_size():
+            # rank 0's values on every rank: a sum the others add zeros to
+            shared = [p.data for p in self.model.parameters()] + [loss_vec,
+                                                                   cm]
+            if get_rank() != 0:
+                for t in shared:
+                    t.zero_()
+            all_reduce_sum_(shared, _world_group())
+        return list(loss_vec), [cm]
 
     def _log(self, metrics: Dict[str, float], step: int) -> None:
         if get_rank() != 0:  # rank 0 logs for the world

@@ -333,7 +333,8 @@ def _needs_grad(blk: Block, x: torch.Tensor) -> bool:
 def block_apply(blk: Block, x: torch.Tensor, cfg: ViTConfig,
                 cls_mask: Optional[torch.Tensor] = None,
                 need_probs: bool = False, drop_path_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                fused_mlp: bool = True):
     """One pre-LN transformer block; returns (x_out, probs or None).
 
     ``need_probs`` or a ``cls_mask`` (n_masks, gh, gw) take attention
@@ -344,9 +345,11 @@ def block_apply(blk: Block, x: torch.Tensor, cfg: ViTConfig,
     config) engages only when a ``generator`` is passed and a rate is > 0.
 
     The fused MLP kernel runs only on the bf16 CUDA path when no gradient
-    is needed and no regularization is on (the kernel has no backward);
-    otherwise the MLP is the differentiable composition
-    :func:`mlp_residual`.  A block in int8 serving form runs
+    is needed, no regularization is on (the kernel has no backward) and
+    ``fused_mlp`` is left on; otherwise the MLP is the differentiable
+    composition :func:`mlp_residual`.  A pipeline's train step turns it off
+    in the forward slots it runs without a gradient, so the activation it
+    sends on is the one its backward recomputes.  A block in int8 serving form runs
     :func:`mlp_residual_int8`.
     """
     train = generator is not None and (cfg.drop_rate > 0
@@ -369,7 +372,7 @@ def block_apply(blk: Block, x: torch.Tensor, cfg: ViTConfig,
     x = x + y
     if isinstance(blk.mlp.fc1, QuantLinear):
         return mlp_residual_int8(blk.norm2, blk.mlp, x, cfg.ln_eps), probs
-    if (not train and x.is_cuda and x.dtype == torch.bfloat16
+    if (fused_mlp and not train and x.is_cuda and x.dtype == torch.bfloat16
             and not _needs_grad(blk, x)):
         return fused_ln_mlp_residual(blk.norm2, blk.mlp, x, cfg.ln_eps), probs
     return mlp_residual(blk.norm2, blk.mlp, x, cfg.ln_eps, cfg.drop_rate,

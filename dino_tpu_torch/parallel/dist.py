@@ -6,7 +6,8 @@ The counterpart of ``dino_tpu/parallel/dist.py`` (which feeds
 ``jax.distributed``): rank discovery from RANK / WORLD_SIZE / MASTER_ADDR,
 NCCL for a CUDA device and gloo for the CPU.  Where the JAX package writes
 ``ppermute`` / ``psum`` / ``all_gather`` inside ``shard_map`` or lets GSPMD
-place them, the port calls :func:`ring_shift`, :func:`all_reduce_sum_`
+place them, the port calls :func:`ring_shift` (sequence parallelism's
+ring), :func:`stage_hop` (a pipeline's two rings), :func:`all_reduce_sum_`
 (any dtype: float gradients, int64 confusion matrices),
 :func:`all_gather_seq`, :func:`all_gather_flat` and :class:`GroupSum` (a
 sum whose backward is the same sum) on a process group; tensor
@@ -28,7 +29,7 @@ so NCCL and gloo give the same sums.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -122,6 +123,47 @@ def ring_shift(tensors: Sequence[torch.Tensor], group=None
         out.append(recv[offset:offset + nbytes].view(t.dtype).reshape(t.shape))
         offset += nbytes
     return out
+
+
+def stage_hop(fwd: Optional[torch.Tensor], bwd: Optional[torch.Tensor],
+              group=None) -> Tuple[Optional[torch.Tensor],
+                                   Optional[torch.Tensor]]:
+    """One tick of a pipeline's two rings over ``group``, the counterpart
+    of ``lax.ppermute`` over the stage axis: ``fwd`` (activations) goes to
+    rank+1 and rank-1's arrives, ``bwd`` (cotangents) goes to rank-1 and
+    rank+1's arrives, both rings wrapping between the last rank and the
+    first as the JAX ring does.  The tick's sends and receives, both
+    directions, are posted together in one ``batch_isend_irecv``.  A
+    direction passed as None is not posted: every rank of the group must
+    leave out the same one.  Returns (received fwd, received bwd), new
+    tensors of the inputs' shapes, dtypes and devices; a world of one
+    returns the inputs (the ring of one rank sends to itself)."""
+    d = get_world_size(group)
+    if d == 1:
+        return fwd, bwd
+    me = dist.get_rank(group)
+    ops, recvs = [], []
+    for tag, (t, dst, src) in enumerate(((fwd, me + 1, me - 1),
+                                         (bwd, me - 1, me + 1))):
+        if t is None:
+            recvs.append(None)
+            continue
+        flat = t.contiguous().reshape(-1).view(torch.uint8)
+        if _staged(group):
+            flat = flat.cpu()
+        recv = torch.empty_like(flat)
+        # with 2 ranks both directions pair the same two ranks: the tags
+        # (gloo) and the posting order (NCCL) keep the rings apart
+        ops += [dist.P2POp(dist.isend, flat, _peer(group, dst % d), group,
+                           tag),
+                dist.P2POp(dist.irecv, recv, _peer(group, src % d), group,
+                           tag)]
+        recvs.append((recv, t))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return tuple(None if r is None else
+                 r[0].to(r[1].device).view(r[1].dtype).reshape(r[1].shape)
+                 for r in recvs)
 
 
 def all_reduce_sum_(tensors: Sequence[torch.Tensor], group=None) -> None:

@@ -1,9 +1,10 @@
-"""The 2-D rank grid of tensor parallelism, and state sharding over the
-ranks of a process group: ZeRO-1 and FSDP.
+"""The rank grids of tensor and pipeline parallelism, and state sharding
+over the ranks of a process group: ZeRO-1 and FSDP.
 
 :func:`make_grid` is the counterpart of ``dino_tpu/parallel/mesh.py``'s
 ``make_mesh(n, model_axis)``: the (data, model) groups of a world, tensor
-parallel partners on consecutive ranks.
+parallel partners on consecutive ranks; with ``stage`` the (data, stage,
+model) groups of the 3-D grid.
 
 The counterpart of ``dino_tpu/parallel/mesh.py``'s ``zero_constrain``,
 ``fsdp_spec``, ``fsdp_place`` and ``gather_if_sharded``.  The JAX package
@@ -31,7 +32,7 @@ rank's resident bytes per tensor are s elements.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -41,7 +42,7 @@ from dino_tpu_torch.parallel.dist import (all_gather_flat, all_reduce_sum_,
                                           is_dist_avail_and_initialized)
 
 
-def make_grid(model: int, group=None):
+def make_grid(model: int, group=None, stage: Optional[int] = None):
     """(data group, model group) of this rank on the (data, model) grid of
     ``group``'s ranks (the default group when None): the counterpart of
     ``dino_tpu``'s ``make_mesh(n, model_axis=model)``, whose grid is
@@ -49,24 +50,39 @@ def make_grid(model: int, group=None):
     r // model and model index r % model, so tensor-parallel partners are
     consecutive ranks.
 
+    With ``stage`` (S), the 3-D grid of pipeline x tensor parallelism:
+    (data group, stage group, model group) on ``np.array(ranks).reshape(D,
+    S, T)`` with axes ("data", "stage", "model"), rank r = (d*S + s)*T + t.
+
     A collective: ``dist.new_group`` is one, so every rank of ``group``
     calls this at the same point and creates every group of the grid, its
     own or not, in the same order.  Without ``torch.distributed`` (a world
-    of one) both groups are None."""
+    of one) every group is None."""
     world = get_world_size(group)
-    if model < 1 or world % model:
-        raise ValueError(f"{world} ranks not divisible by model axis {model}")
+    n_stage = stage or 1
+    if model < 1 or n_stage < 1 or world % (model * n_stage):
+        raise ValueError(f"{world} ranks not divisible by stage x model axes "
+                         f"({n_stage} x {model})")
     if not is_dist_avail_and_initialized():
-        return None, None
+        return (None, None) if stage is None else (None, None, None)
     ranks = (list(range(world)) if group in (None, dist.group.WORLD)
              else dist.get_process_group_ranks(group))
-    data = [dist.new_group([ranks[d * model + m]
-                            for d in range(world // model)])
-            for m in range(model)]
-    tensor = [dist.new_group(ranks[d * model:(d + 1) * model])
-              for d in range(world // model)]
-    me = get_rank(group)
-    return data[me % model], tensor[me // model]
+    n_data = world // (n_stage * model)
+
+    def at(d, s, t):
+        return ranks[(d * n_stage + s) * model + t]
+    data = [[dist.new_group([at(d, s, t) for d in range(n_data)])
+             for t in range(model)] for s in range(n_stage)]
+    stages = ([[dist.new_group([at(d, s, t) for s in range(n_stage)])
+                for t in range(model)] for d in range(n_data)]
+              if stage is not None else None)
+    tensor = [[dist.new_group([at(d, s, t) for t in range(model)])
+               for s in range(n_stage)] for d in range(n_data)]
+    d, rest = divmod(get_rank(group), n_stage * model)
+    s, t = divmod(rest, model)
+    if stage is None:
+        return data[s][t], tensor[d][s]
+    return data[s][t], stages[d][t], tensor[d][s]
 
 
 class FlatShards:

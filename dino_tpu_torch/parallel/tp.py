@@ -4,7 +4,8 @@ The counterpart of ``dino_tpu/parallel/tp.py``: one implementation of the
 tensor-parallel transformer block, shared by TP predict
 (``DINOSeg.predict(parallelism='tp')``), the SP x TP forward and step
 (``parallel/ring_attention.py``) and the DP x TP train step
-(``train/loop.py``, ``tp_group``); the PP x TP stages are to call it too.
+(``train/loop.py``, ``tp_group``) and the PP x TP stages
+(``parallel/pipeline.py``).
 
   * :func:`tp_pack_block` re-lays a block head-aligned, in ``dino_tpu``'s
     packing: ``qkv_w`` (nh, C, 3, hd), ``qkv_b`` (nh, 3, hd), ``proj_w``
@@ -436,7 +437,9 @@ def make_composed_train_step(features_fn: Callable, mode: str,
     disjoint between ``model_group``'s ranks) are summed over it, and the
     loss, the confusion matrix and every gradient over ``loss_group`` (the
     ranks whose rows differ).  A gradient that every rank of
-    ``model_group`` holds whole is not summed there.
+    ``model_group`` holds whole is not summed there.  ``loss_group`` may
+    be a sequence of groups whose ranks' rows differ (DP x PP x TP's data
+    and stage groups): the sums run over each in turn.
     """
     if head_type not in ("mlp", "linear"):
         raise ValueError(f"{mode} training supports the mlp/linear heads; "
@@ -473,8 +476,10 @@ def make_composed_train_step(features_fn: Callable, mode: str,
                     p.grad = torch.zeros_like(p)
             all_reduce_sum_([p.grad for p in params if id(p) in sliced],
                             model_group)
-            all_reduce_sum_([loss, cm] + [p.grad for p in params],
-                            loss_group)
+            groups = (loss_group if isinstance(loss_group, (tuple, list))
+                      else (loss_group,))
+            for group in groups:
+                all_reduce_sum_([loss, cm] + [p.grad for p in params], group)
             opt_state.step()
         return loss, cm
 

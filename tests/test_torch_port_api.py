@@ -259,13 +259,15 @@ def test_unported_options_raise(kwargs):
 
 def test_unported_methods_raise(pair):
     """'tp' is ported (ROADMAP item 11.4) and, as 'sp', needs a process
-    group; 'pp' training and export over several cards are not ported."""
-    _, pm = pair
+    group; 'pp' training is ported (item 11.5) and refuses this frozen
+    model as dino_tpu does; export over several cards is not ported."""
+    jm, pm = pair
     with pytest.raises(RuntimeError, match="init_distributed_mode"):
         pm.predict(_frames(1)[0], parallelism="tp")
     with pytest.raises(RuntimeError, match="init_distributed_mode"):
         pm.predict_stream(iter(_frames(2)), batch_size=2, parallelism="tp")
-    with pytest.raises(NotImplementedError, match="item 11.5"):
-        pm.fit(parallelism="pp")
+    for model in (jm, pm):
+        with pytest.raises(ValueError, match="UNFROZEN"):
+            model.fit(parallelism="pp")
     with pytest.raises(NotImplementedError, match="item 11.6"):
         export_predict(pm, "unused.dtts", n_devices=2)

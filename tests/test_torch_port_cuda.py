@@ -800,3 +800,67 @@ def test_tp_row_parallel_sum_on_card(cuda, dtype, world):
     for name in ("proj", "fc2"):
         err = (got[name] - want[name]).abs().max().item()
         assert err <= 1e-5 * want[name].abs().max().item(), (name, err)
+
+
+_PP_RANK = """
+import json, sys
+import torch
+import torch.distributed as dist
+cfg = json.loads(sys.argv[1])
+from dino_tpu_torch import DINOSeg
+from dino_tpu_torch.ops import attention as tatt
+from dino_tpu_torch.parallel import dist as pd
+from dino_tpu_torch.parallel import pipeline as pp
+from dino_tpu_torch.train import loop as tloop
+pd.init_distributed_mode("gloo", cfg["init"], cfg["world"], cfg["rank"])
+m = DINOSeg(head="linear", n_blocks=4, n_classes=3, precision="fp32",
+            random_init=True, seed=1, freeze_backbone=False)
+vit, head, world = m.model.dino, m.model.clf, dist.group.WORLD
+svit = pp.pp_shard_vit(vit, world)
+opt = tloop.make_optimizer("adam", 1e-4)
+step = pp.make_pp_1f1b_train_step(m.cfg, "linear", 3, opt, world,
+                                  n_microbatches=2)
+gen = torch.Generator().manual_seed(2)
+x = torch.randint(0, 255, (2, 64, 64, 3), generator=gen, dtype=torch.uint8)
+y = torch.randint(0, 3, (2, 64), generator=gen, dtype=torch.int32)
+before = (tatt.flash_attention.launches, tatt.flash_attention_bwd.launches)
+loss, _ = step(svit, head, tloop.init_opt_state(opt, svit, head, False),
+               x.cuda(), y.cuda())
+launches = [tatt.flash_attention.launches - before[0],
+            tatt.flash_attention_bwd.launches - before[1]]
+grads = pp.pp_gather_state(svit, vit, world, grads=True)
+grads.update({"head." + k: p.grad for k, p in head.named_parameters()})
+torch.save({"loss": loss.item(), "launches": launches,
+            "grads": {k: v.cpu() for k, v in grads.items()}}, cfg["out"])
+"""
+
+
+def test_pp_1f1b_step_over_two_ranks_on_card(cuda, tmp_path):
+    """One fp32 1F1B step (4 blocks, 2 stages, 2 microbatches) over two gloo
+    ranks sharing the card: each rank launches 2 x 2 x 2 forwards (slot
+    and recompute) and 2 x 2 backwards, and the loss and every gradient
+    leaf are the card's world-of-one step's (chip_smoke's STEP_* rules)."""
+    from tests.test_torch_port_multiprocess import spawn_ranks
+    outs = [torch.load(o) for o in spawn_ranks(tmp_path, 2, _PP_RANK, {},
+                                               tag="pp")]
+    m = DINOSeg(head="linear", n_blocks=4, n_classes=3, precision="fp32",
+                random_init=True, seed=1, freeze_backbone=False)
+    vit, head = m.model.dino, m.model.clf
+    opt = tloop.make_optimizer("adam", 1e-4)
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randint(0, 255, (2, 64, 64, 3), generator=gen,
+                      dtype=torch.uint8)
+    y = torch.randint(0, 3, (2, 64), generator=gen, dtype=torch.int32)
+    loss, _ = tloop.make_train_step(m.cfg, "linear", 3, opt, False)(
+        vit, head, tloop.init_opt_state(opt, vit, head, False), x.to(cuda),
+        y.to(cuda))
+    want = {k: p.grad.cpu() for k, p in vit.named_parameters()}
+    want.update({"head." + k: p.grad.cpu()
+                 for k, p in head.named_parameters()})
+    for out in outs:
+        assert out["launches"] == [8, 4]
+        assert abs(out["loss"] - loss.item()) <= (
+            chip_smoke.STEP_LOSS_RTOL * abs(loss.item()))
+        for k, g in want.items():
+            err = (out["grads"][k] - g).abs().max().item()
+            assert err <= chip_smoke.STEP_GRAD_REL * g.abs().max().item(), k
