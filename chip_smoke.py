@@ -163,7 +163,20 @@ each printing JSON lines:
      on phase 9's bands, its train metrics the plain fit's; a world of 4
      runs (d) the DP x PP x TP step (data 1 x stage 2 x model 2) against
      the world of one; exact launch counts, summed into the kernels line;
-  16. timing (CUDA events around bursts of back-to-back calls, median of
+  16. one process over several cards (cards), on the main path's model:
+     (a) the batch split of predict_batch (api.py:_launch_split) with two
+     chunks on card 0, at batch 4, fp32 and bf16, against the one-card
+     program at batch 2 on each chunk and eager predict_batch (the same
+     bits), with its host ms beside one card's at batch 2 and 8; the
+     in-process SP ring (parallel/ring_attention.py:ring_attention_local)
+     with two shards on card 0 at 960px against the one-card forward (fp32
+     labels equal except top-2 gaps under MARGIN, log-probs within
+     SP_FWD_TOL; 12 launches of kernel 5, no fused MLP), with its host ms;
+     an artifact for one card more than the machine has, refused at load;
+     utils/profiling.py:device_trace around one predict, whose trace must
+     name the bf16 flash forward; the launches summed into the kernels
+     line;
+  17. timing (CUDA events around bursts of back-to-back calls, median of
      the bursts; the bf16 kernels and the f32 backward also replayed from a
      CUDA graph, which takes the host out) at the 480px predict shapes
      (batch 3; the fused MLP also at one frame), the train bench's
@@ -176,7 +189,7 @@ each printing JSON lines:
      forward's and backward's on their route: three TF32 passes); the fp32
      predict latency at 480 and 960px; then the cli/bench line
      (predict and train);
-  17. the per-kernel summary line, the card line, and the final status
+  18. the per-kernel summary line, the card line, and the final status
       line.
 
 ``python3 chip_smoke.py --sp-world W`` (W cards) runs only phase 6's rank
@@ -188,7 +201,12 @@ each rank's peak memory and weight bytes, and with W = 4 (b) on 2 x 2
 cards.  ``--pp-world W`` runs phase 15's (b) over NCCL with one rank a card
 (S = W, the 1F1B and interleaved 1F1B steps), beside the world of one's
 12-block step on card 0 in the same call, with the hop ms, each rank's
-bytes and peak.  ``--sp-rank R --sp-world W --sp-store PATH --sp-backend
+bytes and peak.  ``--cards N`` (N >= 2 cards in one process) runs phase
+16 (b) over cards 0..N-1 and over cards 0 and 1: the DP artifact at batch
+2N and the split predict_batch at twice the card count against the
+one-card program's bits, the SP artifact at 960px against one card as in
+(a), the warm host ms of each beside one card's (graph replays for DP,
+eager for SP), and a ring hop's peer copy ms.  ``--sp-rank R --sp-world W --sp-store PATH --sp-backend
 B`` (and ``--dp-rank ...``, ``--tp-rank ...``, ``--pp-rank ...``) is one
 rank process (started by the script itself).
 """
@@ -214,6 +232,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from dino_tpu_torch import DINOSeg, export_predict, load_exported_predict
+from dino_tpu_torch.api import collect_labels, label_maps, seg_log_probs_sp
 from dino_tpu_torch.cli import bench
 from dino_tpu_torch.cli.serve import make_server
 from dino_tpu_torch.cli.visualize import overlay
@@ -249,6 +268,7 @@ from dino_tpu_torch.train.dino_pretrain import (DinoConfig, init_dino_params,
 from dino_tpu_torch.train.loop import (init_opt_state, make_optimizer,
                                        make_train_step)
 from dino_tpu_torch.utils.frames import process_attentions
+from dino_tpu_torch.utils.profiling import device_trace
 
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 CUDA cores, TF32
 # tensor cores (the f32 forward's route: three TF32 products per product),
@@ -5014,6 +5034,302 @@ def pp_cards_main(world, card):
                                  "count": torch.cuda.device_count()}})
 
 
+CARDS_HW = (480, 640)   # phase 16: the bench's frames
+CARDS_DP_RES = 480      # the batch split's resolution: the bench's
+CARDS_DP_BATCH = 4      # (a): two chunks of 2 on one card
+CARDS_SP_RES = SP_RES   # the SP ring's resolution: 960px, N = 14,401
+CARDS_LAT_CALLS = 20    # timed calls per reading
+SP_FWD_TOL = dict(atol=2e-5, rtol=1e-5)  # tests/test_torch_port_ring.py:54
+
+
+def host_ms(fn, calls=CARDS_LAT_CALLS, warmup=3):
+    """Host ms of ``fn()`` (which ends in a synchronize or a host copy):
+    the median of ``calls`` after ``warmup`` untimed ones, and the
+    readings."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), times
+
+
+def cards_frames(batch, seed):
+    return np.random.RandomState(seed).randint(
+        0, 256, (batch,) + CARDS_HW + (3,)).astype(np.uint8)
+
+
+def split_labels(model, frames, devices, precision):
+    """predict_batch's split over ``devices`` (api.py:_launch_split)."""
+    return collect_labels(model._launch_split(torch.from_numpy(frames),
+                                              devices, precision))
+
+
+def one_card_chunks(model, frames, n, precision):
+    """The one-card program at batch B/n on each of n chunks, joined."""
+    program = predict_program(model, len(frames) // n, CARDS_HW, precision)
+    return np.concatenate([program(c) for c in np.split(frames, n)])
+
+
+def sp_check(model, replicas, frames, precision, tag):
+    """The in-process SP ring over ``replicas`` (one SegModel a shard)
+    against the one-card forward at the model's resolution: labels equal
+    except top-2 gaps under MARGIN, fp32 log-probs within SP_FWD_TOL of the
+    one card's.  Returns (the record, the ring's label maps)."""
+    res = model.resolution
+    imgs = torch.from_numpy(frames).cuda()
+    cdt = torch.bfloat16 if precision == "bf16" else None
+    with torch.no_grad():
+        logp_sp = seg_log_probs_sp(replicas, model.cfg, model.head, imgs,
+                                   res, cdt).float().cpu()
+    logp = model.log_probs(imgs, precision=precision).float().cpu()
+    out_size = res // 8
+    got = label_maps(logp_sp, res, model.n_classes).cpu().numpy()
+    want = label_maps(logp, res, model.n_classes).cpu().numpy()
+    n_diff, n_far = labels_agree(got, want, near_ties(logp), out_size)
+    err = float((logp_sp - logp).abs().max())
+    rec = {"phase": "cards", "part": tag, "call": "sp ring",
+           "shards": len(replicas),
+           "devices": [str(next(r.parameters()).device) for r in replicas],
+           "res": res, "precision": precision,
+           "batch": len(frames), "patches_differing": n_diff,
+           "patches_differing_away_from_near_ties": n_far,
+           "logp_max_abs_err": err}
+    if precision == "fp32":
+        rec["logp_within_sp_fwd_tol"] = bool(torch.allclose(
+            logp_sp, logp, **SP_FWD_TOL))
+        check(n_far == 0 and rec["logp_within_sp_fwd_tol"],
+              f"phase 16 SP ring against one card {rec}")
+    return rec, got
+
+
+def trace_names_flash(model, frame, tmp):
+    """One bf16 predict under utils/profiling.py:device_trace: the kernel
+    names in its Chrome trace that hold 'flash'."""
+    model.set_resolution(CARDS_DP_RES)
+    with device_trace(os.path.join(tmp, "trace")) as logdir:
+        model.predict(frame)
+    names = set()
+    for path in os.listdir(logdir):
+        with open(os.path.join(logdir, path)) as fh:
+            for ev in json.load(fh)["traceEvents"]:
+                if ev.get("cat") == "kernel" and "flash" in ev.get("name",
+                                                                  ""):
+                    names.add(ev["name"][:80])
+    return sorted(names)
+
+
+def phase_cards(model, frame):
+    """Phase 16 (a) on one card: the batch split and the SP ring with two
+    shards on card 0 through their device-list functions, a 2-card
+    artifact refused, and device_trace around one predict.  Returns the
+    launch counts of the phase."""
+    dev = model.device
+    total = {}
+    tmp = tempfile.mkdtemp(prefix="dtt_cards_")
+    try:
+        frames = cards_frames(CARDS_DP_BATCH, 16)
+        model.set_resolution(CARDS_DP_RES)
+        for prec in ("fp32", "bf16"):
+            got, c = counted(lambda: split_labels(model, frames, [dev] * 2,
+                                                  prec))
+            add_counts(total, c)
+            want, c = counted(lambda: one_card_chunks(model, frames, 2, prec))
+            add_counts(total, c)
+            eager, c = counted(lambda: np.concatenate(
+                [model.predict_batch(x, prec) for x in np.split(frames, 2)]))
+            add_counts(total, c)
+            rec = {"phase": "cards", "part": "a", "call": "batch split",
+                   "devices": [str(dev)] * 2, "batch": CARDS_DP_BATCH,
+                   "precision": prec,
+                   "same_bits_as_one_card_program": bool((got == want).all()),
+                   "same_bits_as_eager": bool((got == eager).all())}
+            for batch in (2, 8):
+                fr = cards_frames(batch, 17)
+                rec[f"split_host_ms_b{batch}"] = host_ms(
+                    lambda: split_labels(model, fr, [dev] * 2, prec))[0]
+                rec[f"one_card_host_ms_b{batch}"] = host_ms(
+                    lambda: model.predict_batch(fr, prec))[0]
+            emit(rec)
+            check(rec["same_bits_as_one_card_program"]
+                  and rec["same_bits_as_eager"],
+                  f"phase 16 batch split against one card {rec}")
+        model.set_resolution(CARDS_SP_RES)
+        sp_frames = cards_frames(1, 18)
+        for prec in ("fp32", "bf16"):
+            (rec, _), c = counted(lambda: sp_check(
+                model, [model.model] * 2, sp_frames, prec, "a"))
+            add_counts(total, c)
+            imgs = torch.from_numpy(sp_frames).cuda()
+            cdt = torch.bfloat16 if prec == "bf16" else None
+
+            def ring():
+                with torch.no_grad():
+                    seg_log_probs_sp([model.model] * 2, model.cfg, model.head,
+                                     imgs, CARDS_SP_RES, cdt)
+                torch.cuda.synchronize()
+
+            def one():
+                model.log_probs(imgs, precision=prec)
+                torch.cuda.synchronize()
+            rec["ring_host_ms"] = host_ms(ring, calls=5, warmup=1)[0]
+            rec["one_card_host_ms"] = host_ms(one, calls=5, warmup=1)[0]
+            rec["launches"] = c
+            emit(rec)
+            # the ring: 2 hops x 2 shards x 3 blocks of kernel 5 and no
+            # fused MLP; the one-card forward beside it: 3 forwards and, in
+            # bf16, 3 fused MLPs
+            check(c["flash_attn_fwd_dyn"] == 12
+                  and c["fused_ln_mlp"] == (3 if prec == "bf16" else 0),
+                  f"phase 16 SP ring launches {c}")
+        model.set_resolution(CARDS_DP_RES)
+        n = torch.cuda.device_count() + 1
+        path = os.path.join(tmp, "too_many.dtts")
+        export_predict(model, path, batch_size=n, in_shape=CARDS_HW,
+                       n_devices=n)
+        try:
+            load_exported_predict(path)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        emit({"phase": "cards", "part": "a", "call": "load",
+              "nr_devices": n, "refused": refused})
+        check(refused is not None and f"exported for {n} devices" in refused,
+              f"phase 16: a {n}-card artifact loaded on "
+              f"{n - 1} card(s)")
+        names, c = counted(lambda: trace_names_flash(model, frame, tmp))
+        add_counts(total, c)
+        emit({"phase": "cards", "part": "a", "call": "device_trace",
+              "flash_kernels_in_trace": names})
+        check(any("flash_fwd_bf16" in k for k in names),
+              f"phase 16: the trace names no flash forward kernel {names}")
+        emit({"phase": "cards", "part": "a", "launches": total})
+        return total
+    finally:
+        model.set_resolution(480)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cards_main(n, card):
+    """--cards N: (b) on cards 0..N-1 of one process (and, with N > 2,
+    also on cards 0 and 1): the DP artifact and the split predict_batch
+    against the one-card program's bits, the SP artifact against one card
+    as in (a), and the warm host ms of each beside one card's."""
+    check(torch.cuda.device_count() >= max(n, 2),
+          f"--cards {n} needs {max(n, 2)} cards, found "
+          f"{torch.cuda.device_count()}")
+    emit({"phase": "device", "names": [torch.cuda.get_device_name(i)
+                                       for i in range(n)],
+          "nvidia_smi": card, "torch": torch.__version__})
+    _build.library()
+    model = DINOSeg(head="mlp", n_blocks=3, n_classes=7, precision="bf16",
+                    random_init=True, seed=0)
+    tmp = tempfile.mkdtemp(prefix="dtt_cards_")
+    try:
+        for k in sorted({2, n}):
+            for prec in ("bf16", "fp32"):
+                model.set_resolution(CARDS_DP_RES)
+                batch = 2 * k
+                frames = cards_frames(batch, 20 + k)
+                path = os.path.join(tmp, f"dp{k}_{prec}.dtts")
+                export_predict(model, path, batch_size=batch,
+                               in_shape=CARDS_HW, precision=prec,
+                               n_devices=k)
+                served = load_exported_predict(path)
+                got = served(frames)
+                want = one_card_chunks(model, frames, k, prec)
+                whole = predict_program(model, batch, CARDS_HW, prec)
+                rec = {"phase": "cards", "part": "b", "call": "dp artifact",
+                       "cards": k, "batch": batch, "precision": prec,
+                       "devices": [str(d) for d in served.devices],
+                       "same_bits_as_one_card_program": bool(
+                           (got == want).all()),
+                       "artifact_host_ms": host_ms(lambda: served(frames))[0],
+                       "one_card_program_host_ms": host_ms(
+                           lambda: whole(frames))[0],
+                       "nvidia_smi": card}
+                emit(rec)
+                check(rec["same_bits_as_one_card_program"],
+                      f"phase 16 (b) DP artifact {rec}")
+        for prec in ("bf16", "fp32"):
+            model.set_resolution(CARDS_DP_RES)
+            count = torch.cuda.device_count()
+            frames = cards_frames(2 * count, 30)
+            split = model._split_devices(len(frames), None)
+            got = model.predict_batch(frames, prec)
+            want = one_card_chunks(model, frames, count, prec)
+            devs = [model.device]
+            rec = {"phase": "cards", "part": "b", "call": "predict_batch",
+                   "split_over": [str(d) for d in split or []],
+                   "batch": len(frames), "precision": prec,
+                   "same_bits_as_one_card_program": bool((got == want).all()),
+                   "split_host_ms": host_ms(
+                       lambda: model.predict_batch(frames, prec))[0],
+                   "one_card_host_ms": host_ms(
+                       lambda: split_labels(model, frames, devs, prec))[0],
+                   "nvidia_smi": card}
+            emit(rec)
+            check(split is not None and len(split) == count
+                  and rec["same_bits_as_one_card_program"],
+                  f"phase 16 (b) predict_batch split {rec}")
+        for k in sorted({2, n}):
+            for prec in ("fp32", "bf16"):
+                model.set_resolution(CARDS_SP_RES)
+                frames = cards_frames(1, 40 + k)
+                path = os.path.join(tmp, f"sp{k}_{prec}.dtts")
+                export_predict(model, path, batch_size=1, in_shape=CARDS_HW,
+                               precision=prec, n_devices=k,
+                               parallelism="sp")
+                served = load_exported_predict(path)
+                rec, ring_labels = sp_check(model, served.replicas, frames,
+                                            prec, "b")
+                rec.update({
+                    "cards": k,
+                    "artifact_same_bits_as_ring": bool(
+                        (served(frames) == ring_labels).all()),
+                    "artifact_host_ms": host_ms(lambda: served(frames),
+                                                calls=5, warmup=1)[0],
+                    "one_card_host_ms": host_ms(
+                        lambda: model.predict_batch(frames, prec), calls=5,
+                        warmup=1)[0],
+                    "nvidia_smi": card})
+                rec.update(peer_copy_ms(model, frames, k, prec))
+                emit(rec)
+                check(rec["artifact_same_bits_as_ring"],
+                      f"phase 16 (b) SP artifact {rec}")
+        model.set_resolution(CARDS_DP_RES)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+def peer_copy_ms(model, frames, k, precision):
+    """Device ms of one ring hop's peer copy (a shard's K and V at the SP
+    artifact's shape, card 0 to card 1) by CUDA events, median of 20."""
+    n_local = -(-((CARDS_SP_RES // 8) ** 2 + 1) // k)
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    kv = torch.zeros((2, len(frames), model.cfg.num_heads, n_local,
+                      model.cfg.head_dim), dtype=dtype, device="cuda:0")
+    dst = torch.device("cuda", 1)
+    times = []
+    for i in range(23):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        kv.to(dst, non_blocking=True)
+        end.record()
+        end.synchronize()
+        if i >= 3:
+            times.append(start.elapsed_time(end))
+    return {"hop_copy_ms": float(np.median(times)),
+            "hop_copy_bytes": kv.numel() * kv.element_size()}
+
+
 KERNELS = {
     "flash_attn_fwd": dict(
         source="dino_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -5067,6 +5383,7 @@ def main():
     ap.add_argument("--pp-world", type=int)
     ap.add_argument("--pp-store")
     ap.add_argument("--pp-backend", default="gloo")
+    ap.add_argument("--cards", type=int)
     args = ap.parse_args()
     if args.sp_rank is not None:
         return sp_rank_main(args.sp_rank, args.sp_world, args.sp_store,
@@ -5089,6 +5406,8 @@ def main():
         return tp_cards_main(args.tp_world, card)
     if args.pp_world is not None:
         return pp_cards_main(args.pp_world, card)
+    if args.cards is not None:
+        return cards_main(args.cards, card)
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -5148,6 +5467,7 @@ def main():
     ranks = phase_dp()
     tp = phase_tp(bare_fps)
     pp = phase_pp()
+    cards = phase_cards(model, frame)
     rows = phase_timing(block, per_call, bwd_per_step)
     rows.update(phase_timing_sp(launches))
     phase_fp32_latency(model, frame)
@@ -5214,6 +5534,18 @@ def main():
     for name in ("fused_ln_mlp", "flash_attn_bwd", "flash_attn_bwd_f32",
                  "flash_attn_fwd_dyn", "flash_attn_bwd_dyn"):
         launches[name] += pp.get(name, 0)
+    # phase 16's launches: bf16 forwards in row 1, f32 forwards in row 4,
+    # the fused MLP's and the SP ring's hops (row 5)
+    launches["flash_attn_fwd"] += (cards["flash_attn_fwd"]
+                                   - cards["flash_attn_fwd_f32"])
+    launches["flash_attn_fwd_chunked"] += cards["flash_attn_fwd_f32"]
+    for name in ("fused_ln_mlp", "flash_attn_fwd_dyn"):
+        launches[name] += cards[name]
+    for name in ("flash_attn_fwd", "fused_ln_mlp", "flash_attn_fwd_chunked",
+                 "flash_attn_fwd_dyn"):
+        check(cards[name if name != "flash_attn_fwd_chunked"
+                    else "flash_attn_fwd_f32"] > 0,
+              f"phase 16 launched no {name}")
 
     emit({"kernels": [
         dict(name=name, route="cuda", launches=launches[name],

@@ -23,8 +23,7 @@ The counterpart of ``dino_tpu/api.py``'s ``DINOSeg`` for inference:
     with ``moe_capacity``), trained with a load-balance term.
   * ``backbone='cnn1'`` / ``'cnn2'``: the reference's truncated ResNet-50
     baselines (``models/resnet.py``), 512-dim patch features at H/8;
-    pretrained weights from a local file only (``pretrained_path`` or
-    ``$DINO_TPU_PRETRAINED_RESNET``).
+    pretrained weights from ``checkpointing/pretrained.py``'s ladder.
   * checkpoints: ``dino_tpu`` ``.npz`` files and reference PL ``.ckpt``
     files load; ``save`` writes the ``.npz`` format.
   * ``fit`` trains on a VOC-style data folder (optional sim pretraining,
@@ -60,6 +59,7 @@ raises when there is none.  Pass ``device="cpu"`` to run on the CPU.
 """
 from __future__ import annotations
 
+import copy
 import os
 import time
 import warnings
@@ -73,10 +73,10 @@ import torch.nn as nn
 from dino_tpu_torch.checkpointing.async_writer import AsyncCheckpointer
 from dino_tpu_torch.checkpointing.convert import (export_pl_checkpoint,
                                                   from_jax_params,
-                                                  load_backbone_state_dict,
                                                   load_pl_checkpoint,
                                                   to_jax_params)
 from dino_tpu_torch.checkpointing.io import load_checkpoint, save_checkpoint
+from dino_tpu_torch.checkpointing.pretrained import load_pretrained_backbone
 from dino_tpu_torch.checkpointing.resume import (load_optimizer_arrays,
                                                  optimizer_arrays,
                                                  restart_from_checkpoint)
@@ -101,8 +101,9 @@ from dino_tpu_torch.parallel.pipeline import (
     make_pp_1f1b_train_step, make_pp_interleaved_1f1b_train_step,
     pp_gather_state, pp_load_optimizer_state, pp_optimizer_state,
     pp_shard_vit)
-from dino_tpu_torch.parallel.ring_attention import (make_sp_train_step,
-                                                    vit_forward_seq_parallel)
+from dino_tpu_torch.parallel.ring_attention import (
+    make_sp_train_step, vit_forward_seq_parallel,
+    vit_forward_seq_parallel_local)
 from dino_tpu_torch.parallel.tp import (check_tp_world, tp_head_apply,
                                         tp_serving_slices, tp_slice_experts,
                                         vit_forward_tp)
@@ -115,7 +116,7 @@ from dino_tpu_torch.train.loop import (init_opt_state,
                                        seg_forward)
 from dino_tpu_torch.train.metrics import (per_class_metrics_from_cm,
                                           segmentation_metrics)
-from dino_tpu_torch.utils.device import resolve_device
+from dino_tpu_torch.utils.device import on_device, resolve_device
 from dino_tpu_torch.utils.logging import hbm_stats
 from dino_tpu_torch.utils.weights import watch_optimizer_steps, weights_key
 
@@ -125,11 +126,6 @@ _HPARAM_KEYS = ("data_path", "write_path", "class_names", "head", "n_blocks",
                 "pretrain_on_sim", "augmented", "random_init", "backbone",
                 "train_resolution", "precision", "n_experts", "moe_dispatch",
                 "moe_capacity")
-
-
-def _roadmap(what: str, item: str) -> str:
-    return (f"{what} is not ported yet (ROADMAP 'Modules to port' item "
-            f"{item})")
 
 
 def compute_dtype_of(precision: str) -> Optional[torch.dtype]:
@@ -189,6 +185,58 @@ def seg_log_probs(model: SegModel, cfg: ViTConfig, head: str,
                            compute_dtype=compute_dtype, backbone=backbone,
                            moe_dispatch=moe_dispatch,
                            moe_capacity=moe_capacity)
+
+
+def seg_log_probs_sp(models, cfg: ViTConfig, head: str,
+                     imgs_u8: torch.Tensor, resolution: int,
+                     compute_dtype: Optional[torch.dtype],
+                     moe_dispatch: str = "dense",
+                     moe_capacity: float = 1.25) -> torch.Tensor:
+    """:func:`seg_log_probs` with the ViT's token axis sharded over the
+    devices of ``models`` (one :class:`SegModel` a shard, each on its
+    device; ``imgs_u8`` on the first's) by the in-process ring
+    (``parallel/ring_attention.py:vit_forward_seq_parallel_local``): the
+    SP blocks (no fused MLP), the shards gathered on the first device and
+    the head run there.  Every row, on the first device."""
+    with matmul_ctx(compute_dtype):
+        x = preprocess(imgs_u8, resolution)
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
+        tokens = vit_forward_seq_parallel_local([m.dino for m in models], x,
+                                                cfg)
+        feats = tokens[:, 1:, :].reshape(-1, cfg.embed_dim)
+        return head_apply(head, models[0].clf, feats,
+                          moe_dispatch=moe_dispatch,
+                          moe_capacity=moe_capacity)
+
+
+def concrete_device(device) -> torch.device:
+    """``device`` with its index: a bare ``cuda`` is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def replicate(model: nn.Module, devices) -> Dict[torch.device, nn.Module]:
+    """One copy of ``model`` on each distinct device of ``devices`` (by
+    :func:`concrete_device`); ``model`` itself stands for its own
+    device."""
+    own = concrete_device(next(model.parameters()).device)
+    out: Dict[torch.device, nn.Module] = {}
+    for dev in map(concrete_device, devices):
+        if dev not in out:
+            out[dev] = model if dev == own else copy.deepcopy(model).to(dev)
+    return out
+
+
+def collect_labels(pending) -> np.ndarray:
+    """Wait for the events of a (host labels, events) pair whose label maps
+    are being copied into the host tensor, then -> int32 (B, H, W)."""
+    host, events = pending
+    for done in events:
+        done.synchronize()
+    return host.numpy().astype(np.int32)
 
 
 def label_maps(log_probs: torch.Tensor, resolution: int,
@@ -254,6 +302,9 @@ class DINOSeg:
         # (weights key of the backbone and head, the world, this rank's
         # tensor-parallel serving slices)
         self._tp_cache = None
+        # (weights key, precision, the cards, {card: serving model}) of the
+        # batch split over one process's cards
+        self._split_cache = None
         self.mlp_input_dim = (self.cfg.embed_dim if backbone == "vit"
                               else OUTPUT_DIM)
         self.resolution = 480
@@ -273,9 +324,8 @@ class DINOSeg:
             vit = init_vit_params(VisionTransformer(self.cfg, depth=n_blocks),
                                   gen)
         if not random_init and backbone == "vit":
-            path = pretrained_path or os.environ.get("DINO_TPU_PRETRAINED")
-            if path:
-                sd = load_backbone_state_dict(path)
+            sd = load_pretrained_backbone(pretrained_path=pretrained_path)
+            if sd is not None:
                 own = vit.state_dict()
                 vit.load_state_dict({k: v for k, v in sd.items() if k in own},
                                     strict=True)
@@ -337,8 +387,10 @@ class DINOSeg:
                                compute_dtype=cdt, backbone=self.backbone,
                                **self._head_kwargs)
 
-    def _check_parallelism(self, parallelism: Optional[str],
-                           precision: Optional[str] = None) -> None:
+    def _check_parallel_options(self, parallelism: Optional[str],
+                                precision: Optional[str] = None) -> None:
+        """What ``dino_tpu``'s ``_serving_params`` refuses: another mode,
+        or a parallel mode of a cnn backbone or of int8 weights."""
         if parallelism not in (None, "sp", "tp"):
             raise ValueError(f"unsupported parallelism {parallelism!r}")
         if parallelism is not None:
@@ -346,6 +398,10 @@ class DINOSeg:
             if self._check_precision(precision) == "int8":
                 raise ValueError(f"parallelism={parallelism!r} is not "
                                  f"supported with int8 params")
+
+    def _check_parallelism(self, parallelism: Optional[str],
+                           precision: Optional[str] = None) -> None:
+        self._check_parallel_options(parallelism, precision)
         if parallelism is not None and not is_dist_avail_and_initialized():
             what = "the tokens" if parallelism == "sp" else "the weights"
             raise RuntimeError(
@@ -379,6 +435,74 @@ class DINOSeg:
                         tp_slice_experts(self.model.clf, rank, world))
             self._tp_cache = (key, (blocks, head, e0))
         return self._tp_cache[1]
+
+    def _split_devices(self, batch: int, parallelism: Optional[str]):
+        """The cards a ``predict_batch`` of ``batch`` frames splits over, as
+        ``dino_tpu``'s ``_place_batch`` shards a batch over its devices:
+        every card of the process when the model is on one, there are
+        several, the batch divides by their count, no parallel mode is
+        asked for and no process group of more than one rank is
+        initialized (its ranks share the process's cards, one each); else
+        None."""
+        n = torch.cuda.device_count() if self.device.type == "cuda" else 0
+        if (parallelism is not None or n < 2 or batch % n
+                or get_world_size() > 1):
+            return None
+        return [torch.device("cuda", i) for i in range(n)]
+
+    def _split_models(self, devices, precision: Optional[str]):
+        """The serving model on each of ``devices``: the model's own on its
+        device, a copy on every other, rebuilt when the weights change
+        (see ``utils/weights.py``; ``_tp_params``' rule)."""
+        watch_optimizer_steps()
+        precision = self._check_precision(precision)
+        key = (weights_key(self.model), precision,
+               tuple(map(concrete_device, devices)))
+        if self._split_cache is None or self._split_cache[0] != key:
+            self._split_cache = (key, replicate(
+                self._serving_model(precision), devices))
+        reps = self._split_cache[1]
+        return [reps[concrete_device(d)] for d in devices]
+
+    @torch.no_grad()
+    def _launch_split(self, imgs_u8: torch.Tensor, devices,
+                      precision: Optional[str] = None):
+        """Enqueue host uint8 frames (B, H, W, 3) split into
+        ``len(devices)`` equal chunks, chunk i on ``devices[i]`` with that
+        device's serving model, every chunk launched before any is waited
+        on: the frames staged once in pinned memory (so the copies in do
+        not block the host), each chunk's label maps copied into its rows
+        of one pinned host tensor.  Returns (that tensor, the cards'
+        events) for :func:`collect_labels`.  ``devices`` may repeat a
+        device: ``['cpu'] * N`` runs the chunks in series."""
+        n = len(devices)
+        if imgs_u8.shape[0] % n:
+            raise ValueError(f"a batch of {imgs_u8.shape[0]} does not split "
+                             f"over {n} devices")
+        cdt = self._compute_dtype_for(precision)
+        models = self._split_models(devices, precision)
+        cuda = any(torch.device(d).type == "cuda" for d in devices)
+        if cuda and not imgs_u8.is_pinned():
+            imgs_u8 = imgs_u8.pin_memory()
+        rows = imgs_u8.shape[0] // n
+        host, events = None, []
+        for i, (model, chunk) in enumerate(zip(models,
+                                               imgs_u8.split(rows))):
+            dev = concrete_device(next(model.parameters()).device)
+            with on_device(dev):
+                out = label_maps(seg_log_probs(
+                    model, self.cfg, self.head,
+                    chunk.to(dev, non_blocking=True), self.resolution, cdt,
+                    self.backbone, **self._head_kwargs),
+                    self.resolution, self.n_classes)
+                if host is None:
+                    host = torch.empty((imgs_u8.shape[0],) + out.shape[1:],
+                                       dtype=out.dtype, pin_memory=cuda)
+                host[i * rows:(i + 1) * rows].copy_(out, non_blocking=True)
+                if dev.type == "cuda":
+                    events.append(torch.cuda.Event())
+                    events[-1].record()
+        return host, events
 
     @torch.no_grad()
     def log_probs(self, imgs_u8: torch.Tensor,
@@ -442,12 +566,19 @@ class DINOSeg:
         """Batched inference: uint8 (B, H, W, 3) -> (B, 480, 480) int32.
         ``parallelism='sp'`` (sequence-parallel) or ``'tp'``
         (tensor-parallel) over the default process group; every rank passes
-        the same frames and gets every map."""
+        the same frames and gets every map.  Without either, a batch that
+        divides by the process's card count splits over its cards
+        (``_split_devices``): the same maps as one card's."""
         self._check_parallelism(parallelism, precision)
         if isinstance(images, (list, tuple)):
             images = np.stack([np.asarray(im) for im in images])
-        imgs = torch.from_numpy(self._as_uint8(images)).to(self.device)
-        labels = self.predict_device(imgs, precision, parallelism)
+        imgs = torch.from_numpy(self._as_uint8(images))
+        devices = self._split_devices(imgs.shape[0], parallelism)
+        if devices is not None:
+            return collect_labels(self._launch_split(imgs, devices,
+                                                     precision))
+        labels = self.predict_device(imgs.to(self.device), precision,
+                                     parallelism)
         return labels.cpu().numpy().astype(np.int32, copy=False)
 
     def predict_stream(self, frames, batch_size: int = 8,
@@ -457,7 +588,8 @@ class DINOSeg:
         trace): yields one (480, 480) int32 map per frame, in order.
 
         ``precision`` and ``parallelism`` mean what they do on
-        :meth:`predict_batch`.  The host stacks each batch into one of two
+        :meth:`predict_batch`, and a batch splits over the process's cards
+        as there.  The host stacks each batch into one of two
         pinned buffers and enqueues it (copy in, forward, labels copied out
         into a pinned buffer, an event) before it reads the previous
         batch's labels, so stacking batch k+1 overlaps the card's work on
@@ -473,14 +605,17 @@ class DINOSeg:
 
     def _stream(self, frames, batch_size, precision, parallelism):
         cuda = self.device.type == "cuda"
+        devices = self._split_devices(batch_size, parallelism)
         staged = [None, None]   # pinned uint8 input batches, by parity
         labels = [None, None]   # pinned label batches, by parity
 
         def submit(k, n_valid):
             """Pad batch k's buffer past ``n_valid`` frames and enqueue
-            it; returns (its label buffer, its event, n_valid)."""
+            it; returns ((label buffer, its events), n_valid)."""
             buf = staged[k % 2]
             buf[n_valid:] = buf[n_valid - 1]
+            if devices is not None:
+                return self._launch_split(buf, devices, precision), n_valid
             out = self.predict_device(buf.to(self.device, non_blocking=True),
                                       precision, parallelism)
             if labels[k % 2] is None or labels[k % 2].shape != out.shape:
@@ -488,16 +623,15 @@ class DINOSeg:
                                             pin_memory=cuda)
             host = labels[k % 2]
             host.copy_(out, non_blocking=True)
-            done = torch.cuda.Event() if cuda else None
-            if done is not None:
-                done.record()
-            return host, done, n_valid
+            events = []
+            if cuda:
+                events.append(torch.cuda.Event())
+                events[-1].record()
+            return (host, events), n_valid
 
         def read(pending):
-            host, done, n_valid = pending
-            if done is not None:
-                done.synchronize()
-            return host[:n_valid].numpy().astype(np.int32)
+            labels_events, n_valid = pending
+            return collect_labels(labels_events)[:n_valid]
 
         pending, k, n = None, 0, 0
         for frame in frames:

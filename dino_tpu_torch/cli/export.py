@@ -11,7 +11,9 @@ checkpoint:
         predict.dtts --resolution 480 --batch-size 3 --in-height 480 \\
         --in-width 640
 
-The checkpoint loads on the card; ``--cpu`` exports without one.
+``--n-devices N`` binds the artifact to N cards of one process (the batch
+splits over them), and with ``--parallelism sp`` the token axis does.  The
+checkpoint loads on the card; ``--cpu`` exports without one.
 """
 from __future__ import annotations
 
@@ -33,9 +35,12 @@ def main(argv=None) -> None:
                    help="override the checkpoint's serving precision "
                         "(int8: the ViT blocks' dense layers as int8 codes)")
     p.add_argument("--n-devices", type=int, default=None,
-                   help="more than one card is not ported (ROADMAP item 11)")
+                   help="bind the artifact to N cards of one process: the "
+                        "batch splits over them (--batch-size must divide "
+                        "by N)")
     p.add_argument("--parallelism", default=None, choices=["sp"],
-                   help="'sp' is not ported (ROADMAP item 11)")
+                   help="'sp' (with --n-devices >= 2): shard the token "
+                        "axis over the cards instead of the batch")
     p.add_argument("--cpu", action="store_true",
                    help="load the checkpoint on the CPU (default: the card)")
     args = p.parse_args(argv)

@@ -111,7 +111,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stop after `patience` epochs without val_acc "
                         "improvement")
     p.add_argument("--zero", action="store_true",
-                   help="ZeRO-1 optimizer-state sharding (not ported)")
+                   help="ZeRO-1: shard the optimizer's moments over the "
+                        "ranks when data parallelism engages")
     p.add_argument("--train_resolution", default=480, type=int)
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the card")

@@ -106,11 +106,15 @@ def _build_backend(path: str, resolution: int, precision, max_batch: int = 1,
         print(f"serve: artifact cold start {cold['total_cold_start_s']}s "
               f"(load {cold['artifact_load_s']}s + first inference "
               f"{cold['first_infer_s']}s)")
+        n_cards = served.contract.get("nr_devices", 1)
         if art_batch > 1:
-            print(f"serve: artifact is batch-{art_batch}; single frames "
-                  "will be tiled to fill the batch (export with "
-                  "--batch-size 1 for latency serving, or --max_batch "
-                  f"{art_batch} to fill it with concurrent requests)")
+            # a batch-split artifact's least batch is one frame a card
+            least = 1 if served.contract.get("parallelism") else n_cards
+            print(f"serve: artifact is batch-{art_batch} over {n_cards} "
+                  "device(s); single frames will be tiled to fill the "
+                  f"batch (export with --batch-size {least} for latency "
+                  f"serving, or --max_batch {art_batch} to fill it with "
+                  "concurrent requests)")
 
         def fit(img):
             if list(img.shape) != want[1:]:
@@ -130,7 +134,9 @@ def _build_backend(path: str, resolution: int, precision, max_batch: int = 1,
 
         info = {"backend": "artifact", "artifact": path,
                 "contract": served.contract, "n_classes": served.n_classes,
-                "device": str(served.device), "cold_start": cold,
+                "device": str(served.device),
+                "devices": [str(d) for d in served.devices],
+                "cold_start": cold,
                 "input_hw": (want[1], want[2])}
         return (lambda img: predict_many([img])[0]), predict_many, info
 

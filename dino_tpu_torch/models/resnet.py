@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import contextlib
 import math
-import os
 import warnings
 from typing import Dict, Optional
 
@@ -45,6 +44,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dino_tpu_torch.checkpointing.pretrained import load_pretrained_resnet
 from dino_tpu_torch.parallel.dist import GroupSum, get_world_size
 
 VARIANTS = ("cnn1", "cnn2")
@@ -288,38 +288,13 @@ def update_bn_stats(bn_collect: Dict) -> None:
         bn.num_batches_tracked += 1
 
 
-def load_pretrained_resnet(variant: str = "cnn1",
-                           pretrained_path: Optional[str] = None
-                           ) -> Optional[Dict[str, torch.Tensor]]:
-    """A ResNet-50 state dict (torchvision / DINO key names) for ``variant``
-    from a local torch file only: ``pretrained_path``, else
-    ``$DINO_TPU_PRETRAINED_RESNET``; None with neither (the caller warns
-    and keeps its random init).  ``module.``/``backbone.`` prefixes are
-    stripped and the layers past the cut dropped.  Nothing is downloaded."""
-    path = pretrained_path or os.environ.get("DINO_TPU_PRETRAINED_RESNET")
-    if not path:
-        return None
-    sd = torch.load(path, map_location="cpu", weights_only=False)
-    sd = sd.get("state_dict", sd)
-    sd = {k.replace("module.", "").replace("backbone.", ""): v
-          for k, v in sd.items()}
-    own = ResNetBackbone(variant).state_dict()
-    missing = [k for k in own if k not in sd
-               and not k.endswith("num_batches_tracked")
-               and not k.startswith(("upconv.", "conv."))]
-    if missing:
-        raise KeyError(f"{path} lacks {len(missing)} ResNet-50 keys of "
-                       f"{variant}, e.g. {missing[:3]}")
-    return {k: v.float() if v.is_floating_point() else v
-            for k, v in sd.items() if k in own}
-
-
 def build_backbone(variant: str, generator: torch.Generator,
                    random_init: bool,
                    pretrained_path: Optional[str] = None) -> ResNetBackbone:
     """A ResNet backbone: random init from ``generator``, then (unless
-    ``random_init``) the local pretrained weights where a file is given;
-    with none it warns and keeps the random init."""
+    ``random_init``) the pretrained weights of
+    ``checkpointing/pretrained.py``'s ladder; with none it warns and keeps
+    the random init."""
     model = init_resnet_params(ResNetBackbone(variant), generator)
     if random_init:
         return model

@@ -28,6 +28,7 @@ so NCCL and gloo give the same sums.
 """
 from __future__ import annotations
 
+import builtins
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -79,6 +80,27 @@ def get_rank(group=None) -> int:
 
 def is_main_process() -> bool:
     return get_rank() == 0
+
+
+def save_on_master(save_fn, *args, **kwargs):
+    """Run a save callback only on rank 0 (the reference's
+    ``save_on_master``); None elsewhere."""
+    if is_main_process():
+        return save_fn(*args, **kwargs)
+    return None
+
+
+def setup_for_distributed(is_master: bool) -> None:
+    """Silence ``print`` on every rank but the master, unless a call passes
+    ``force=True``."""
+    builtin_print = builtins.print
+
+    def print_(*args, **kwargs):
+        force = kwargs.pop("force", False)
+        if is_master or force:
+            builtin_print(*args, **kwargs)
+
+    builtins.print = print_
 
 
 def _staged(group) -> bool:

@@ -28,7 +28,7 @@ shard of its head group's q/k/v.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +49,7 @@ from dino_tpu_torch.parallel.tp import (make_composed_train_step,
 from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.train.loop import MOE_BALANCE_COEF
 from dino_tpu_torch.train.metrics import confusion_matrix
+from dino_tpu_torch.utils.device import on_device
 
 _NEG_INF = -1e30
 
@@ -58,37 +59,95 @@ def _hop_valid(n_real: int, src: int, n_local: int) -> int:
     return min(max(n_real - src * n_local, 0), n_local)
 
 
+def _merge_init(q: torch.Tensor):
+    """The online merge's empty state for shard-local q (B, nh, N_local,
+    hd): (m, l, acc), float32."""
+    b, nh, n_local, hd = q.shape
+    m = torch.full((b, nh, n_local, 1), _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    return m, torch.zeros_like(m), torch.zeros((b, nh, n_local, hd),
+                                               dtype=torch.float32,
+                                               device=q.device)
+
+
+def _merge_hop(state, o_h: torch.Tensor, lse_h: torch.Tensor):
+    """Merge one hop's normalized partial ``o_h`` and its lse (B*nh,
+    N_local) into (m, l, acc): the partial is rescaled by exp(lse_hop - m)
+    in float32, as ``_ring_fwd_flash`` does.  Both ring forms call this,
+    so they give the same bits at the same number of shards."""
+    m, l, acc = state
+    lse_h = lse_h.reshape(m.shape)
+    m_new = torch.maximum(m, lse_h)
+    r_old = torch.exp(m - m_new)
+    r_new = torch.exp(lse_h - m_new)
+    return m_new, l * r_old + r_new, acc * r_old + o_h.float() * r_new
+
+
+def _merge_final(state, dtype: torch.dtype):
+    """(m, l, acc) -> (out in ``dtype``, lse (B, nh, N_local, 1) float32)."""
+    m, l, acc = state
+    l = l.clamp_min(1e-30)
+    return (acc / l).to(dtype), m + torch.log(l)
+
+
 def _ring_fwd(q, k, v, scale: float, n_real: int, group):
     """Ring attention forward over shard-local (B, nh, N_local, hd) q/k/v
     -> (out (B, nh, N_local, hd), lse (B, nh, N_local, 1) float32).
 
-    Each hop's output is a normalized partial in the input dtype; the f32
-    merge rescales it by exp(lse_hop - m) as ``_ring_fwd_flash`` does.
-    K/V rotate d-1 times (the JAX scan's last rotation is unused).
+    Each hop's output is a normalized partial in the input dtype, merged
+    by :func:`_merge_hop`.  K/V rotate d-1 times (the JAX scan's last
+    rotation is unused).
     """
     d, me = get_world_size(group), get_rank(group)
-    b, nh, n_local, hd = q.shape
-    m = torch.full((b, nh, n_local, 1), _NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((b, nh, n_local, hd), dtype=torch.float32,
-                      device=q.device)
+    n_local = q.shape[2]
+    state = _merge_init(q)
     k_cur, v_cur = k, v
     for step in range(d):
         valid = _hop_valid(n_real, (me - step) % d, n_local)
-        o_h, lse_h = flash_attention_with_lse_dyn(q, k_cur, v_cur, scale,
-                                                  valid)
-        lse_h = lse_h.reshape(b, nh, n_local, 1)
-        m_new = torch.maximum(m, lse_h)
-        r_old = torch.exp(m - m_new)
-        r_new = torch.exp(lse_h - m_new)
-        acc = acc * r_old + o_h.float() * r_new
-        l = l * r_old + r_new
-        m = m_new
+        state = _merge_hop(state, *flash_attention_with_lse_dyn(
+            q, k_cur, v_cur, scale, valid))
         if step < d - 1:
             k_cur, v_cur = ring_shift([k_cur, v_cur], group)
-    l = l.clamp_min(1e-30)
-    return (acc / l).to(q.dtype), m + torch.log(l)
+    return _merge_final(state, q.dtype)
+
+
+def ring_attention_local(qs: List[torch.Tensor], ks: List[torch.Tensor],
+                         vs: List[torch.Tensor], scale: float,
+                         n_real: int) -> List[torch.Tensor]:
+    """Ring attention over d token shards held by one process: ``qs[i]``,
+    ``ks[i]``, ``vs[i]`` (B, nh, N_local, hd) on shard i's device, the
+    shards laid out contiguously in list order; global key positions >=
+    ``n_real`` are masked.  Returns each shard's output on its device.
+
+    The in-process counterpart of :func:`_ring_fwd`, for one process over
+    several cards (``dino_tpu``'s SP artifact runs in one process too):
+    every hop launches each shard's dynamic-bound forward under its card,
+    merges it with :func:`_merge_hop`, then moves each K/V shard to the
+    next card with a peer copy (``.to(device, non_blocking=True)``, which
+    PyTorch orders against both cards' current streams with CUDA events).
+    Shards on one device (``['cpu'] * d``, or one card twice) run in
+    series with no copy.  Inference only: no backward."""
+    d = len(qs)
+    n_local = qs[0].shape[2]
+    states = [_merge_init(q) for q in qs]
+    k_cur, v_cur = list(ks), list(vs)
+    for step in range(d):
+        for i, q in enumerate(qs):
+            with on_device(q.device):
+                valid = _hop_valid(n_real, (i - step) % d, n_local)
+                hop = flash_attention_with_lse_dyn(q, k_cur[i], v_cur[i],
+                                                   scale, valid)
+                states[i] = _merge_hop(states[i], *hop)
+        if step < d - 1:
+            k_cur = [k_cur[i - 1].to(q.device, non_blocking=True)
+                     for i, q in enumerate(qs)]
+            v_cur = [v_cur[i - 1].to(q.device, non_blocking=True)
+                     for i, q in enumerate(qs)]
+    outs = []
+    for state, q in zip(states, qs):
+        with on_device(q.device):
+            outs.append(_merge_final(state, q.dtype)[0])
+    return outs
 
 
 def _ring_bwd(q, k, v, out, lse, g, scale: float, n_real: int, group):
@@ -156,17 +215,21 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Sequence-parallel ViT blocks / forward
 # ---------------------------------------------------------------------------
 
-def _block_seq_parallel(blk: Block, tokens: torch.Tensor, cfg: ViTConfig,
-                        n_real: int, group) -> torch.Tensor:
-    """One transformer block on a token shard; only attention communicates.
-    The JAX package's SP block: ``dense`` qkv/proj/fc1/fc2 (each rounded to
-    the input dtype), exact-erf GELU, no fused MLP."""
+def _sp_qkv(blk: Block, tokens: torch.Tensor, cfg: ViTConfig
+            ) -> torch.Tensor:
+    """A token shard's q/k/v, (3, B, nh, N_local, hd), for the ring."""
     h = layer_norm(blk.norm1, tokens, cfg.ln_eps)
-    b, n_local, c = h.shape
-    nh, hd = cfg.num_heads, cfg.head_dim
-    qkv = affine(blk.attn.qkv, h, h.dtype).reshape(b, n_local, 3, nh, hd)
-    qkv = qkv.permute(2, 0, 3, 1, 4).contiguous()
-    out = ring_attention(qkv[0], qkv[1], qkv[2], cfg.scale, n_real, group)
+    b, n_local, _ = h.shape
+    qkv = affine(blk.attn.qkv, h, h.dtype).reshape(b, n_local, 3,
+                                                   cfg.num_heads, cfg.head_dim)
+    return qkv.permute(2, 0, 3, 1, 4).contiguous()
+
+
+def _sp_rest(blk: Block, tokens: torch.Tensor, out: torch.Tensor,
+             cfg: ViTConfig) -> torch.Tensor:
+    """The block after the ring's output ``out`` (B, nh, N_local, hd):
+    the projection, the residual and the MLP."""
+    b, n_local, c = tokens.shape
     out = out.permute(0, 2, 1, 3).reshape(b, n_local, c)
     tokens = tokens + affine(blk.attn.proj, out, out.dtype)
     h = layer_norm(blk.norm2, tokens, cfg.ln_eps)
@@ -174,16 +237,33 @@ def _block_seq_parallel(blk: Block, tokens: torch.Tensor, cfg: ViTConfig,
     return tokens + affine(blk.mlp.fc2, h, h.dtype)
 
 
+def _block_seq_parallel(blk: Block, tokens: torch.Tensor, cfg: ViTConfig,
+                        n_real: int, group) -> torch.Tensor:
+    """One transformer block on a token shard; only attention communicates.
+    The JAX package's SP block: ``dense`` qkv/proj/fc1/fc2 (each rounded to
+    the input dtype), exact-erf GELU, no fused MLP."""
+    qkv = _sp_qkv(blk, tokens, cfg)
+    out = ring_attention(qkv[0], qkv[1], qkv[2], cfg.scale, n_real, group)
+    return _sp_rest(blk, tokens, out, cfg)
+
+
+def _pad_tokens(vit: VisionTransformer, x: torch.Tensor, cfg: ViTConfig,
+                d: int):
+    """prepare_tokens, padded to a multiple of ``d`` shards -> (tokens
+    (B, N_pad, D), n_real, n_pad)."""
+    tokens = prepare_tokens(vit, x, cfg)
+    n_real = tokens.shape[1]
+    n_pad = -(-n_real // d) * d
+    return F.pad(tokens, (0, 0, 0, n_pad - n_real)), n_real, n_pad
+
+
 def _local_tokens(vit: VisionTransformer, x: torch.Tensor, cfg: ViTConfig,
                   group):
     """prepare_tokens on every rank (replicated), padded to a multiple of
     the world size -> (this rank's (B, N_local, D) slice, n_real, n_pad)."""
     d, me = get_world_size(group), get_rank(group)
-    tokens = prepare_tokens(vit, x, cfg)
-    n_real = tokens.shape[1]
-    n_pad = -(-n_real // d) * d
+    tokens, n_real, n_pad = _pad_tokens(vit, x, cfg, d)
     n_local = n_pad // d
-    tokens = F.pad(tokens, (0, 0, 0, n_pad - n_real))
     return tokens[:, me * n_local:(me + 1) * n_local], n_real, n_pad
 
 
@@ -200,6 +280,44 @@ def vit_forward_seq_parallel(vit: VisionTransformer, x: torch.Tensor,
         tok = _block_seq_parallel(blk, tok, cfg, n_real, group)
     tok = layer_norm(vit.norm, tok, cfg.ln_eps)
     return all_gather_seq(tok, group, dim=1)[:, :n_real]
+
+
+def vit_forward_seq_parallel_local(vits: Sequence[VisionTransformer],
+                                   x: torch.Tensor, cfg: ViTConfig
+                                   ) -> torch.Tensor:
+    """:func:`vit_forward_seq_parallel` over d token shards held by one
+    process: ``vits[i]`` is the same backbone on shard i's device (a
+    replica a card, or one module for shards that share a device), x
+    (B, H, W, 3) normalized on ``vits[0]``'s device.  The tokens are
+    prepared once there and shard i moves to its device; every block runs
+    its q/k/v on each shard, :func:`ring_attention_local`, then the rest
+    of each shard's block; the final LN, and the shards gathered on the
+    first device -> (B, N+1, D).  The same bits as the process ring over
+    d ranks on the same devices.  Inference only."""
+    d = len(vits)
+    devices = [next(v.parameters()).device for v in vits]
+    tokens, n_real, n_pad = _pad_tokens(vits[0], x, cfg, d)
+    n_local = n_pad // d
+    toks = [tokens[:, i * n_local:(i + 1) * n_local].to(dev,
+                                                         non_blocking=True)
+            for i, dev in enumerate(devices)]
+    for j in range(len(vits[0].blocks)):
+        qkvs = []
+        for vit, tok, dev in zip(vits, toks, devices):
+            with on_device(dev):
+                qkvs.append(_sp_qkv(vit.blocks[j], tok, cfg))
+        outs = ring_attention_local([t[0] for t in qkvs],
+                                    [t[1] for t in qkvs],
+                                    [t[2] for t in qkvs], cfg.scale, n_real)
+        for i, (vit, dev) in enumerate(zip(vits, devices)):
+            with on_device(dev):
+                toks[i] = _sp_rest(vit.blocks[j], toks[i], outs[i], cfg)
+    gathered = []
+    for vit, tok, dev in zip(vits, toks, devices):
+        with on_device(dev):
+            gathered.append(layer_norm(vit.norm, tok, cfg.ln_eps).to(
+                devices[0], non_blocking=True))
+    return torch.cat(gathered, dim=1)[:, :n_real]
 
 
 # ---------------------------------------------------------------------------

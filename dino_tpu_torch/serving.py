@@ -37,9 +37,19 @@ So, as ``dino_tpu``'s artifact needs jax, this one needs this package, for
 its kernels, but no checkpoint and no ``DINOSeg``.
 :func:`load_exported_predict` loads it and, on the card, captures its
 program at load.
+
+An artifact may span N cards of one process, as ``dino_tpu``'s does N
+devices: ``n_devices=N`` splits the batch over them (one program a card,
+each a CUDA graph on its own card, all replayed before any is waited on),
+and ``parallelism='sp'`` shards the token axis instead, every card
+holding the weights and the ring's K/V hops moving between them as peer
+copies (``parallel/ring_attention.py:ring_attention_local``; eager, no
+graph).  The contract records which (``nr_devices``, ``parallelism``),
+inside the artifact as well as in its ``.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -51,13 +61,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from dino_tpu_torch.api import (SegModel, _roadmap, compute_dtype_of,
-                                label_maps, seg_log_probs)
+from dino_tpu_torch.api import (SegModel, compute_dtype_of, concrete_device,
+                                label_maps, replicate, seg_log_probs,
+                                seg_log_probs_sp)
 from dino_tpu_torch.models.heads import init_head
 from dino_tpu_torch.models.resnet import OUTPUT_DIM, ResNetBackbone
 from dino_tpu_torch.ops.quant import QuantLinear, quantize_vit
 from dino_tpu_torch.models.vit import ViTConfig, VisionTransformer
-from dino_tpu_torch.utils.device import resolve_device
+from dino_tpu_torch.utils.device import on_device, resolve_device
 from dino_tpu_torch.utils.weights import watch_optimizer_steps, weights_key
 
 MAGIC = "dino_tpu_torch_serving_v1"
@@ -161,34 +172,69 @@ class PredictProgram:
                 self._forward(self._static_in)
             torch.cuda.current_stream(self.device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            # a capture stream of this card: torch.cuda.graph's default one
+            # is made once, on the card current at the process's first
+            # capture, and a capture on it cannot take another card's work
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(
+                    self.device), capture_error_mode="thread_local"):
                 out = self._forward(self._static_in)
         self._graph, self._static_out = graph, out
         self._host_out = torch.empty(out.shape, dtype=out.dtype,
                                      pin_memory=True)
 
-    def __call__(self, frames) -> np.ndarray:
-        imgs = np.asarray(frames)
-        if imgs.dtype != np.uint8:
-            imgs = np.clip(imgs, 0, 255).astype(np.uint8)
-        if imgs.shape != self.input_shape:
-            raise ValueError(
-                f"expected input {self.input_shape}, got {imgs.shape} "
-                "(programs and artifacts are shape-bound: one per input "
-                "shape)")
-        with self._lock:
-            if self.stale():
-                self._build()
-            if self._graph is None:
-                with torch.no_grad():
-                    out = self._forward(torch.from_numpy(imgs))
-                return out.numpy().astype(np.int32)
+    def _enqueue(self, imgs: np.ndarray) -> None:
+        """Under ``_lock``: start the call on ``imgs`` (copy in, replay,
+        copy out, not waited on); on the CPU, run it."""
+        if self.stale():
+            self._build()
+        if self._graph is None:
+            with torch.no_grad():
+                self._host_out = self._forward(torch.from_numpy(imgs))
+            return
+        with torch.cuda.device(self.device):
             self._host_in.numpy()[...] = imgs
             self._static_in.copy_(self._host_in, non_blocking=True)
             self._graph.replay()
             self._host_out.copy_(self._static_out, non_blocking=True)
+
+    def _result(self) -> np.ndarray:
+        """Under ``_lock``: wait for :meth:`_enqueue`'s call, its labels."""
+        if self._graph is not None:
             torch.cuda.current_stream(self.device).synchronize()
-            return self._host_out.numpy().astype(np.int32)
+        return self._host_out.numpy().astype(np.int32)
+
+    def __call__(self, frames) -> np.ndarray:
+        imgs = as_frames(frames, self.input_shape, "expected input")
+        with self._lock:
+            self._enqueue(imgs)
+            return self._result()
+
+
+def as_frames(frames, shape, what: str) -> np.ndarray:
+    """``frames`` as uint8 (clipped, as ``predict_batch`` does), of
+    ``shape`` or a ValueError."""
+    imgs = np.asarray(frames)
+    if imgs.dtype != np.uint8:
+        imgs = np.clip(imgs, 0, 255).astype(np.uint8)
+    if imgs.shape != tuple(shape):
+        raise ValueError(f"{what} {tuple(shape)}, got {imgs.shape} "
+                         "(programs and artifacts are shape-bound: one per "
+                         "input shape)")
+    return imgs
+
+
+def run_programs(programs: Sequence[PredictProgram],
+                 imgs: np.ndarray) -> np.ndarray:
+    """``imgs`` split into equal chunks, chunk i through ``programs[i]``:
+    every program's call started before any is waited on, the labels
+    joined in batch order."""
+    chunks = np.split(imgs, len(programs))
+    with contextlib.ExitStack() as stack:
+        for prog in programs:
+            stack.enter_context(prog._lock)
+        for prog, chunk in zip(programs, chunks):
+            prog._enqueue(chunk)
+        return np.concatenate([prog._result() for prog in programs])
 
 
 def predict_program(model, batch_size: int, in_shape: Sequence[int],
@@ -212,21 +258,25 @@ def export_predict(model, path: str, batch_size: int = 1,
 
     The artifact runs with this package (for its kernels) and nothing else
     of the model's: see the module docstring for why it is not StableHLO.
-    One card only: ``n_devices > 1`` and ``parallelism='sp'`` are not
-    ported.  Any backbone and head; int8 (ViT only) stores the blocks'
-    int8 codes and scales."""
+    Any backbone and head; int8 (ViT only) stores the blocks' int8 codes
+    and scales.  ``n_devices=N`` binds it to N cards of one process: the
+    batch splits over them (``batch_size`` must divide by N); with
+    ``parallelism='sp'`` the token axis does instead, inputs and outputs
+    whole (ViT, not int8: ``dino_tpu``'s ``_serving_params`` rules)."""
     if parallelism not in (None, "sp"):
         raise ValueError(f"unsupported export parallelism {parallelism!r}")
-    if parallelism == "sp":
-        raise NotImplementedError(_roadmap("export_predict(parallelism='sp')",
-                                           "11.6"))
-    if n_devices is not None and n_devices > 1:
-        raise NotImplementedError(_roadmap(
-            f"export_predict(n_devices={n_devices})", "11.6"))
+    if parallelism == "sp" and not (n_devices and n_devices > 1):
+        raise ValueError("parallelism='sp' requires n_devices >= 2 (the "
+                         "token axis shards over the cards)")
+    n_devices = n_devices or 1
+    if parallelism is None and batch_size % n_devices:
+        raise ValueError(f"batch_size {batch_size} must divide by "
+                         f"n_devices {n_devices}")
     if platforms is not None and list(platforms) != ["cuda"]:
         raise ValueError(f"the port exports for platforms ['cuda'], got "
                          f"{list(platforms)}")
     precision = model._check_precision(precision)
+    model._check_parallel_options(parallelism, precision)
     res = model.resolution
     out_size = res // 8
     # the kron factor floors, as dino_tpu's (480x480 at 240/480/960px)
@@ -240,9 +290,9 @@ def export_predict(model, path: str, batch_size: int = 1,
         "head": model.head,
         "backbone": model.backbone,
         "precision": precision,
-        "parallelism": None,
+        "parallelism": parallelism,
         "platforms": ["cuda"],
-        "nr_devices": 1,
+        "nr_devices": n_devices,
     }
     weights = serving_copy(model.model, precision)
     torch.save({
@@ -263,9 +313,34 @@ def export_predict(model, path: str, batch_size: int = 1,
     return path
 
 
+def artifact_devices(device: torch.device, n: int):
+    """The devices an artifact for ``n`` cards runs on: cards 0..n-1 (a
+    ValueError in ``dino_tpu``'s words when the process has fewer), or
+    ``n`` shards in series on the CPU; a one-card artifact runs on
+    ``device`` itself."""
+    if n == 1:
+        return [device]
+    if device.type == "cpu":
+        return [device] * n
+    have = torch.cuda.device_count()
+    if have < n:
+        raise ValueError(f"artifact was exported for {n} devices; runtime "
+                         f"has {have}")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 class ExportedPredictor:
     """Callable over a loaded artifact: uint8 frames of the contract's
-    input shape -> int32 label maps of its output shape."""
+    input shape -> int32 label maps of its output shape.
+
+    An artifact for N cards runs on cards 0..N-1 (``device='cpu'``: N
+    shards in series on the CPU).  Split over the batch, it holds one
+    :class:`PredictProgram` a card (``programs``), each captured on its own
+    card; a call copies each card's chunk in and replays every graph
+    before it waits on any.  Sharded over the tokens (``parallelism
+    'sp'``), every card holds the weights and each call runs the
+    in-process ring eagerly (``api.py:seg_log_probs_sp``), not as a
+    graph."""
 
     def __init__(self, path: str, device=None):
         self.device = resolve_device(device)
@@ -278,12 +353,16 @@ class ExportedPredictor:
                 if json.load(fh).get("magic") != MAGIC:
                     raise ValueError(f"{path}.json is not a dino_tpu_torch "
                                      "serving contract")
+        # the contract inside the artifact decides, so a deleted .json
+        # changes nothing
         self.contract = art["contract"]
         conf = art["config"]
         self.n_classes = conf["n_classes"]
-        cfg = ViTConfig(**conf["vit"])
+        self.cfg = cfg = ViTConfig(**conf["vit"])
         backbone = conf.get("backbone", "vit")
         precision = self.contract["precision"]
+        self.devices = artifact_devices(self.device,
+                                        self.contract.get("nr_devices", 1))
         if backbone == "vit":
             dino = VisionTransformer(cfg, depth=conf["n_blocks"])
             if precision == "int8":  # the int8 form's buffers
@@ -294,19 +373,49 @@ class ExportedPredictor:
         model = SegModel(dino, init_head(conf["head"], self.n_classes, width,
                                          n_experts=conf.get("n_experts", 4)))
         model.load_state_dict(art["state_dict"], strict=True)
-        model = model.to(self.device).eval().requires_grad_(False)
+        model = model.to(self.devices[0]).eval().requires_grad_(False)
+        self.head = conf["head"]
+        self.head_kwargs = dict(moe_dispatch=conf.get("moe_dispatch",
+                                                      "dense"),
+                                moe_capacity=conf.get("moe_capacity", 1.25))
+        reps = replicate(model, self.devices)
+        self.replicas = [reps[concrete_device(d)] for d in self.devices]
         shape = self.contract["input"]["shape"]
-        self.program = PredictProgram(
-            model, cfg, conf["head"], self.n_classes, shape[0], shape[1:3],
-            self.contract["resolution"], precision, self.device, backbone,
-            conf.get("moe_dispatch", "dense"),
-            conf.get("moe_capacity", 1.25))
+        self.sp = self.contract.get("parallelism") == "sp"
+        self.programs = []
+        if not self.sp:
+            per_card = shape[0] // len(self.devices)
+            self.programs = [PredictProgram(
+                rep, cfg, self.head, self.n_classes, per_card, shape[1:3],
+                self.contract["resolution"], precision, dev, backbone,
+                **self.head_kwargs)
+                for rep, dev in zip(self.replicas, self.devices)]
+            self.program = self.programs[0]
+        self._lock = threading.Lock()
+
+    @torch.no_grad()
+    def _sp_call(self, imgs: np.ndarray) -> np.ndarray:
+        first = self.devices[0]
+        with self._lock, on_device(first):
+            x = torch.from_numpy(imgs).to(first)
+            res = self.contract["resolution"]
+            out = label_maps(seg_log_probs_sp(
+                self.replicas, self.cfg, self.head, x, res,
+                compute_dtype_of(self.contract["precision"]),
+                **self.head_kwargs), res, self.n_classes)
+            return out.cpu().numpy().astype(np.int32)
 
     def __call__(self, frames) -> np.ndarray:
-        return self.program(frames)
+        imgs = as_frames(frames, self.contract["input"]["shape"],
+                         "artifact expects input")
+        if self.sp:
+            return self._sp_call(imgs)
+        if len(self.programs) == 1:
+            return self.program(imgs)
+        return run_programs(self.programs, imgs)
 
 
 def load_exported_predict(path: str, device=None) -> ExportedPredictor:
     """Load an artifact written by :func:`export_predict`; it runs on the
-    card unless ``device='cpu'``."""
+    card (cards 0..N-1 for an N-card artifact) unless ``device='cpu'``."""
     return ExportedPredictor(path, device)

@@ -1,6 +1,8 @@
 """Where the port runs: the card by default, the CPU only when asked."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -13,3 +15,12 @@ def resolve_device(device=None) -> torch.device:
                                "run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def on_device(device: torch.device):
+    """The context a device's launches run under: the kernels' wrappers
+    launch on the tensor's device's stream from the current device, so a
+    card other than the current one is made current; a no-op on the
+    CPU."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())

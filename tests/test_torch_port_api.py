@@ -1,6 +1,7 @@
 """The predict slice end to end: dino_tpu_torch.DINOSeg vs dino_tpu.DINOSeg
 on carried weights (CPU, fp32), checkpoint interop, package isolation, and
 the no-silent-CPU-path contract."""
+import json
 import os
 import subprocess
 import sys
@@ -257,10 +258,12 @@ def test_unported_options_raise(kwargs):
         DINOSeg(random_init=True, device="cpu", **kwargs)
 
 
-def test_unported_methods_raise(pair):
+def test_unported_methods_raise(pair, tmp_path):
     """'tp' is ported (ROADMAP item 11.4) and, as 'sp', needs a process
     group; 'pp' training is ported (item 11.5) and refuses this frozen
-    model as dino_tpu does; export over several cards is not ported."""
+    model as dino_tpu does; export over several cards is ported (item
+    11.6) and refuses a batch that does not split over them, as dino_tpu
+    does."""
     jm, pm = pair
     with pytest.raises(RuntimeError, match="init_distributed_mode"):
         pm.predict(_frames(1)[0], parallelism="tp")
@@ -269,5 +272,9 @@ def test_unported_methods_raise(pair):
     for model in (jm, pm):
         with pytest.raises(ValueError, match="UNFROZEN"):
             model.fit(parallelism="pp")
-    with pytest.raises(NotImplementedError, match="item 11.6"):
-        export_predict(pm, "unused.dtts", n_devices=2)
+    path = str(tmp_path / "two.dtts")
+    with pytest.raises(ValueError, match="divide"):
+        export_predict(pm, path, n_devices=2)
+    assert export_predict(pm, path, batch_size=2, n_devices=2) == path
+    with open(path + ".json") as fh:
+        assert json.load(fh)["nr_devices"] == 2

@@ -65,6 +65,29 @@ def test_bwd_plain_matches_pallas_kernel(n, dtype):
     _assert_close(got, want, dtype)
 
 
+# bf16, in the mean: where both sides round P and dS at the same points,
+# only values at a rounding edge differ (mean |diff| / mean |ref| read
+# 1.2e-7 .. 1.4e-6 at N 226 and 901); a rounding left out or added (dS or
+# P unrounded, dP rounded) moves every element, 1.6e-3 .. 2.8e-3
+BF16_MEAN_REL = 1e-4
+
+
+@pytest.mark.parametrize("n", [226, 901])
+def test_bf16_bwd_rounds_where_the_pallas_kernel_does(n):
+    """The bf16 backward's dq, dk, dv against dino_tpu's Pallas backward on
+    the same inputs, held in the mean: BF16_REL's bound on the largest
+    element cannot see a rounding step of P or dS missing or doubled."""
+    (jq, jk, jv, jg), (q, k, v, g) = _inputs(n, torch.bfloat16, n)
+    want, out, lse = _pallas_bwd(jq, jk, jv, jg)
+    got = tatt.attention_bwd_plain(
+        q, k, v, torch.from_numpy(np.array(_np(out))).to(torch.bfloat16),
+        torch.from_numpy(np.array(lse)), g, SCALE)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        a, w = a.float().numpy(), _np(w)
+        rel = np.abs(a - w).mean() / np.abs(w).mean()
+        assert rel <= BF16_MEAN_REL, (name, rel)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", [37, 226, 901])
 def test_flash_attention_autograd_matches_pallas_and_xla_vjp(n, dtype):

@@ -397,14 +397,16 @@ def test_attention_maps_on_card_match_the_cpu(cuda):
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
 def test_predict_stream_on_card_equals_predict_batch(cuda, precision):
     """predict_stream (6 frames, batch 4: a ragged tail of 2) gives
-    predict_batch's maps on the padded batches, bit for bit."""
+    predict_batch's maps on the padded batches, bit for bit; one block's
+    kernels a batch, or a chunk where the batch splits over the cards."""
     model = DINOSeg(head="mlp", n_blocks=1, precision="bf16", random_init=True)
     model.set_resolution(240)
     frames = np.random.RandomState(1).randint(
         0, 256, (6, 240, 320, 3)).astype(np.uint8)
     got = chip_smoke.stream_check(model, frames, 4, precision)
-    assert got["flash_attn_fwd"] == 2
-    assert got["fused_ln_mlp"] == (2 if precision == "bf16" else 0)
+    chunks = len(model._split_devices(4, None) or [cuda])
+    assert got["flash_attn_fwd"] == 2 * chunks
+    assert got["fused_ln_mlp"] == (2 * chunks if precision == "bf16" else 0)
 
 
 @pytest.mark.parametrize("precision", ["bf16", "fp32"])
@@ -864,3 +866,97 @@ def test_pp_1f1b_step_over_two_ranks_on_card(cuda, tmp_path):
         for k, g in want.items():
             err = (out["grads"][k] - g).abs().max().item()
             assert err <= chip_smoke.STEP_GRAD_REL * g.abs().max().item(), k
+
+
+# ---------------------------------------------------------------------------
+# one process over several cards (chip_smoke.py phase 16)
+# ---------------------------------------------------------------------------
+
+def _cards_model(precision="fp32", res=240):
+    model = DINOSeg(head="mlp", n_blocks=2, n_classes=7, precision=precision,
+                    random_init=True, seed=16)
+    model.set_resolution(res)
+    return model
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_batch_split_on_one_card_equals_the_program(cuda, precision):
+    """Phase 16 (a): the batch split with two chunks on card 0 gives the
+    one-card program's bits at batch B/2 on each chunk."""
+    from dino_tpu_torch.api import collect_labels
+    from dino_tpu_torch.serving import predict_program
+    model = _cards_model(precision)
+    frames = _serve_frames(4, 16)
+    zero = tatt.flash_attention.launches
+    got = collect_labels(model._launch_split(torch.from_numpy(frames),
+                                             [cuda] * 2))
+    assert tatt.flash_attention.launches == zero + 2 * 2
+    program = predict_program(model, 2, (240, 320))
+    np.testing.assert_array_equal(got, np.concatenate(
+        [program(c) for c in np.split(frames, 2)]))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_sp_ring_on_one_card_matches_one_card(cuda, precision):
+    """Phase 16 (a): the in-process ring with two shards on card 0 (kernel
+    5 on every hop, no fused MLP) against the one-card forward: fp32
+    labels equal except near ties, log-probs within SP_FWD_TOL."""
+    model = _cards_model(precision, res=480)
+    frames = _serve_frames(1, 17)
+    before = tatt.flash_attention_with_lse_dyn.launches
+    mlp = tfm.fused_ln_mlp_residual.launches
+    rec, _ = chip_smoke.sp_check(model, [model.model] * 2, frames, precision,
+                              "test")
+    assert tatt.flash_attention_with_lse_dyn.launches == before + 2 * 2 * 2
+    assert tfm.fused_ln_mlp_residual.launches == mlp + (
+        2 if precision == "bf16" else 0)  # the one-card forward's
+    if precision == "fp32":
+        assert rec["patches_differing_away_from_near_ties"] == 0
+        assert rec["logp_within_sp_fwd_tol"]
+
+
+def test_artifact_for_more_cards_is_refused(cuda, tmp_path):
+    """Phase 16 (a): an artifact for more cards than the process has raises
+    dino_tpu's ValueError at load."""
+    from dino_tpu_torch import export_predict, load_exported_predict
+    n = torch.cuda.device_count() + 1
+    path = str(tmp_path / "many.dtts")
+    export_predict(_cards_model(), path, batch_size=n, in_shape=(240, 320),
+                   n_devices=n)
+    with pytest.raises(ValueError, match=f"exported for {n} devices"):
+        load_exported_predict(path)
+
+
+def test_device_trace_names_the_flash_kernel(cuda, tmp_path):
+    """Phase 16 (a): utils/profiling.py:device_trace around one predict
+    writes a Chrome trace that names the bf16 flash forward."""
+    names = chip_smoke.trace_names_flash(_cards_model("bf16"),
+                                         _serve_frames(1, 18)[0],
+                                         str(tmp_path))
+    assert any("flash_fwd_bf16" in k for k in names), names
+
+
+@pytest.mark.parametrize("parallelism", [None, "sp"])
+def test_artifact_over_two_cards(cuda, tmp_path, parallelism):
+    """Phase 16 (b), with two cards or more: the DP artifact gives the
+    one-card program's bits; the SP artifact the one-card labels except
+    near ties."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from dino_tpu_torch import export_predict, load_exported_predict
+    from dino_tpu_torch.serving import predict_program
+    model = _cards_model()
+    frames = _serve_frames(4 if parallelism is None else 1, 19)
+    path = str(tmp_path / "two.dtts")
+    export_predict(model, path, batch_size=len(frames), in_shape=(240, 320),
+                   n_devices=2, parallelism=parallelism)
+    served = load_exported_predict(path)
+    assert [d.index for d in served.devices] == [0, 1]
+    if parallelism is None:
+        program = predict_program(model, 2, (240, 320))
+        np.testing.assert_array_equal(served(frames), np.concatenate(
+            [program(c) for c in np.split(frames, 2)]))
+    else:
+        rec, _ = chip_smoke.sp_check(model, served.replicas, frames, "fp32",
+                                  "test")
+        assert rec["patches_differing_away_from_near_ties"] == 0

@@ -116,33 +116,60 @@ def test_export_cli(model, tmp_path):
     np.testing.assert_array_equal(
         load_exported_predict(out, device="cpu")(frames),
         model.predict_batch(frames))
-    # several cards and SP are not ported: the CLI says so
-    with pytest.raises(NotImplementedError, match="item 11"):
-        export_main([ckpt, str(tmp_path / "sp.dtts"), "--resolution", "64",
-                     "--n-devices", "2", "--parallelism", "sp", "--cpu"])
+    # an SP artifact over two cards: on the CPU its two token shards run
+    # in series, and the labels are predict_batch's (tests/
+    # test_serving_export.py's CLI case)
+    sp_out = str(tmp_path / "sp.dtts")
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        export_main([ckpt, sp_out, "--resolution", "64", "--batch-size", "2",
+                     "--in-height", "100", "--in-width", "120",
+                     "--precision", "fp32", "--n-devices", "2",
+                     "--parallelism", "sp", "--cpu"])
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert line["parallelism"] == "sp" and line["nr_devices"] == 2
+    np.testing.assert_array_equal(
+        load_exported_predict(sp_out, device="cpu")(frames),
+        model.predict_batch(frames))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             export_main([ckpt, str(tmp_path / "card.dtts")])
 
 
 def test_export_unported_modes_raise(model, tmp_path):
-    """dino_tpu's DP and SP exports name ROADMAP item 11; int8 and the MoE
-    head are ported (item 8), and int8 of a cnn backbone is refused."""
+    """Every mode of dino_tpu's export is ported (DP and SP over several
+    cards: ROADMAP item 11.6; int8 and the MoE head: item 8); what
+    dino_tpu refuses the port refuses with its exception and words
+    (tests/test_serving_export.py:110-171): a batch that does not divide
+    by n_devices, SP without n_devices >= 2, SP of int8 weights or of a
+    cnn backbone, another parallelism, int8 of a cnn backbone."""
     path = str(tmp_path / "x.dtts")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        export_predict(model, path, batch_size=8, in_shape=(100, 120),
-                       n_devices=8)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="divide"):
+        export_predict(model, path, batch_size=3, in_shape=(100, 120),
+                       n_devices=2)
+    with pytest.raises(ValueError, match="n_devices"):
         export_predict(model, path, batch_size=2, in_shape=(100, 120),
-                       n_devices=8, parallelism="sp")
+                       parallelism="sp")
+    with pytest.raises(ValueError, match="n_devices"):
+        export_predict(model, path, batch_size=2, in_shape=(100, 120),
+                       n_devices=1, parallelism="sp")
+    with pytest.raises(ValueError, match="int8"):
+        export_predict(model, path, batch_size=2, in_shape=(100, 120),
+                       precision="int8", n_devices=2, parallelism="sp")
     with pytest.raises(ValueError, match="parallelism"):
         export_predict(model, path, batch_size=1, in_shape=(100, 120),
                        parallelism="pp")
+    with pytest.raises(ValueError, match="parallelism"):
+        export_predict(model, path, batch_size=1, in_shape=(100, 120),
+                       n_devices=2, parallelism="pp")
     cnn = DINOSeg(backbone="cnn1", head="moe", n_classes=4, random_init=True,
                   device="cpu")
     with pytest.raises(ValueError, match="int8"):
         export_predict(cnn, path, batch_size=1, in_shape=(100, 120),
                        precision="int8")
+    with pytest.raises(ValueError, match="ViT"):
+        export_predict(cnn, path, batch_size=1, in_shape=(100, 120),
+                       n_devices=2, parallelism="sp")
     with pytest.raises(ValueError, match="precision"):
         export_predict(model, path, batch_size=1, in_shape=(100, 120),
                        precision="int4")

@@ -244,7 +244,13 @@ def test_convert_round_trip(carried):
 def test_local_file_loader(tmp_path, monkeypatch):
     """A torchvision-named ResNet-50 state dict from a local file: prefixes
     stripped, layers past the cut dropped, loaded into the backbone; with no
-    file it warns and keeps the random init.  Nothing is downloaded."""
+    file it warns and keeps the random init.  Nothing is downloaded.  The
+    ladder caches what it converts (checkpointing/pretrained.py), so the
+    cache and the hub cache live under tmp_path."""
+    from dino_tpu_torch.checkpointing.pretrained import \
+        load_pretrained_resnet
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.setenv("DINO_TPU_CACHE", str(tmp_path / "cache"))
     src = tr.init_resnet_params(tr.ResNetBackbone("cnn2"),
                                 torch.Generator().manual_seed(7))
     sd = {"module." + k: v for k, v in src.state_dict().items()
@@ -252,12 +258,13 @@ def test_local_file_loader(tmp_path, monkeypatch):
     sd["module.fc.weight"] = torch.zeros(1000, 2048)  # past the cut
     path = str(tmp_path / "rn50.pth")
     torch.save(sd, path)
-    got = tr.load_pretrained_resnet("cnn1", path)
+    got = load_pretrained_resnet("cnn1", path)
     assert set(got) == set(tr.ResNetBackbone("cnn1").state_dict())
     torch.testing.assert_close(got["layer2.3.bn3.running_var"],
                                src.layer2[3].bn3.running_var)
     monkeypatch.delenv("DINO_TPU_PRETRAINED_RESNET", raising=False)
-    assert tr.load_pretrained_resnet("cnn1") is None
+    os.remove(str(tmp_path / "cache" / "dino_resnet50_pretrain_cnn1.npz"))
+    assert load_pretrained_resnet("cnn1") is None
     with pytest.warns(UserWarning, match="DINO_TPU_PRETRAINED_RESNET"):
         DINOSeg(backbone="cnn1", head="linear", n_classes=3, device="cpu")
     monkeypatch.setenv("DINO_TPU_PRETRAINED_RESNET", path)
@@ -267,7 +274,7 @@ def test_local_file_loader(tmp_path, monkeypatch):
                                src.layer3[1].conv2.weight)
     with pytest.raises(KeyError, match="lacks"):
         torch.save({"conv1.weight": torch.zeros(64, 3, 7, 7)}, path)
-        tr.load_pretrained_resnet("cnn1", path)
+        load_pretrained_resnet("cnn1", path)
 
 
 # ---------------------------------------------------------------------------

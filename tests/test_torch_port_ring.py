@@ -73,7 +73,8 @@ _RANK = textwrap.dedent("""
                                            vit_forward)
     from dino_tpu_torch.parallel import dist as pd
     from dino_tpu_torch.parallel.ring_attention import (
-        make_sp_train_step, vit_forward_seq_parallel)
+        make_sp_train_step, vit_forward_seq_parallel,
+        vit_forward_seq_parallel_local)
     from dino_tpu_torch.train.loop import init_opt_state, make_optimizer
     assert not any(m in ("jax", "dino_tpu")
                    or m.startswith(("jax.", "dino_tpu."))
@@ -96,6 +97,9 @@ _RANK = textwrap.dedent("""
     vit, head = modules()
     with torch.no_grad():
         out["sp_tokens"] = vit_forward_seq_parallel(vit, t["x"], tcfg).numpy()
+        # the same shards in one process, in series on this rank's CPU
+        out["local_tokens"] = vit_forward_seq_parallel_local(
+            [vit] * cfg["world"], t["x"], tcfg).numpy()
         out["tokens"] = vit_forward(vit, t["x"], tcfg).numpy()
     if cfg["train"]:
         opt = make_optimizer("adam", cfg["lr"])
@@ -385,6 +389,15 @@ def test_sp_forward_matches_the_ports_single_device_forward(world2, world4,
     for res in (world2 if d == 2 else world4):
         np.testing.assert_allclose(res["sp_tokens"], res["tokens"],
                                    **SP_FWD_TOL)
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_in_process_ring_gives_the_process_rings_bits(world2, world4, d):
+    """parallel/ring_attention.py:vit_forward_seq_parallel_local over d
+    shards in one process (the N-card artifact's ring) against the gloo
+    ring over d rank processes on the same inputs: the same bits."""
+    for res in (world2 if d == 2 else world4):
+        np.testing.assert_array_equal(res["local_tokens"], res["sp_tokens"])
 
 
 @pytest.fixture(scope="module")
