@@ -120,15 +120,20 @@ each printing JSON lines:
      parallelism, ZeRO-1 and FSDP, one warm-up and 3 timed steps each,
      the ranks' parameters the same bits after every step, host ms, the
      collectives' ms, peak memory and state bytes per rank, ZeRO and FSDP
-     against plain DP; (b) fp32 at 240px, global batch 4: the DP and FSDP
-     steps' gradients against the world-of-one step from the same weights
-     and batch (ReLU choices replayed), and one fit(parallelism='sp')
+     against plain DP, FSDP's peak below DP's and at most two units'
+     parameters and one unit's gradient gathered at once; (b) fp32 at
+     240px, global batch 4: the DP and FSDP steps' gradients against the
+     world-of-one step from the same weights and batch (ReLU choices
+     replayed), and one fit(parallelism='sp')
      epoch's step against the world-of-one SP step; (c) a 2-rank fit of
      one epoch on phase 9's bands (bf16, augmented, beside phase 9 (a)'s
      frames/s) and the ranks' evaluate, whose confusion matrix equals the
      world of one's on rank 0's checkpoint; (d) the full-width pretrain step (f32, global
-     batch 16) without and with FSDP (images/s, peak memory, state bytes,
-     the collectives) and the pretrain CLI over the ranks with --fsdp;
+     batch 16) without and with FSDP (images/s, peak memory before the
+     first step and over the steps, state bytes, the collectives; FSDP
+     built on the host, gathering one unit at a time, its peak below DP's
+     by at least a quarter of DP's state bytes) and the pretrain CLI over
+     the ranks with --fsdp;
      exact launch counts throughout, summed into the kernels line;
   14. tensor parallelism (tp): the kernels at the TP paths' shapes that
      earlier phases do not cover (a rank's head group of the 480px
@@ -194,7 +199,9 @@ each printing JSON lines:
 
 ``python3 chip_smoke.py --sp-world W`` (W cards) runs only phase 6's rank
 checks with one rank per card over NCCL, ``--dp-world W`` phase 13's DP,
-ZeRO and FSDP checks ((a) and (b)'s steps), ``--tp-world W`` phase 14's
+ZeRO and FSDP checks ((a) and (b)'s steps and (d), FSDP's gradients
+reduce-scattered by NCCL) beside (a)'s DP step in a world of one on card 0,
+``--tp-world W`` phase 14's
 (a) over NCCL in worlds of 2 and W ranks, with the TP predict latency at
 batch 1 and 3 beside the world of one's on card 0, one all-reduce's ms,
 each rank's peak memory and weight bytes, and with W = 4 (b) on 2 x 2
@@ -257,14 +264,16 @@ from dino_tpu_torch.ops.fused_mlp import (fused_ln_mlp_residual,
 from dino_tpu_torch.ops.preprocess import preprocess
 from dino_tpu_torch.ops.resize import resize_nearest
 from dino_tpu_torch.parallel import dist as pdist
-from dino_tpu_torch.parallel.mesh import ShardedOptimizer, materialize
+from dino_tpu_torch.parallel.mesh import (FSDPOptimizer, ShardedOptimizer,
+                                          materialize)
 from dino_tpu_torch.parallel.ring_attention import make_sp_train_step
 from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.serving import predict_program
 from dino_tpu_torch.models.vit import vit_small
 from dino_tpu_torch.train.dino_pretrain import (DinoConfig, init_dino_params,
                                                 make_dino_optimizer,
-                                                make_dino_train_step)
+                                                make_dino_train_step,
+                                                shard_dino_state)
 from dino_tpu_torch.train.loop import (init_opt_state, make_optimizer,
                                        make_train_step)
 from dino_tpu_torch.utils.frames import process_attentions
@@ -3111,13 +3120,14 @@ PRETRAIN_CENTER_ATOL = 1e-6
 PRETRAIN_DEPTH = 12
 
 
-def pretrain_want(depth, bf16=False):
+def pretrain_want(depth, bf16=False, fsdp=False):
     """The launches of one pretrain step at ``depth`` blocks: per block the
     student's forward for each resolution group (2 groups) and the
     teacher's (the global group only), 3 forwards, and the student's 2
     backwards; in bf16 on the bf16 kernels, with the teacher's MLP (no
-    gradient) on the fused kernel."""
-    fwd, bwd = 3 * depth, 2 * depth
+    gradient) on the fused kernel.  Under FSDP each student block's
+    backward recomputes its 2 forwards first: 5 forwards a block."""
+    fwd, bwd = (5 if fsdp else 3) * depth, 2 * depth
     return {"flash_attn_fwd": fwd, "flash_attn_fwd_f32": 0 if bf16 else fwd,
             "fused_ln_mlp": depth if bf16 else 0,
             "flash_attn_bwd": bwd if bf16 else 0,
@@ -3410,25 +3420,46 @@ DP_PRETRAIN_STEPS = 2  # (d): timed steps after one warm-up
 # ZeRO-1 sums the same gradients and updates each element as plain DP does,
 # so it must keep DP's bits; FSDP may part from DP by this share of DP's own
 # largest displacement from the initial weights (Adam's first step moves
-# each entry with a gradient by about lr, so that displacement is >= lr)
+# each entry with a gradient by about lr, so that displacement is >= lr).
+# That holds where FSDP's sums are DP's: two ranks, whose sum has one order
+# (FSDP reduces each unit once a step, its microbatches added in DP's
+# order).  Over more ranks a reduce-scatter and DP's all-reduce add in
+# other orders, and over a few Adam steps (bf16 ones especially) those
+# rounding differences grow into parameter differences of a share of lr,
+# so there FSDP is held to what a wrong reduction would break
+# (fsdp_vs_dp): its first step's gradients within STEP_GRAD_REL of each
+# leaf's max of DP's (a sum off by the group's size, or a slice from the
+# wrong rank, fails it), and no parameter parting from DP's by more than
+# 2.1 lr a step (Adam moves an entry by about lr a step at most).  The
+# share of entries past 0.02 lr a step is recorded (2.4% in (a) on four
+# NVIDIA H100 80GB HBM3 cards at 700 W, one rank a card).
 DP_FSDP_PART = 1e-3
+# (d): FSDP's peak must fall below DP's by at least this share of DP's state
+# bytes between steps (student, teacher, gradients, moments): half of the
+# (1 - 1/W) share sharding removes at W = 2
+DP_FSDP_PEAK_FALL = 0.25
 
 
 @contextlib.contextmanager
 def collective_timer():
     """Milliseconds a step spends in its collectives (host clock, the card
-    synchronized before and after each call), by kind: the gradient
-    all-reduce of the train steps ("grad_all_reduce", the clip norms'
-    sum included) and the parameter all-gathers of ZeRO-1 and FSDP
-    ("param_all_gather", the moments' for a resume file included)."""
+    synchronized before and after each call), by kind: the all-reduces of
+    the train steps ("grad_all_reduce": DP's gradients, the loss and
+    confusion matrix sums, the clip norms' sum), FSDP's unit gradient
+    reduce-scatters ("grad_reduce_scatter") and the parameter all-gathers
+    of ZeRO-1 and FSDP's units ("param_all_gather", the moments' for a
+    resume file included)."""
     from dino_tpu_torch.parallel import mesh as mesh_mod
     from dino_tpu_torch.train import dino_pretrain as pretrain_mod
     from dino_tpu_torch.train import loop as loop_mod
-    spent = {"grad_all_reduce": 0.0, "param_all_gather": 0.0}
+    spent = {"grad_all_reduce": 0.0, "grad_reduce_scatter": 0.0,
+             "param_all_gather": 0.0}
     sites = [(loop_mod, "all_reduce_sum_", "grad_all_reduce"),
              (pretrain_mod, "all_reduce_sum_", "grad_all_reduce"),
              (mesh_mod, "all_reduce_sum_", "grad_all_reduce"),
-             (mesh_mod, "all_gather_flat", "param_all_gather")]
+             (mesh_mod, "all_gather_flat", "param_all_gather"),
+             (mesh_mod, "all_gather_into", "param_all_gather"),
+             (mesh_mod, "reduce_scatter_sum", "grad_reduce_scatter")]
     reals = [getattr(mod, name) for mod, name, _ in sites]
 
     def timed(real, kind):
@@ -3454,6 +3485,28 @@ def max_abs_diff(a, b):
     return max((x - y).abs().max().item() for x, y in zip(a, b))
 
 
+def fsdp_vs_dp(world, finals, first_grads, init, lr_step, n_steps):
+    """FSDP's final parameters (and first step's gradients) against DP's:
+    a record, and whether it passes DP_FSDP_PART (two ranks) or, over more
+    ranks, the gradient and 2.1 lr rules (see DP_FSDP_PART)."""
+    moved = max_abs_diff(finals["dp"], init)
+    diffs = [(a - b).abs() for a, b in zip(finals["fsdp"], finals["dp"])]
+    diff = max(d.max().item() for d in diffs)
+    lr_total = lr_step * n_steps
+    far = (sum(int((d > 0.02 * lr_total).sum()) for d in diffs)
+           / sum(d.numel() for d in diffs))
+    g_worst, g_leaf = grads_vs(first_grads["fsdp"], first_grads["dp"])
+    rec = {"same_bits": diff == 0.0, "max_abs_diff": diff,
+           "dp_moved_from_init": moved, "grad_worst_rel_diff": g_worst,
+           "grad_worst_leaf": g_leaf, "share_past_0.02_lr": far}
+    if world == 2:
+        rec.update(rule="DP_FSDP_PART", bound=DP_FSDP_PART * moved)
+        return rec, diff <= rec["bound"]
+    rec.update(rule="first-step gradients, 2.1 lr a step",
+               bound=2.1 * lr_total, grad_tol=STEP_GRAD_REL)
+    return rec, diff <= rec["bound"] and g_worst <= STEP_GRAD_REL
+
+
 def replicas_same(tensors):
     """Whether every rank holds the same bits of ``tensors`` (a digest per
     rank, all-gathered)."""
@@ -3471,7 +3524,7 @@ def replicas_same(tensors):
 def state_bytes(opt, params):
     """A rank's resident bytes of trainable parameters, gradients and
     optimizer moments (a sharded optimizer counts its own)."""
-    if isinstance(opt, ShardedOptimizer):
+    if isinstance(opt, (ShardedOptimizer, FSDPOptimizer)):
         return opt.resident_bytes()
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
     return {"params": nbytes(params),
@@ -3485,6 +3538,9 @@ def named_grads(model, opt):
     """{name: full gradient} of the model's trainable parameters: .grad, or
     a sharded optimizer's shard gradients gathered whole."""
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    if isinstance(opt, FSDPOptimizer):
+        by_id = {id(p): g for p, g in zip(opt.params, opt.gathered_grads())}
+        return {n: by_id[id(p)] for n, p in named}
     if not isinstance(opt, ShardedOptimizer):
         return {n: p.grad for n, p in named}
     full = opt.shards._gather_flat([sh.grad for sh in opt.shards.shards])
@@ -3568,7 +3624,9 @@ def dp_bench_steps(rank, world, backend):
     """(a) the bench config over the ranks: plain DP, ZeRO-1 and FSDP,
     one warm-up and DP_STEPS timed steps each from the same weights and
     batch, the collectives timed; after each step the ranks hold the same
-    bits.  Returns the launch counts."""
+    bits.  Each step's peak memory (the peak reset before it); FSDP's must
+    be below DP's, and its most-gathered bytes at most two units'.
+    Returns the launch counts."""
     group = dist.group.WORLD
     rs = np.random.RandomState(21)
     imgs = rs.randint(0, 255, (DP_BATCH, FIT_RES, FIT_RES, 3)).astype(
@@ -3580,9 +3638,11 @@ def dp_bench_steps(rank, world, backend):
     rows = slice(rank * b_loc, (rank + 1) * b_loc)
     x, y = (torch.from_numpy(a[rows]).cuda() for a in (imgs, labels))
     per_step = 3 * accum  # 3 blocks a microbatch
-    want = launches_want(fwd=per_step, bwd=per_step)
-    total, finals = {}, {}
+    total, finals, peaks, first_grads = {}, {}, {}, {}
     for mode in ("dp", "zero", "fsdp"):
+        # FSDP's backward recomputes each block's forward
+        want = launches_want(fwd=per_step * (2 if mode == "fsdp" else 1),
+                             bwd=per_step)
         m = sp_model("bf16")
         vit, head = m.model.dino, m.model.clf
         meshes = dict(zero_mesh=group if mode == "zero" else None,
@@ -3595,23 +3655,32 @@ def dp_bench_steps(rank, world, backend):
         params = list(m.model.parameters())
         if mode == "dp":
             init = [p.detach().clone() for p in params]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        host, coll, same, losses = [], [], [], []
+        host, coll, same, losses, step_peaks, books = [], [], [], [], [], []
         for _ in range(1 + DP_STEPS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if mode == "fsdp":
+                opt.book.reset()
             with collective_timer() as spent:
                 t0 = time.perf_counter()
                 (loss, _), got = counted(lambda: step(vit, head, opt, x, y))
                 host.append((time.perf_counter() - t0) * 1e3)
+            step_peaks.append(torch.cuda.max_memory_allocated())
             coll.append(spent)
+            if mode == "fsdp":
+                books.append(opt.book.as_dict())
             add_counts(total, got)
             check(got == want, f"DP {mode} step launches {got}, want {want}")
             losses.append(loss.item())
+            if mode != "zero" and mode not in first_grads:
+                first_grads[mode] = {n: g.clone() for n, g in
+                                     named_grads(m.model, opt).items()}
             between = state_bytes(opt, params)
             materialize(opt)
             same.append(replicas_same(params))
             if mode == "fsdp":
                 opt.release()
+        peaks[mode] = max(step_peaks)
         rec = {"phase": "dp", "part": "a bench config", "mode": mode,
                "rank": rank, "world": world, "backend": backend,
                "res": FIT_RES, "blocks": 3, "global_batch": DP_BATCH,
@@ -3619,10 +3688,17 @@ def dp_bench_steps(rank, world, backend):
                "host_ms_per_step": host,
                "host_ms": float(np.median(host[1:])),
                "collective_ms_per_step": coll,
-               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "peak_bytes": peaks[mode], "peak_bytes_per_step": step_peaks,
                "state_bytes_between_steps": between,
                "losses": losses, "replicas_same_bits": same,
                "launches_per_step": want}
+        if mode == "fsdp":
+            units = sorted(u.full_bytes for u in opt.units)
+            rec.update(unit_books=books, unit_full_bytes=units)
+            check(all(bk["peak_gathered_bytes"] <= units[-1] + units[-2]
+                      and bk["peak_grad_bytes"] <= units[-1]
+                      for bk in books), f"DP fsdp gathered more than two "
+                                        f"units at once {rec}")
         emit(rec)
         check(all(same), f"DP {mode}: the ranks' parameters part {rec}")
         check(all(np.isfinite(losses)), f"DP {mode} loss {rec}")
@@ -3632,15 +3708,58 @@ def dp_bench_steps(rank, world, backend):
         torch.cuda.empty_cache()
     moved = max_abs_diff(finals["dp"], init)
     check(moved >= DP_LR, f"DP's parameters moved {moved} < lr {DP_LR}")
-    for mode in ("zero", "fsdp"):
-        diff = max_abs_diff(finals[mode], finals["dp"])
-        bound = 0.0 if mode == "zero" else DP_FSDP_PART * moved
-        rec = {"phase": "dp", "part": "a vs plain DP", "mode": mode,
-               "rank": rank, "same_bits": diff == 0.0, "max_abs_diff": diff,
-               "dp_moved_from_init": moved, "bound": bound}
-        emit(rec)
-        check(diff <= bound, f"DP {mode} parts from plain DP {rec}")
+    diff = max_abs_diff(finals["zero"], finals["dp"])
+    rec = {"phase": "dp", "part": "a vs plain DP", "mode": "zero",
+           "rank": rank, "same_bits": diff == 0.0, "max_abs_diff": diff,
+           "dp_moved_from_init": moved, "bound": 0.0,
+           "peak_bytes": peaks["zero"], "dp_peak_bytes": peaks["dp"]}
+    emit(rec)
+    check(diff == 0.0, f"DP zero parts from plain DP {rec}")
+    part, ok = fsdp_vs_dp(world, finals, first_grads, init, DP_LR,
+                          1 + DP_STEPS)
+    rec = dict({"phase": "dp", "part": "a vs plain DP", "mode": "fsdp",
+                "rank": rank, "world": world, "peak_bytes": peaks["fsdp"],
+                "dp_peak_bytes": peaks["dp"]}, **part)
+    emit(rec)
+    check(ok, f"DP fsdp parts from plain DP {rec}")
+    check(peaks["fsdp"] < peaks["dp"],
+          f"DP fsdp's peak {peaks['fsdp']} not below DP's {peaks['dp']}")
     return total
+
+
+def dp_world_of_one():
+    """(a) in a world of one on card 0: the bench config's global batch in
+    DP_MICRO-frame microbatches, one warm-up and DP_STEPS timed steps (the
+    figure the ranks' host ms scale against)."""
+    rs = np.random.RandomState(21)
+    x = torch.from_numpy(rs.randint(0, 255, (DP_BATCH, FIT_RES, FIT_RES, 3))
+                         .astype(np.uint8)).cuda()
+    y = torch.from_numpy(rs.randint(0, 7, (DP_BATCH, (FIT_RES // 8) ** 2))
+                         .astype(np.int32)).cuda()
+    m = sp_model("bf16")
+    optimizer = make_optimizer("adam", DP_LR)
+    opt = init_opt_state(optimizer, m.model.dino, m.model.clf, False)
+    accum = DP_BATCH // DP_MICRO
+    step = make_train_step(m.cfg, "mlp", 7, optimizer, False,
+                           compute_dtype=torch.bfloat16, accum_steps=accum)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    host = []
+    for _ in range(1 + DP_STEPS):
+        t0 = time.perf_counter()
+        (loss, _), got = counted(lambda: step(m.model.dino, m.model.clf, opt,
+                                              x, y))
+        host.append((time.perf_counter() - t0) * 1e3)
+    want = launches_want(fwd=3 * accum, bwd=3 * accum)
+    rec = {"phase": "dp", "part": "a world of one", "world": 1,
+           "res": FIT_RES, "global_batch": DP_BATCH, "accum_steps": accum,
+           "host_ms_per_step": host, "host_ms": float(np.median(host[1:])),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "loss": loss.item(), "launches": got}
+    emit(rec)
+    check(got == want, f"DP world of one launches {got}, want {want}")
+    check(bool(np.isfinite(rec["loss"])), f"DP world of one loss {rec}")
+    return got
 
 
 def dp_f32_steps(rank, world, backend):
@@ -3676,12 +3795,14 @@ def dp_f32_steps(rank, world, backend):
         opt = init_opt_state(optimizer, vit, head, False, fsdp_mesh=fsdp)
         step = make_train_step(m.cfg, "mlp", 7, optimizer, False,
                                dp_group=group, fsdp_mesh=fsdp)
-        with head_relu(replay=local) as flips:
+        # FSDP's head runs again in its backward: the choices replayed twice
+        with head_relu(replay=local * (2 if mode == "fsdp" else 1)) as flips:
             (loss, _), got = counted(lambda: step(vit, head, opt,
                                                   imgs[rows], labels[rows]))
         add_counts(total, got)
         worst, leaf = grads_vs(named_grads(m.model, opt), ref)
-        want = launches_want(fwd_f32=3, bwd_f32=3)
+        # FSDP's backward recomputes each block's forward
+        want = launches_want(fwd_f32=6 if mode == "fsdp" else 3, bwd_f32=3)
         rec = {"phase": "dp", "part": "b fp32 vs world of one", "mode": mode,
                "rank": rank, "world": world, "backend": backend,
                "res": DP_F32_RES, "global_batch": DP_F32_BATCH,
@@ -3810,28 +3931,35 @@ def dp_pretrain(rank, world, tmp):
     it, without and with FSDP (global batch PRETRAIN_BATCH, each rank its
     slab): one warm-up and DP_PRETRAIN_STEPS timed steps, the ranks'
     students the same bits after them, images/s, each rank's peak memory
-    and state bytes; then the pretrain CLI over the ranks at depth 1 with
-    --fsdp on JPEGs written here.  Returns the launch counts."""
+    before the first step and over the mode, and state bytes.  FSDP builds
+    both models on the host, so before its first step a rank's card holds
+    at most its shards and one unit; its peak must fall below DP's by at
+    least DP_FSDP_PEAK_FALL of DP's state bytes.  Then the pretrain CLI
+    over the ranks at depth 1 with --fsdp on JPEGs written here.  Returns
+    the launch counts."""
     from dino_tpu_torch.cli.pretrain_dino import main as pretrain_main
-    from dino_tpu_torch.train.dino_pretrain import shard_dino_state
     group = dist.group.WORLD
     vit_cfg, cfg = vit_small(patch_size=8), DinoConfig()
     g, l = pretrain_crops(15, PRETRAIN_BATCH, cfg)
     b_loc = PRETRAIN_BATCH // world
     g, l = (t[:, rank * b_loc:(rank + 1) * b_loc].cuda() for t in (g, l))
-    want = pretrain_want(PRETRAIN_DEPTH)
-    total, finals = {}, {}
+    total, finals, recs, first_grads = {}, {}, {}, {}
     for mode in ("dp", "fsdp"):
+        want = pretrain_want(PRETRAIN_DEPTH, fsdp=mode == "fsdp")
         torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         student, teacher = init_dino_params(
             torch.Generator().manual_seed(14), vit_cfg, cfg,
-            depth=PRETRAIN_DEPTH)
+            depth=PRETRAIN_DEPTH, device="cpu" if mode == "fsdp" else None)
         opt = make_dino_optimizer(student, PRETRAIN_LR, PRETRAIN_WD)
         if mode == "dp":
             init = [p.detach().clone() for p in student.parameters()]
-        if mode == "fsdp":
-            opt = shard_dino_state(student, teacher, opt, group)
+        if mode == "fsdp":  # only the shards reach the card
+            opt = shard_dino_state(student, teacher, opt, group,
+                                   device="cuda")
+        before = torch.cuda.max_memory_allocated() - base
         step = make_dino_train_step(vit_cfg, cfg, dp_group=group,
                                     fsdp_mesh=group if mode == "fsdp"
                                     else None)
@@ -3850,10 +3978,17 @@ def dp_pretrain(rank, world, tmp):
             add_counts(total, got)
             check(got == want, f"pretrain {mode} launches {got}, "
                                f"want {want}")
+            if mode not in first_grads:  # the clipped gradients
+                first_grads[mode] = {n: g.clone() for n, g in
+                                     named_grads(student, opt).items()}
+        peak = torch.cuda.max_memory_allocated() - base
         params = list(student.parameters())
         if mode == "fsdp":
             res = opt.resident_bytes()
-            res["teacher"] = opt.followers[0].resident_bytes()
+            res["teacher"] = res.pop("followers")
+            units = sorted(u.full_bytes for u in opt.units)
+            shards = sum(u.size * 4 for u in opt.units + opt.followers)
+            book = opt.book.as_dict()
         else:
             res = state_bytes(opt, params)
             res["teacher"] = sum(t.numel() * 4 for t in teacher.parameters())
@@ -3865,41 +4000,60 @@ def dp_pretrain(rank, world, tmp):
                "step_host_ms": times, "host_ms": host_ms,
                "collective_ms_per_step": coll,
                "images_per_s": PRETRAIN_BATCH / host_ms * 1e3,
-               "peak_bytes": torch.cuda.max_memory_allocated(),
-               "state_bytes_between_steps": res, "losses": losses,
+               "peak_bytes_before_first_step": before,
+               "peak_bytes": peak,
+               "state_bytes_between_steps": res,
+               "state_bytes_total": sum(res.values()), "losses": losses,
                "replicas_same_bits": replicas_same(params),
                "single_process_peak_gb_phase12": 16.2,
                "launches_per_step": want}
+        if mode == "fsdp":
+            rec.update(shard_bytes=shards, unit_full_bytes=units,
+                       unit_book=book)
+            check(before <= shards + units[-1],
+                  f"pretrain fsdp: more than the shards and one unit on the "
+                  f"card before the first step {rec}")
+            check(book["peak_gathered_bytes"] <= units[-1] + units[-2]
+                  and book["peak_grad_bytes"] <= units[-1],
+                  f"pretrain fsdp gathered more than two units {rec}")
         emit(rec)
+        recs[mode] = rec
         check(rec["replicas_same_bits"], f"pretrain {mode} replicas {rec}")
         check(all(np.isfinite(losses)), f"pretrain {mode} loss {rec}")
         finals[mode] = [p.detach().clone() for p in params]
         del student, teacher, opt, step, center, params
-    moved = max_abs_diff(finals["dp"], init)
-    diff = max_abs_diff(finals["fsdp"], finals["dp"])
-    rec = {"phase": "dp", "part": "d FSDP vs DP student", "rank": rank,
-           "same_bits": diff == 0.0, "max_abs_diff": diff,
-           "dp_moved_from_init": moved, "bound": DP_FSDP_PART * moved}
+    part, ok = fsdp_vs_dp(world, finals, first_grads, init, PRETRAIN_LR,
+                          1 + DP_PRETRAIN_STEPS)
+    fall = recs["dp"]["peak_bytes"] - recs["fsdp"]["peak_bytes"]
+    rec = dict({"phase": "dp", "part": "d FSDP vs DP student",
+                "rank": rank, "world": world, "peak_fall_bytes": fall,
+                "peak_fall_bound": DP_FSDP_PEAK_FALL
+                * recs["dp"]["state_bytes_total"]}, **part)
     emit(rec)
-    check(moved >= PRETRAIN_LR, f"pretrain DP student did not move {rec}")
-    check(diff <= rec["bound"], f"pretrain FSDP parts from DP {rec}")
+    check(rec["dp_moved_from_init"] >= PRETRAIN_LR,
+          f"pretrain DP student did not move {rec}")
+    check(ok, f"pretrain FSDP parts from DP {rec}")
+    check(fall >= rec["peak_fall_bound"],
+          f"pretrain FSDP's peak does not fall enough below DP's {rec}")
     del finals, init
     torch.cuda.empty_cache()
     # the CLI over the ranks: rank 0 writes the JPEGs, the barrier
     # publishes them
     data, write = os.path.join(tmp, "imgs"), os.path.join(tmp, "out")
+    batch = max(2, world)  # the batch divides over the ranks
     if rank == 0:
         from PIL import Image
         os.makedirs(data)
         rs = np.random.RandomState(16)
-        for i in range(4):
+        for i in range(2 * batch):
             Image.fromarray(rs.randint(0, 256, (120, 160, 3)).astype(
                 np.uint8)).save(os.path.join(data, f"{i}.jpg"), quality=90)
     pdist.barrier()
     t0 = time.perf_counter()
     npz = pretrain_main(["--data_path", data, "--write_path", write,
                          "--depth", "1", "--epochs", "1", "--warmup_epochs",
-                         "0", "--batch_size", "2", "--n_local_crops", "2",
+                         "0", "--batch_size", str(batch),
+                         "--n_local_crops", "2",
                          "--global_size", "64", "--local_size", "32",
                          "--out_dim", "1024", "--fsdp"])
     with np.load(npz) as z:
@@ -3914,8 +4068,8 @@ def dp_pretrain(rank, world, tmp):
 
 def dp_rank_main(rank, world, store, backend):
     """One rank of phase 13 (gloo over host-staged collectives with the
-    kernels on a shared card, or NCCL with one card per rank, where only
-    (a) and (b)'s DP and FSDP steps run).  Prints JSON records, the last
+    kernels on a shared card, or NCCL with one card per rank, where (a),
+    (b)'s DP and FSDP steps and (d) run).  Prints JSON records, the last
     one its summary."""
     pdist.init_distributed_mode(backend, f"file://{store}", world, rank)
     tmp = os.path.dirname(store)
@@ -3928,7 +4082,7 @@ def dp_rank_main(rank, world, store, backend):
         sp = dp_sp_fit(rank, world, tmp)
         add_counts(total, sp)
         add_counts(total, dp_fit(rank, world, tmp))
-        add_counts(total, dp_pretrain(rank, world, tmp))
+    add_counts(total, dp_pretrain(rank, world, tmp))
     dist.destroy_process_group()
     emit({"dp_rank_ok": True, "rank": rank, "launches": total,
           "sp_fit_launches": sp})
@@ -3986,8 +4140,9 @@ def phase_dp():
 
 
 def dp_cards_main(world, card):
-    """Phase 13's DP, ZeRO and FSDP rank checks with one rank per card over
-    NCCL."""
+    """Phase 13's DP, ZeRO and FSDP rank checks ((a), (b), (d)) with one
+    rank per card over NCCL, then (a)'s DP step in a world of one on card
+    0."""
     check(torch.cuda.device_count() >= world,
           f"--dp-world {world} needs {world} cards, found "
           f"{torch.cuda.device_count()}")
@@ -4000,6 +4155,7 @@ def dp_cards_main(world, card):
     total = {}
     for s in summaries:
         add_counts(total, s["launches"])
+    add_counts(total, dp_world_of_one())
     emit({"phase": "dp", "world": world, "backend": "nccl",
           "rank_launches_summed": total})
     check(total["flash_attn_bwd"] > 0, "a DP rank launched no backward")

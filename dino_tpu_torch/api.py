@@ -48,7 +48,8 @@ The counterpart of ``dino_tpu/api.py``'s ``DINOSeg`` for inference:
     each, the gradients are summed over the ranks (data parallelism), and
     rank 0 alone saves, logs and writes resume files.  ``zero=True``
     shards the optimizer's moments over the ranks (ZeRO-1), ``fsdp=True``
-    the parameters, gradients and moments (``parallel/mesh.py``);
+    the parameters, gradients and moments, the step gathering one block at
+    a time and reduce-scattering its gradient (``parallel/mesh.py``);
     ``parallelism='sp'`` shards the token axis instead, and
     ``parallelism='pp'`` pipelines the blocks over the ranks, one stage a
     rank, on the 1F1B schedules (``parallel/pipeline.py``).  ``evaluate``
@@ -96,7 +97,8 @@ from dino_tpu_torch.parallel.dist import (agree_across_hosts,
                                           all_reduce_sum_, barrier, get_rank,
                                           get_world_size,
                                           is_dist_avail_and_initialized)
-from dino_tpu_torch.parallel.mesh import ShardedOptimizer, materialize
+from dino_tpu_torch.parallel.mesh import (FSDPOptimizer, ShardedOptimizer,
+                                          materialize)
 from dino_tpu_torch.parallel.pipeline import (
     make_pp_1f1b_train_step, make_pp_interleaved_1f1b_train_step,
     pp_gather_state, pp_load_optimizer_state, pp_optimizer_state,
@@ -819,10 +821,11 @@ class DINOSeg:
                 cm, self.class_names)
         return metrics
 
-    def _eval_step(self):
+    def _eval_step(self, fsdp=None):
         return make_eval_step(self.cfg, self.head, self.n_classes,
                               compute_dtype=self.compute_dtype,
-                              backbone=self.backbone, **self._head_kwargs)
+                              backbone=self.backbone, fsdp=fsdp,
+                              **self._head_kwargs)
 
     def _run_eval(self, eval_step, dataset, batch_size: int) -> np.ndarray:
         """The confusion matrix of ``dataset`` (ragged last batch kept), read
@@ -919,11 +922,15 @@ class DINOSeg:
         writes the checkpoint and the resume file; the ranks meet at a
         barrier after each epoch.  ``zero=True`` shards the optimizer's
         moments over the ranks, ``fsdp=True`` the trainable parameters,
-        their gradients and moments (skipped with a warning for a frozen
-        backbone); both are no-ops in a world of one, and the files they
-        write are a plain run's.  ``parallelism='sp'`` shards the token
-        axis over the ranks instead (every rank loads the whole batch;
-        ``zero`` then shards the moments over the same ranks).
+        their gradients and moments (``parallel/mesh.py:FSDPOptimizer``:
+        each step, and each evaluation, gathers one block at a time; a
+        restore runs on the host and a save gathers one unit at a time to
+        the host; skipped with a warning for a frozen backbone); both are
+        no-ops in a world of one, and the files they write are a plain
+        run's.  The model leaves ``fit`` whole on its device.
+        ``parallelism='sp'`` shards the token axis over the ranks instead
+        (every rank loads the whole batch; ``zero`` then shards the
+        moments over the same ranks).
 
         ``parallelism='pp'`` pipelines the backbone's blocks over ranks [0,
         ``pp_stages``) (default: every rank), one stage a rank
@@ -1151,7 +1158,9 @@ class DINOSeg:
                                          zero_mesh=zero_mesh,
                                          fsdp_mesh=fsdp_mesh, dp_group=dp,
                                          **self._head_kwargs)
-        eval_step = self._eval_step()
+        fsdp_opt = opt_state if isinstance(opt_state, FSDPOptimizer) else None
+        # under FSDP the eval runs one unit gathered at a time too
+        eval_step = self._eval_step(fsdp_opt)
 
         # saves go through the writer thread; the copy to the host stays
         # synchronous (the loop updates the tensors in place)
@@ -1165,6 +1174,8 @@ class DINOSeg:
             agree_across_hosts("resume-state visibility", int(have_resume))
         if resume and have_resume:
             run_vars = {"epoch": 0, "best_acc": -1.0, "since_improve": 0}
+            if fsdp_opt is not None:  # the restore runs on the host
+                fsdp_opt.to_host()
             vit_p, head_p = to_jax_params(self.model.state_dict())
             restored = restart_from_checkpoint(
                 resume_path, run_vars, vit=vit_p, head=head_p,
@@ -1172,6 +1183,8 @@ class DINOSeg:
                            else optimizer_arrays(opt_state)))
             self.model.load_state_dict(from_jax_params(restored["vit"],
                                                        restored["head"]))
+            if fsdp_opt is not None:  # only the shards go to the card
+                fsdp_opt.from_host()
             if pp is None:
                 load_optimizer_arrays(opt_state, restored["opt_state"])
             else:  # the plain layout: each stage takes its entries below
@@ -1258,7 +1271,6 @@ class DINOSeg:
             train_cm = torch.stack(cms).sum(0).cpu().numpy()
             train_s = time.time() - t0
             host_cpu_s = time.process_time() - cpu0
-            materialize(opt_state)  # FSDP: every rank gathers the params
 
             if val_feats is not None:
                 val_cm = cached_eval_step(head, val_feats,
@@ -1296,6 +1308,8 @@ class DINOSeg:
             # the sharded optimizer's state gathers on every rank (a PP
             # stage's over the stage group, in the plain layout)
             opt_arrays = None
+            if fsdp_opt is not None and (improved or resume):
+                fsdp_opt.to_host()  # every rank, one unit at a time
             if resume and pp is None:
                 opt_arrays = optimizer_arrays(opt_state)
             elif resume and svit is not None:
@@ -1322,8 +1336,8 @@ class DINOSeg:
                 if rank == 0:
                     ck_writer.wait()
                 barrier()
-            if isinstance(opt_state, ShardedOptimizer):
-                opt_state.release()  # FSDP: shards only between steps
+            if fsdp_opt is not None:
+                fsdp_opt.release()  # the host copies of the saves
             # since_improve is 0 right after an improving epoch, so
             # patience 0 must not stop an improving run
             if early_stopping and since_improve >= patience:

@@ -16,7 +16,10 @@ per card (``torchrun --nproc_per_node=N -m dino_tpu_torch.cli.pretrain_dino
 each rank loads its slab of every global batch and the step averages the
 gradients, the loss and the centre's batch mean over the ranks; the batch
 must divide by the world size.  ``--fsdp`` shards the student, the teacher
-and the optimizer's moments over the ranks (a no-op in a world of one).
+and the optimizer's moments over the ranks in FSDP's units (a no-op in a
+world of one): both models are built and restored on the host, only each
+rank's shards reach the card, the step gathers one unit at a time, and a
+save gathers one unit at a time to the host.
 Rank 0 alone writes files; the ranks agree on a resume file's visibility
 and position, and on a stop signal (every step for the first steps, then
 every ``--stop_poll_secs`` of measured step time), so a SIGTERM to one rank
@@ -61,9 +64,10 @@ def parse_args(argv=None):
                          "batch_size/accum_steps")
     ap.add_argument("--fsdp", action="store_true",
                     help="FSDP/ZeRO-3: shard the student, the teacher and "
-                         "the AdamW moments over the ranks (flat shards, "
-                         "parallel/mesh.py); the parameters are gathered "
-                         "for each step.  No-op in a world of one")
+                         "the AdamW moments over the ranks (one flat "
+                         "buffer a block, parallel/mesh.py); the step "
+                         "gathers one block at a time and reduce-scatters "
+                         "its gradient.  No-op in a world of one")
     ap.add_argument("--lr", type=float, default=5e-4)
     ap.add_argument("--n_local_crops", type=int, default=8)
     ap.add_argument("--global_size", type=int, default=224)
@@ -177,13 +181,15 @@ def main(argv=None):
                           n_local_crops=args.n_local_crops,
                           global_size=args.global_size,
                           local_size=args.local_size)
+    fsdp = args.fsdp and group is not None
+    # under FSDP the whole models stay on the host: only shards reach the
+    # card
     student, teacher = init_dino_params(
         torch.Generator().manual_seed(args.seed), vit_cfg, dino_cfg,
-        depth=args.depth, device=device)
+        depth=args.depth, device="cpu" if fsdp else device)
     opt = make_dino_optimizer(student, lr=args.lr, weight_decay=0.04)
-    fsdp = args.fsdp and group is not None
     if fsdp:  # sharded before the first step
-        opt = shard_dino_state(student, teacher, opt, group)
+        opt = shard_dino_state(student, teacher, opt, group, device=device)
     step = make_dino_train_step(vit_cfg, dino_cfg,
                                 accum_steps=args.accum_steps,
                                 fsdp_mesh=group if fsdp else None,
@@ -215,9 +221,10 @@ def main(argv=None):
 
     def save_state(epoch, s):
         """Rank 0 writes the resume file; every rank calls this at the same
-        point (FSDP gathers the state first, a collective)."""
+        point (FSDP gathers the state to the host first, one unit at a
+        time: a collective)."""
         if fsdp:
-            opt.gather()
+            opt.to_host()
         opt_arrays = optimizer_arrays(opt)
         if rank == 0:
             writer.save_train_state(
@@ -235,15 +242,14 @@ def main(argv=None):
         restored = restart_from_checkpoint(
             resume_path, run_vars, student=None, teacher=None, center=None,
             opt_state=None)
-        if fsdp:
-            opt.gather()
+        if fsdp:  # restored whole on the host, then re-cut into shards
+            opt.to_host(gather=False)
         for model, name in ((student, "student"), (teacher, "teacher")):
             model.load_state_dict(from_jax_dino(restored[name]))
         center.copy_(torch.from_numpy(np.asarray(restored["center"])))
         load_optimizer_arrays(opt, restored["opt_state"])
-        if fsdp:  # re-shard what was restored
-            opt.reshard()
-            opt.release()
+        if fsdp:
+            opt.from_host()
         return run_vars
 
     def publish():
@@ -404,7 +410,7 @@ def main(argv=None):
     # converted-npz layout DINOSeg(pretrained_path=...) loads
     out = os.path.join(args.write_path, "dino_pretrained_backbone.npz")
     if fsdp:
-        opt.gather()  # both models whole on every rank
+        opt.to_host()  # both models whole on every rank's host
     if rank == 0:
         vit_tree, _ = to_jax_params({"dino." + k: v for k, v in
                                      teacher.vit.state_dict().items()})

@@ -20,7 +20,7 @@ divided by ||x|| + 1e-12 (not ``F.normalize``'s max(||x||, eps)).
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, List, Sequence
 
 import torch
 import torch.nn as nn
@@ -76,12 +76,23 @@ def init_dino_head(head: DINOHead, generator: torch.Generator) -> DINOHead:
 
 def dino_head_apply(head: DINOHead, x: torch.Tensor) -> torch.Tensor:
     """(M, in_dim) features -> (M, out_dim) float32 logits."""
+    return dino_head_last(head, dino_head_mlp(head, x))
+
+
+def dino_head_mlp(head: DINOHead, x: torch.Tensor) -> torch.Tensor:
+    """The MLP to the bottleneck and its L2 normalization (FSDP's first
+    unit of the head)."""
     n = len(head.mlp)
     for i, lin in enumerate(head.mlp):
         x = affine(lin, x)
         if i < n - 1:
             x = F.gelu(x, approximate="none")
-    x = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
+    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
+
+
+def dino_head_last(head: DINOHead, x: torch.Tensor) -> torch.Tensor:
+    """The weight-normed last layer over normalized bottleneck features
+    (FSDP's second unit of the head)."""
     v = head.last_layer.v.float()
     g = head.last_layer.g.float()
     if head.norm_last_layer:
@@ -90,21 +101,28 @@ def dino_head_apply(head: DINOHead, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, w)
 
 
-def multi_crop_forward(backbone_fn: Callable, head_fn: Callable,
-                       crops: Sequence[torch.Tensor]) -> torch.Tensor:
-    """MultiCropWrapper: consecutive crops of one resolution go through the
-    backbone as one batch, the CLS features of every group are
-    concatenated and the head runs once.  ``backbone_fn((B, H, W, 3)) ->
-    (B, D)``, ``head_fn((M, D)) -> (M, K)``."""
+def crop_groups(crops: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Consecutive crops of one resolution concatenated into one batch, in
+    order (MultiCropWrapper's grouping)."""
     if not isinstance(crops, (list, tuple)):
         crops = [crops]
-    outputs = []
+    groups = []
     start = 0
     while start < len(crops):
         res = crops[start].shape[1]
         end = start
         while end < len(crops) and crops[end].shape[1] == res:
             end += 1
-        outputs.append(backbone_fn(torch.cat(list(crops[start:end]), dim=0)))
+        groups.append(torch.cat(list(crops[start:end]), dim=0))
         start = end
-    return head_fn(torch.cat(outputs, dim=0))
+    return groups
+
+
+def multi_crop_forward(backbone_fn: Callable, head_fn: Callable,
+                       crops: Sequence[torch.Tensor]) -> torch.Tensor:
+    """MultiCropWrapper: consecutive crops of one resolution go through the
+    backbone as one batch, the CLS features of every group are
+    concatenated and the head runs once.  ``backbone_fn((B, H, W, 3)) ->
+    (B, D)``, ``head_fn((M, D)) -> (M, K)``."""
+    return head_fn(torch.cat([backbone_fn(g) for g in crop_groups(crops)],
+                             dim=0))

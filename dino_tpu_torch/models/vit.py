@@ -21,6 +21,9 @@ modules, one per function of ``dino_tpu/models/vit.py``:
     as ``dino_tpu`` does;
   * ``vit_forward(..., remat=True)`` recomputes each block in the backward
     pass (``torch.utils.checkpoint``), trading FLOPs for activation memory;
+  * under FSDP (``parallel/mesh.py``) :func:`vit_forward_units` runs the
+    same forward one unit (:func:`vit_units`) gathered at a time, every
+    unit recomputed in its backward;
   * ``get_last_selfattention`` (full, masked or CLS-row only),
     ``forward_mask`` and ``get_intermediate_layers`` run the earlier blocks
     as ``vit_forward`` does and the last block's attention through its
@@ -44,6 +47,7 @@ from dino_tpu_torch.ops.attention import (attention_probs,
 from dino_tpu_torch.ops.bicubic import bicubic_resize_matrix
 from dino_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual
 from dino_tpu_torch.ops.quant import QuantLinear, int8_dense
+from dino_tpu_torch.parallel.mesh import run_unit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -400,6 +404,48 @@ def vit_forward(model: VisionTransformer, x: torch.Tensor, cfg: ViTConfig, *,
             return layer_norm(model.norm, tokens, cfg.ln_eps)
     tokens = layer_norm(model.norm, tokens, cfg.ln_eps)
     return tokens if all_tokens else tokens[:, 0]
+
+
+def vit_units(model: VisionTransformer
+              ) -> List[Tuple[str, List[nn.Parameter]]]:
+    """FSDP's units of a ViT: the embeddings with the final norm
+    ("root", run first and last), then each block."""
+    root = [model.cls_token, model.pos_embed,
+            *model.patch_embed.parameters(), *model.norm.parameters()]
+    return [("root", root)] + [(f"blocks.{i}", list(blk.parameters()))
+                               for i, blk in enumerate(model.blocks)]
+
+
+def vit_forward_units(model: VisionTransformer,
+                      chunks: List[List[torch.Tensor]], cfg: ViTConfig,
+                      fsdp, *, all_tokens: bool = True
+                      ) -> List[Tuple[torch.Tensor, ...]]:
+    """:func:`vit_forward` of every batch of ``chunks`` (a list over a
+    step's microbatches of lists of batches, e.g. a microbatch's crops of
+    different resolutions) under FSDP: ``fsdp`` (a
+    ``parallel/mesh.py:FSDPOptimizer``) gathers one unit of
+    :func:`vit_units` at a time and runs it over every batch
+    (:func:`~dino_tpu_torch.parallel.mesh.run_unit`; its backward
+    recomputes the unit microbatch by microbatch).  Each batch takes the
+    ops of :func:`vit_forward`, with no fused MLP under autograd (the
+    backward recomputes with the composition).  Returns, per microbatch,
+    the tuple of its batches' tokens; ``all_tokens=False`` normalizes and
+    returns the CLS rows only."""
+    train = torch.is_grad_enabled()
+    root = fsdp.unit_of(model.patch_embed)
+    ts = run_unit(root, lambda *xs: tuple(prepare_tokens(model, x, cfg)
+                                          for x in xs), chunks)
+    for blk in model.blocks:
+        ts = run_unit(fsdp.unit_of(blk), lambda *ts, blk=blk: tuple(
+            block_apply(blk, t, cfg, fused_mlp=not train)[0] for t in ts),
+            ts)
+
+    def final(*ts):
+        if all_tokens:
+            return tuple(layer_norm(model.norm, t, cfg.ln_eps) for t in ts)
+        return tuple(layer_norm(model.norm, t[:, :1], cfg.ln_eps)[:, 0]
+                     for t in ts)
+    return run_unit(root, final, ts)
 
 
 def _tokens_before_last(model: VisionTransformer, x: torch.Tensor,

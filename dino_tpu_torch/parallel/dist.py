@@ -9,7 +9,9 @@ NCCL for a CUDA device and gloo for the CPU.  Where the JAX package writes
 place them, the port calls :func:`ring_shift` (sequence parallelism's
 ring), :func:`stage_hop` (a pipeline's two rings), :func:`all_reduce_sum_`
 (any dtype: float gradients, int64 confusion matrices),
-:func:`all_gather_seq`, :func:`all_gather_flat` and :class:`GroupSum` (a
+:func:`all_gather_seq`, :func:`all_gather_flat`, FSDP's
+:func:`all_gather_into` and :func:`reduce_scatter_sum`, and
+:class:`GroupSum` (a
 sum whose backward is the same sum) on a process group; tensor
 parallelism's two operators are :class:`CopyToGroup` (Megatron's f) and
 :class:`SumFromGroup` (g).
@@ -22,9 +24,9 @@ decisions ``fit`` and the pretrain CLI must take in lockstep.
 Under a gloo group the collectives stage CUDA tensors through host copies:
 gloo's send/recv and all_gather take CPU tensors only, and NCCL refuses two
 ranks on one device, so this is how several ranks share one card (the
-kernels still run on the card).  gloo has no reduce-scatter: a sum that
-lands in shards is :func:`all_reduce_sum_` and a slice, on either backend,
-so NCCL and gloo give the same sums.
+kernels still run on the card).  gloo has no reduce-scatter, so
+:func:`reduce_scatter_sum` all-reduces and slices there: the same sums as
+NCCL's ``reduce_scatter_tensor``.
 """
 from __future__ import annotations
 
@@ -219,6 +221,42 @@ def all_gather_seq(t: torch.Tensor, group=None, dim: int = 1) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(d)]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(t.device)
+
+
+def all_gather_into(shard: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's 1-D ``shard`` (the same length on every rank)
+    concatenated in rank order, (world * len,) on ``shard``'s device:
+    ``all_gather_into_tensor`` on NCCL, host-staged on gloo."""
+    d = get_world_size(group)
+    if d == 1:
+        return shard.clone()
+    if _staged(group):
+        parts = [torch.empty_like(shard, device="cpu") for _ in range(d)]
+        dist.all_gather(parts, shard.cpu(), group=group)
+        return torch.cat(parts).to(shard.device)
+    out = shard.new_empty(d * shard.numel())
+    dist.all_gather_into_tensor(out, shard.contiguous(), group=group)
+    return out
+
+
+def reduce_scatter_sum(flat: torch.Tensor, group=None) -> torch.Tensor:
+    """This rank's slice of ``flat`` summed over the group: (len / world,)
+    on ``flat``'s device, rank r's elements [r*s, (r+1)*s).
+    ``reduce_scatter_tensor`` on NCCL; gloo has none, so there the whole
+    buffer is all-reduced (through the host) and sliced, the same sums.
+    The backend's name picks the route: a failed NCCL call raises."""
+    d = get_world_size(group)
+    if d == 1:
+        return flat
+    s = flat.numel() // d
+    if _staged(group):
+        host = flat.cpu()
+        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
+        r = get_rank(group)
+        return host[r * s:(r + 1) * s].to(flat.device)
+    out = flat.new_empty(s)
+    dist.reduce_scatter_tensor(out, flat, op=dist.ReduceOp.SUM, group=group)
+    return out
 
 
 def all_gather_flat(t: torch.Tensor, group=None) -> torch.Tensor:

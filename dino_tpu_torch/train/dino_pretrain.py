@@ -41,11 +41,15 @@ Over ranks (``dp_group``): every rank runs its equal slab of the global
 batch; the gradients, the loss and the teacher's batch mean are summed over
 the ranks and divided by their count, so the step is the global batch's
 (the mean of equal slabs' means).  ``fsdp_mesh``: the student, the teacher
-and the optimizer's moments live in flat shards over the ranks between
-steps (:func:`shard_dino_state`); the step gathers both models, reduces the
-gradients to the shards, clips each leaf by its norm over every shard (the
-squared norms summed over the ranks) and runs AdamW and the teacher's EMA
-on the shards.
+and the optimizer's moments live in FSDP's units over the ranks
+(:func:`shard_dino_state`, :func:`dino_units`: the embeddings with the
+final norm, each block, the head's MLP, its last layer).  Both forwards
+gather one unit at a time (a unit runs every microbatch's resolution
+groups while gathered, the teacher's under ``no_grad``), one backward
+follows, and each student unit's recomputes it microbatch by microbatch
+and reduce-scatters the sum once; the step clips each leaf by its norm
+over every shard (the squared norms summed over the ranks) and runs AdamW
+and the teacher's EMA on the shards.
 """
 from __future__ import annotations
 
@@ -57,15 +61,17 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from dino_tpu_torch.models.dino_head import (DINOHead, init_dino_head,
+from dino_tpu_torch.models.dino_head import (DINOHead, crop_groups,
+                                             dino_head_last, dino_head_mlp,
+                                             init_dino_head,
                                              multi_crop_forward)
 from dino_tpu_torch.models.vit import (ViTConfig, VisionTransformer,
-                                       init_vit_params, vit_forward)
+                                       init_vit_params, vit_forward,
+                                       vit_forward_units, vit_units)
 from dino_tpu_torch.ops.preprocess import normalize_imagenet
 from dino_tpu_torch.parallel.dist import all_reduce_sum_, get_world_size
-from dino_tpu_torch.parallel.mesh import (FlatShards, ShardedOptimizer,
-                                          gradient_norms, materialize,
-                                          optimizer_params)
+from dino_tpu_torch.parallel.mesh import (FSDPOptimizer, gradient_norms,
+                                          optimizer_params, run_unit)
 from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.train.optim import clip_gradients, get_params_groups
 from dino_tpu_torch.utils.device import resolve_device
@@ -175,31 +181,42 @@ def ema_update(teacher: nn.Module, student: nn.Module, momentum) -> None:
                                                float(one_m)))
 
 
+def dino_units(model: DinoModel):
+    """FSDP's units of a student or teacher: the ViT's
+    (:func:`~dino_tpu_torch.models.vit.vit_units`), the head's MLP and its
+    weight-normed last layer."""
+    return vit_units(model.vit) + [
+        ("head.mlp", list(model.head.mlp.parameters())),
+        ("head.last_layer", list(model.head.last_layer.parameters()))]
+
+
 def shard_dino_state(student: DinoModel, teacher: DinoModel,
-                     opt: torch.optim.Optimizer, group) -> ShardedOptimizer:
+                     opt: torch.optim.Optimizer, group,
+                     device=None) -> FSDPOptimizer:
     """FSDP of the pretrain state over ``group``, before the first step:
-    ``opt`` (:func:`make_dino_optimizer`'s, no step taken yet) moved onto
-    flat shards of the student's parameters, the teacher's parameters
-    sharded alongside, and both models' full tensors dropped.  Pass the
-    result as the step's ``opt_state`` with ``fsdp_mesh=group``;
-    ``gather()`` materializes both models (a collective) for a save."""
+    the student's parameters in :func:`dino_units`, ``opt``
+    (:func:`make_dino_optimizer`'s, no step taken yet) moved onto their
+    pieces, the teacher's units sharded alongside as followers; the
+    shards on ``device`` (default: the parameters'; build both models on
+    the host and only the shards reach the card), both models' full
+    tensors dropped.  Pass the result as the step's ``opt_state`` with
+    ``fsdp_mesh=group``; ``to_host()`` binds both models to whole host
+    tensors for a save (a collective)."""
     if any(b.is_floating_point() for m in (student, teacher)
            for b in m.buffers()):
         raise TypeError("FSDP of the pretrain state shards parameters only")
-    sharded = ShardedOptimizer(opt, group, fsdp=True)
-    sharded.followers.append(FlatShards(list(teacher.parameters()), group))
-    sharded.release()
-    return sharded
+    return FSDPOptimizer(opt, group, dino_units(student),
+                         followers=dino_units(teacher), device=device)
 
 
 @torch.no_grad()
-def _ema_shards(opt_state: ShardedOptimizer, teacher: DinoModel,
-                student: DinoModel, momentum) -> None:
-    """:func:`ema_update` on the shards: the same elementwise math."""
+def _ema_shards(opt_state: FSDPOptimizer, momentum) -> None:
+    """:func:`ema_update` on the shards, unit for unit: the same
+    elementwise math."""
     m = np.float32(momentum)
     one_m = np.float32(1.0) - m
-    t_shards = opt_state.followers[0].shards
-    s_shards = [opt_state.shard_of(p) for p in student.parameters()]
+    t_shards = [u.shard for u in opt_state.followers]
+    s_shards = [u.shard for u in opt_state.units]
     torch._foreach_mul_(t_shards, float(m))
     torch._foreach_add_(t_shards, torch._foreach_mul(s_shards, float(one_m)))
 
@@ -214,6 +231,25 @@ def dino_forward(model: DinoModel, crops: Sequence[torch.Tensor],
         return vit_forward(model.vit, x, vit_cfg, all_tokens=False)
 
     return multi_crop_forward(backbone, model.head, crops)
+
+
+def dino_forward_units(model: DinoModel,
+                       chunks: Sequence[Sequence[torch.Tensor]],
+                       vit_cfg: ViTConfig, fsdp: FSDPOptimizer,
+                       compute_dtype: Optional[torch.dtype] = None
+                       ) -> List[torch.Tensor]:
+    """:func:`dino_forward` of each microbatch's crops in ``chunks`` under
+    FSDP (``fsdp`` holding the model's :func:`dino_units`): one unit
+    gathered at a time, running every microbatch's resolution groups."""
+    groups = [[g.to(compute_dtype) if compute_dtype is not None else g
+               for g in crop_groups(crops)] for crops in chunks]
+    feats = [(torch.cat(f, dim=0),) for f in vit_forward_units(
+        model.vit, groups, vit_cfg, fsdp, all_tokens=False)]
+    h = run_unit(fsdp.unit_of(model.head.mlp),
+                 lambda x: dino_head_mlp(model.head, x), feats)
+    return [out for (out,) in run_unit(
+        fsdp.unit_of(model.head.last_layer),
+        lambda x: dino_head_last(model.head, x), h)]
 
 
 def make_dino_optimizer(student: DinoModel, lr: float = 5e-4,
@@ -265,23 +301,26 @@ def make_dino_train_step(vit_cfg: ViTConfig, dino_cfg: DinoConfig,
     ``dp_group`` (more than one rank): each rank passes its slab of the
     global batch, the same size on every rank; gradients, loss and the
     teacher's batch mean are averaged over the group.  ``fsdp_mesh``:
-    ``opt_state`` is :func:`shard_dino_state`'s over that group; the
-    clipped gradients are then left in the shards' ``.grad``."""
+    ``opt_state`` is :func:`shard_dino_state`'s over that group (and
+    ``dp_group``, if given, is the same group); the clipped gradients are
+    then left in the units' shard gradients."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     n_crops = 2 + dino_cfg.n_local_crops
     dp = (dp_group if dp_group is not None and get_world_size(dp_group) > 1
           else None)
 
-    def loss_of(student, teacher, center, g, l, teacher_temp):
-        crops = [g[0], g[1]] + list(l.unbind(0))
-        s_out = dino_forward(student, crops, vit_cfg, compute_dtype)
-        with torch.no_grad():
-            t_out = dino_forward(teacher, [g[0], g[1]], vit_cfg,
-                                 compute_dtype)
-        loss = dino_loss(s_out, t_out, center, dino_cfg.student_temp,
+    def loss_of(s_out, t_out, center, teacher_temp):
+        return dino_loss(s_out, t_out, center, dino_cfg.student_temp,
                          teacher_temp, n_crops)
-        return loss, t_out
+
+    def microbatches(g, l, k, mb):
+        """Each microbatch's (student crops, teacher crops)."""
+        out = []
+        for i in range(k):
+            gi, li = g[:, i * mb:(i + 1) * mb], l[:, i * mb:(i + 1) * mb]
+            out.append(([gi[0], gi[1]] + list(li.unbind(0)), [gi[0], gi[1]]))
+        return out
 
     def step(student, teacher, center, opt_state, g_crops, l_crops,
              teacher_temp, ema_momentum, freeze_last):
@@ -295,54 +334,81 @@ def make_dino_train_step(vit_cfg: ViTConfig, dino_cfg: DinoConfig,
         if l_crops.dtype == torch.uint8:
             l_crops = normalize_imagenet(l_crops)
         teacher_temp = float(np.float32(teacher_temp))
-        sharded = isinstance(opt_state, ShardedOptimizer)
-        if fsdp_mesh is not None and not (sharded and opt_state.fsdp
-                                          and opt_state.group is fsdp_mesh):
+        fs = opt_state if isinstance(opt_state, FSDPOptimizer) else None
+        if fsdp_mesh is not None and not (fs is not None
+                                          and fs.group is fsdp_mesh):
             raise TypeError("fsdp_mesh needs opt_state from "
                             "shard_dino_state(..., group=fsdp_mesh)")
-        materialize(opt_state)
+        if fs is not None:  # a rank's slab, or every rank the whole batch
+            if dp is not None and dp is not fs.group:
+                raise ValueError("FSDP reduces each unit's gradient over "
+                                 "fsdp_mesh: pass the same group as "
+                                 "dp_group")
+            fs.book.sum_ranks = dp is not None
         params = optimizer_params(opt_state)
         k, mb = accum_steps, b // accum_steps
         with matmul_ctx(compute_dtype):
             opt_state.zero_grad(set_to_none=True)
             loss_sum, t_sum = 0.0, 0.0
-            for i in range(k):
-                rows = slice(i * mb, (i + 1) * mb)
-                loss, t_out = loss_of(student, teacher, center,
-                                      g_crops[:, rows], l_crops[:, rows],
-                                      teacher_temp)
-                loss.backward()
-                loss_sum = loss_sum + loss.detach()
-                t_sum = t_sum + t_out.float().mean(dim=0)
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            grads = [p.grad for p in params]
-            if k > 1:
-                torch._foreach_div_(grads, float(k))
+            mbs = microbatches(g_crops, l_crops, k, mb)
+            if fs is None:
+                for s_crops, t_crops in mbs:
+                    s_out = dino_forward(student, s_crops, vit_cfg,
+                                         compute_dtype)
+                    with torch.no_grad():
+                        t_out = dino_forward(teacher, t_crops, vit_cfg,
+                                             compute_dtype)
+                    loss = loss_of(s_out, t_out, center, teacher_temp)
+                    loss.backward()
+                    loss_sum = loss_sum + loss.detach()
+                    t_sum = t_sum + t_out.float().mean(dim=0)
+            else:  # every microbatch through one unit at a time
+                s_outs = dino_forward_units(student, [c for c, _ in mbs],
+                                            vit_cfg, fs, compute_dtype)
+                with torch.no_grad():
+                    t_outs = dino_forward_units(teacher, [c for _, c in mbs],
+                                                vit_cfg, fs, compute_dtype)
+                total = 0
+                for s_out, t_out in zip(s_outs, t_outs):
+                    loss = loss_of(s_out, t_out, center, teacher_temp)
+                    total = total + loss
+                    loss_sum = loss_sum + loss.detach()
+                    t_sum = t_sum + t_out.float().mean(dim=0)
+                total.backward()
             t_mean = t_sum / k
             loss = loss_sum / k
-            if dp is not None:  # the global batch: the mean of the slabs'
-                n = float(get_world_size(dp))
-                all_reduce_sum_(grads + [t_mean, loss], dp)
-                torch._foreach_div_(grads, n)
-                t_mean, loss = t_mean / n, loss / n
             last = student.head.last_layer
-            last_grads = [last.v, last.g]
-            norms = None
-            if sharded:  # the clip and the update run on the shards
-                grads = opt_state.shard_grads()
-                norms = gradient_norms(grads, opt_state.group)
-                last_grads = [opt_state.shard_of(p) for p in last_grads]
+            if fs is None:
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                grads = [p.grad for p in params]
+                if k > 1:
+                    torch._foreach_div_(grads, float(k))
+                if dp is not None:  # the global batch: the slabs' mean
+                    n = float(get_world_size(dp))
+                    all_reduce_sum_(grads + [t_mean, loss], dp)
+                    torch._foreach_div_(grads, n)
+                    t_mean, loss = t_mean / n, loss / n
+                norms, last_grads = None, [last.v.grad, last.g.grad]
+            else:  # the units' backwards summed the slabs' gradients
+                grads = fs.shard_grads()
+                unit_grads = fs.unit_grads()
+                if k > 1:
+                    torch._foreach_div_(unit_grads, float(k))
+                if dp is not None:
+                    n = float(get_world_size(dp))
+                    all_reduce_sum_([t_mean, loss], dp)
+                    torch._foreach_div_(unit_grads, n)
+                    t_mean, loss = t_mean / n, loss / n
+                # the clip and the update run on the shards
+                norms = gradient_norms(grads, fs.group)
+                last_grads = [fs.piece_of(p).grad for p in (last.v, last.g)]
             clip_gradients(grads, clip, norms)
-            torch._foreach_mul_([p.grad for p in last_grads],
-                                1.0 - float(freeze_last))
-            if sharded:
-                opt_state.step(grads_sharded=True)
-            else:
-                opt_state.step()
-        if sharded and opt_state.fsdp:  # the shards outlive the release
-            _ema_shards(opt_state, teacher, student, ema_momentum)
+            torch._foreach_mul_(last_grads, 1.0 - float(freeze_last))
+            opt_state.step()
+        if fs is not None:
+            _ema_shards(fs, ema_momentum)
         else:
             ema_update(teacher, student, ema_momentum)
         with torch.no_grad():

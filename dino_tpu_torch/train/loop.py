@@ -26,9 +26,12 @@ Over ranks (``dp_group``, one process per card): each rank runs its slab of
 the global batch, the gradients, the loss, the confusion matrix and the
 weight total are summed over the ranks before the one division by the
 global weight total, and every rank makes the same update.  ZeRO-1
-(``zero_mesh``) and FSDP (``fsdp_mesh``) take a
-``parallel/mesh.py:ShardedOptimizer`` over that group
-(:func:`init_opt_state`'s ``zero_mesh`` / ``fsdp_mesh``).
+(``zero_mesh``) takes a ``parallel/mesh.py:ShardedOptimizer`` over that
+group, FSDP (``fsdp_mesh``) a ``parallel/mesh.py:FSDPOptimizer``
+(:func:`init_opt_state`'s ``zero_mesh`` / ``fsdp_mesh``): the ViT runs one
+unit (a block; the embeddings with the final norm; the head) gathered at a
+time (:func:`seg_forward_units`), each unit's backward recomputes it and
+reduce-scatters its gradient, and the step updates the shards.
 
 Tensor parallelism (``tp_group``, DP x TP on a ``parallel/mesh.py:
 make_grid`` grid): the backbone is this rank's Megatron shard
@@ -38,7 +41,7 @@ rank's tensor-parallel slice over it.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import torch
 from torch.distributed import ProcessGroup
@@ -46,12 +49,14 @@ from torch.distributed import ProcessGroup
 from dino_tpu_torch.models.heads import (head_apply, moe_balance_loss,
                                          moe_balance_stats)
 from dino_tpu_torch.models.resnet import resnet_features, update_bn_stats
-from dino_tpu_torch.models.vit import ViTConfig, VisionTransformer, vit_forward
+from dino_tpu_torch.models.vit import (ViTConfig, VisionTransformer,
+                                       vit_forward, vit_forward_units,
+                                       vit_units)
 from dino_tpu_torch.ops.preprocess import normalize_imagenet
 from dino_tpu_torch.parallel.dist import (all_reduce_sum_, get_rank,
                                           get_world_size)
-from dino_tpu_torch.parallel.mesh import (ShardedOptimizer, materialize,
-                                          optimizer_params)
+from dino_tpu_torch.parallel.mesh import (FSDPOptimizer, ShardedOptimizer,
+                                          optimizer_params, run_unit)
 from dino_tpu_torch.parallel.tp import TPVisionTransformer, vit_forward_tp
 from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.train.metrics import confusion_matrix
@@ -87,24 +92,42 @@ def make_optimizer(name: str, lr: float) -> Optimizer:
     return build
 
 
+def seg_units(vit: VisionTransformer, head: torch.nn.Module):
+    """FSDP's units of the segmentation model: the ViT's
+    (:func:`~dino_tpu_torch.models.vit.vit_units`) and the head."""
+    return vit_units(vit) + [("head", list(head.parameters()))]
+
+
 def init_opt_state(optimizer: Optimizer, vit: VisionTransformer,
                    head: torch.nn.Module, freeze_backbone: bool,
                    zero_mesh=None, fsdp_mesh=None):
     """The optimizer over the head, or over the head and the backbone.
-    ``zero_mesh`` / ``fsdp_mesh`` (a process group) move it onto shards of
-    the parameters over that group (ZeRO-1 / FSDP,
-    ``parallel/mesh.py:ShardedOptimizer``)."""
+    ``zero_mesh`` (a process group) moves it onto ZeRO-1's shards
+    (``parallel/mesh.py:ShardedOptimizer``); ``fsdp_mesh`` moves the
+    unfrozen ViT and the head into FSDP's units over that group
+    (``parallel/mesh.py:FSDPOptimizer``, :func:`seg_units`), their shards
+    on the parameters' device, the full parameters dropped."""
     params = list(head.parameters())
     if not freeze_backbone:
         params += list(vit.parameters())
-    opt = optimizer(params)
     if zero_mesh is not None and fsdp_mesh is not None:
         raise ValueError("fsdp_mesh and zero_mesh are mutually exclusive: "
                          "FSDP already shards the optimizer state")
-    group = zero_mesh if zero_mesh is not None else fsdp_mesh
-    if group is not None:
-        opt = ShardedOptimizer(opt, group, fsdp=fsdp_mesh is not None)
+    if fsdp_mesh is not None:
+        _check_fsdp(not freeze_backbone and type(vit) is VisionTransformer)
+    opt = optimizer(params)
+    if fsdp_mesh is not None:
+        return FSDPOptimizer(opt, fsdp_mesh, seg_units(vit, head))
+    if zero_mesh is not None:
+        opt = ShardedOptimizer(opt, zero_mesh)
     return opt
+
+
+def _check_fsdp(unfrozen_vit: bool) -> None:
+    if not unfrozen_vit:
+        raise ValueError("FSDP shards the train state of an unfrozen ViT "
+                         "backbone (not a frozen one, a ResNet or a "
+                         "tensor-parallel shard)")
 
 
 def _check_group(name: str, group) -> None:
@@ -172,6 +195,43 @@ def seg_forward(vit: torch.nn.Module, head: torch.nn.Module, cfg: ViTConfig,
     return head_apply(head_type, head, feats, moe_dispatch, moe_capacity)
 
 
+def unit_features(fsdp: FSDPOptimizer, vit: VisionTransformer,
+                  xs: List[torch.Tensor], cfg: ViTConfig
+                  ) -> List[torch.Tensor]:
+    """:func:`backbone_features` of a ViT for each microbatch of ``xs``
+    under FSDP, one unit gathered at a time."""
+    out = []
+    for (tokens,) in vit_forward_units(vit, [[x] for x in xs], cfg, fsdp):
+        out.append(tokens[:, 1:, :].reshape(-1, tokens.shape[-1]))
+    return out
+
+
+def seg_forward_units(fsdp: FSDPOptimizer, vit: VisionTransformer,
+                      head: torch.nn.Module, cfg: ViTConfig, head_type: str,
+                      images_u8: List[torch.Tensor],
+                      compute_dtype: Optional[torch.dtype] = None,
+                      extra: Optional[Callable] = None,
+                      aux: Optional[List[tuple]] = None,
+                      moe_dispatch: str = "dense",
+                      moe_capacity: float = 1.25) -> List[tuple]:
+    """:func:`seg_forward` of each microbatch of ``images_u8`` under FSDP
+    (``fsdp`` an ``FSDPOptimizer`` over :func:`seg_units`): the ViT through
+    ``vit_forward_units``, then the head as one unit.  Returns per
+    microbatch (log-probs,), or with ``extra`` (log-probs, ``extra(head,
+    feats, *aux[i])``): a term of the head's parameters, run inside its
+    unit, over the microbatch's tensors ``aux[i]``."""
+    xs = [normalize_imagenet(x) for x in images_u8]
+    if compute_dtype is not None:
+        xs = [x.to(compute_dtype) for x in xs]
+    feats = unit_features(fsdp, vit, xs, cfg)
+
+    def head_fn(f, *a):
+        logp = head_apply(head_type, head, f, moe_dispatch, moe_capacity)
+        return logp if extra is None else (logp, extra(head, f, *a))
+    return run_unit(fsdp.unit_of(head), head_fn,
+                    [(f, *a) for f, a in zip(feats, aux or [()] * len(xs))])
+
+
 def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor,
              weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """F.nll_loss's mean over patches; ``weights`` (0/1 per patch) gives the
@@ -225,10 +285,15 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
     The MoE stats pass sums its routing sums over the group, and a ResNet
     backbone's BatchNorm takes its batch statistics over the global batch.
     ``zero_mesh`` / ``fsdp_mesh``: ``opt_state`` must be
-    :func:`init_opt_state`'s ``ShardedOptimizer`` over that group (ZeRO-1
-    moments, or FSDP parameters, gradients and moments, in shards); under
-    FSDP the step gathers the parameters first and drops them after the
-    update.
+    :func:`init_opt_state`'s over that group: ZeRO-1's moments in shards,
+    or FSDP's units (the unfrozen ViT with the mlp, linear or MoE head),
+    whose parameters, gradients and moments live in shards.  Under FSDP
+    the forward runs every microbatch through one unit gathered at a time
+    (:func:`seg_forward_units`; no remat: every unit recomputes its
+    forward in its backward), one backward follows, each unit's adding its
+    microbatches in the loop's order and reduce-scattering the sum once
+    over ``dp_group`` (which must be ``fsdp_mesh``; without it every rank
+    runs the whole batch and slices), and the update runs on the shards.
 
     ``tp_group`` (DP x TP, the model group of ``parallel/mesh.py:make_grid``,
     ``dp_group`` its data group): ``vit`` is this rank's shard
@@ -253,6 +318,9 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
     if tp_group is not None and backbone != "vit":
         raise ValueError("tensor parallelism (tp_group) needs the ViT "
                          "backbone")
+    if fsdp_mesh is not None:
+        _check_fsdp(not freeze_backbone and backbone == "vit"
+                    and tp_group is None)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if accum_steps > 1 and head_type == "moe" and moe_dispatch == "sparse":
@@ -270,7 +338,9 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
                          "changes the capacity semantics (slots are "
                          "allocated per rank's slab, not per batch): use "
                          "the dense dispatch")
-    sharded = zero_mesh if zero_mesh is not None else fsdp_mesh
+    if fsdp_mesh is not None and dp is not None and dp is not fsdp_mesh:
+        raise ValueError("FSDP reduces each unit's gradient over fsdp_mesh: "
+                         "pass the same group as dp_group")
     moe = head_type == "moe"
     hk = dict(moe_dispatch=moe_dispatch, moe_capacity=moe_capacity)
 
@@ -284,40 +354,61 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
                            feat_sink=feat_sink, bn_group=dp,
                            tp_group=tp_group, **hk)
 
-    def monolithic(vit, head, images, labels, mask):
-        bn_collect = {} if backbone != "vit" else None
-        sink = {} if moe else None
+    def forward(vit, head, images, fs, bn_collect=None, extra=None):
+        """(log-probs, ``extra(head, feats)`` or None) of a batch; under
+        FSDP (``fs``) one unit gathered at a time."""
+        if fs is not None:
+            out = seg_forward_units(fs, vit, head, cfg, head_type, [images],
+                                    compute_dtype, extra, **hk)[0]
+            return out[0], out[1] if extra is not None else None
+        sink = {} if extra is not None else None
         logp = logp_of(vit, head, images, bn_collect, sink)
+        return logp, None if extra is None else extra(head, sink["feats"])
+
+    def monolithic(vit, head, images, labels, mask, fs):
+        bn_collect = {} if backbone != "vit" else None
         y = labels.reshape(-1)
         # per-sample mask -> per-patch weights: padded tail samples touch
         # neither the loss, the gradients nor the confusion matrix
-        w = (None if mask is None else mask.to(logp.dtype).repeat_interleave(
+        w = (None if mask is None else mask.float().repeat_interleave(
             y.shape[0] // mask.shape[0]))
+        extra = ((lambda h, f: moe_balance_loss(h, f, weights=w)) if moe
+                 else None)
+        logp, balance = forward(vit, head, images, fs, bn_collect, extra)
         loss = nll_loss(logp, y, w)
         if moe:
-            loss = loss + MOE_BALANCE_COEF * moe_balance_loss(
-                head, sink["feats"], weights=w)
+            loss = loss + MOE_BALANCE_COEF * balance
         loss.backward()
         cm = confusion_matrix(logp.detach().argmax(dim=-1), y, n_classes, w)
         return loss.detach(), cm, bn_collect
 
     @torch.no_grad()
-    def routing_fractions(vit, head, images, w, mb, w_total):
+    def routing_fractions(vit, head, images, w, mb, w_total, fs):
         """The stats pass: the full batch's routing fractions f (E,) from a
         forward-only pass over the microbatches (and the ranks)."""
-        a_tot = 0
+        a_tot, xs = 0, []
         for i in range(accum_steps):
             x = normalize_imagenet(images[i * mb:(i + 1) * mb])
             if compute_dtype is not None:
                 x = x.to(compute_dtype)
-            feats = backbone_features(vit, x, cfg, backbone,
-                                      tp_group=tp_group)
-            a_tot = a_tot + moe_balance_stats(head, feats, weights=w[i])[0]
+            xs.append(x)
+        if fs is None:
+            for i, x in enumerate(xs):
+                feats = backbone_features(vit, x, cfg, backbone,
+                                          tp_group=tp_group)
+                a_tot = a_tot + moe_balance_stats(head, feats,
+                                                  weights=w[i])[0]
+        else:  # every microbatch through one unit at a time
+            feats = unit_features(fs, vit, xs, cfg)
+            for (a,) in run_unit(fs.unit_of(head), lambda f, wi:
+                                 moe_balance_stats(head, f, weights=wi)[0],
+                                 [(f, w[i]) for i, f in enumerate(feats)]):
+                a_tot = a_tot + a
         if dp is not None:
             all_reduce_sum_([a_tot], dp)
         return a_tot / w_total
 
-    def accumulated(vit, head, params, images, labels, mask):
+    def accumulated(vit, head, params, images, labels, mask, fs):
         k = accum_steps
         b = images.shape[0]
         mb = b // k
@@ -329,36 +420,64 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
         if dp is not None:
             all_reduce_sum_([w_total], dp)
         w_total = w_total.clamp_min(1.0)
-        f_router = (routing_fractions(vit, head, images, w, mb, w_total)
+        f_router = (routing_fractions(vit, head, images, w, mb, w_total, fs)
                     if moe else None)
         bn_collect = {} if backbone != "vit" else None
         loss_sum = torch.zeros((), device=images.device)
         cm = torch.zeros((n_classes, n_classes), dtype=torch.int64,
                          device=images.device)
-        for i in range(k):
-            sink = {} if moe else None
-            logp = logp_of(vit, head, images[i * mb:(i + 1) * mb],
-                           bn_collect=bn_collect, feat_sink=sink)
+
+        def b_sum_of(h, f, wi):
+            return moe_balance_stats(h, f, weights=wi)[1]
+
+        def microbatch_loss(i, logp, b_sum):
+            """Microbatch i's summed masked loss; adds to the loss sum and
+            the confusion matrix."""
+            nonlocal loss_sum, cm
             y = labels[i * mb:(i + 1) * mb].reshape(-1)
             picked = logp.gather(1, y.long()[:, None])[:, 0]
             ls = -(picked * w[i]).sum()
             if moe:
-                _, b_sum, _ = moe_balance_stats(head, sink["feats"],
-                                                weights=w[i])
                 ls = ls + (MOE_BALANCE_COEF * f_router.shape[0]
                            * torch.dot(f_router, b_sum))
-            ls.backward()
             loss_sum += ls.detach()
             cm += confusion_matrix(logp.detach().argmax(dim=-1), y,
                                    n_classes, w[i])
-        if dp is not None:
-            for p in params:  # every rank sums the same list of tensors
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            all_reduce_sum_([loss_sum, cm] + [p.grad for p in params], dp)
-        for p in params:
-            if p.grad is not None:
-                p.grad.div_(w_total)
+            return ls
+
+        if fs is None:
+            for i in range(k):
+                logp, b_sum = forward(
+                    vit, head, images[i * mb:(i + 1) * mb], None, bn_collect,
+                    (lambda h, f, wi=w[i]: b_sum_of(h, f, wi)) if moe
+                    else None)
+                microbatch_loss(i, logp, b_sum).backward()
+        else:  # every microbatch through one unit at a time, one backward
+            outs = seg_forward_units(
+                fs, vit, head, cfg, head_type,
+                [images[i * mb:(i + 1) * mb] for i in range(k)],
+                compute_dtype, b_sum_of if moe else None,
+                [(w[i],) for i in range(k)] if moe else None, **hk)
+            total = 0
+            for i, out in enumerate(outs):
+                total = total + microbatch_loss(i, out[0],
+                                                out[1] if moe else None)
+            total.backward()
+        if fs is not None:  # each unit's backward reduced its gradient
+            if dp is not None:
+                all_reduce_sum_([loss_sum, cm], dp)
+            fs.shard_grads()
+            grads = fs.unit_grads()
+        else:
+            if dp is not None:
+                for p in params:  # every rank sums the same list of tensors
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                all_reduce_sum_([loss_sum, cm] + [p.grad for p in params],
+                                dp)
+            grads = [p.grad for p in params if p.grad is not None]
+        for g in grads:
+            g.div_(w_total)
         return loss_sum / w_total, cm, bn_collect
 
     def step(vit, head, opt_state, images_u8, labels, mask=None):
@@ -366,12 +485,13 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
             raise ValueError(
                 f"batch {images_u8.shape[0]} must divide by "
                 f"accum_steps={accum_steps} (microbatches are equal-sized)")
-        if sharded is not None and not (
-                isinstance(opt_state, ShardedOptimizer)
-                and opt_state.group is sharded):
-            raise TypeError("zero_mesh / fsdp_mesh need opt_state from "
-                            "init_opt_state(..., zero_mesh= / fsdp_mesh=) "
-                            "over the same group")
+        for group, kind in ((zero_mesh, ShardedOptimizer),
+                            (fsdp_mesh, FSDPOptimizer)):
+            if group is not None and not (isinstance(opt_state, kind)
+                                          and opt_state.group is group):
+                raise TypeError("zero_mesh / fsdp_mesh need opt_state from "
+                                "init_opt_state(..., zero_mesh= / "
+                                "fsdp_mesh=) over the same group")
         if tp_group is not None and not (
                 isinstance(vit, TPVisionTransformer)
                 and vit.rank == get_rank(tp_group)
@@ -379,16 +499,19 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
             raise TypeError("make_train_step(tp_group=...) trains this "
                             "rank's shard of the backbone: pass "
                             "parallel.tp.tp_shard_vit(vit, tp_group)")
-        materialize(opt_state)
+        fs = opt_state if isinstance(opt_state, FSDPOptimizer) else None
+        if fs is not None:  # a rank's slab, or every rank the whole batch
+            fs.book.sum_ranks = dp is not None
         params = optimizer_params(opt_state)
         with matmul_ctx(compute_dtype):
             opt_state.zero_grad(set_to_none=True)
             if accum_steps > 1 or dp is not None:
                 loss, cm, bn_collect = accumulated(vit, head, params,
-                                                   images_u8, labels, mask)
+                                                   images_u8, labels, mask,
+                                                   fs)
             else:
                 loss, cm, bn_collect = monolithic(vit, head, images_u8,
-                                                  labels, mask)
+                                                  labels, mask, fs)
             opt_state.step()
         if bn_collect:
             update_bn_stats(bn_collect)
@@ -400,16 +523,24 @@ def make_train_step(cfg: ViTConfig, head_type: str, n_classes: int,
 def make_eval_step(cfg: ViTConfig, head_type: str, n_classes: int,
                    compute_dtype: Optional[torch.dtype] = None,
                    backbone: str = "vit", moe_dispatch: str = "dense",
-                   moe_capacity: float = 1.25) -> Callable:
+                   moe_capacity: float = 1.25, fsdp=None) -> Callable:
     """``step(vit, head, images_u8, labels) -> cm``, no gradient (BatchNorm
-    in eval mode)."""
+    in eval mode).  ``fsdp`` (an ``FSDPOptimizer`` over the model's units)
+    gathers one unit at a time."""
     @torch.no_grad()
     def step(vit, head, images, labels):
         with matmul_ctx(compute_dtype):
-            logp = seg_forward(vit, head, cfg, head_type, images,
-                               compute_dtype=compute_dtype,
-                               backbone=backbone, moe_dispatch=moe_dispatch,
-                               moe_capacity=moe_capacity)
+            if fsdp is not None:
+                logp = seg_forward_units(fsdp, vit, head, cfg, head_type,
+                                         [images], compute_dtype,
+                                         moe_dispatch=moe_dispatch,
+                                         moe_capacity=moe_capacity)[0][0]
+            else:
+                logp = seg_forward(vit, head, cfg, head_type, images,
+                                   compute_dtype=compute_dtype,
+                                   backbone=backbone,
+                                   moe_dispatch=moe_dispatch,
+                                   moe_capacity=moe_capacity)
         return confusion_matrix(logp.argmax(dim=-1), labels.reshape(-1),
                                 n_classes)
     return step

@@ -700,22 +700,25 @@ cfg = json.loads(sys.argv[1])
 from dino_tpu_torch import DINOSeg
 from dino_tpu_torch.ops import attention as tatt
 from dino_tpu_torch.parallel import dist as pd
+from dino_tpu_torch.parallel.mesh import materialize
 from dino_tpu_torch.train import loop as tloop
 pd.init_distributed_mode("gloo", cfg["init"], cfg["world"], cfg["rank"])
 m = DINOSeg(head="mlp", n_blocks=1, n_classes=3, random_init=True, seed=1,
             freeze_backbone=False)
 vit, head, world = m.model.dino, m.model.clf, dist.group.WORLD
+mesh = {cfg.get("mode", "zero") + "_mesh": world}
 opt = tloop.make_optimizer("adam", 1e-4)
-state = tloop.init_opt_state(opt, vit, head, False, zero_mesh=world)
+state = tloop.init_opt_state(opt, vit, head, False, **mesh)
 step = tloop.make_train_step(m.cfg, "mlp", 3, opt, False,
-                             compute_dtype=torch.bfloat16, zero_mesh=world,
-                             dp_group=world)
+                             compute_dtype=torch.bfloat16, dp_group=world,
+                             **mesh)
 gen = torch.Generator().manual_seed(2)
 x = torch.randint(0, 255, (4, 64, 64, 3), generator=gen, dtype=torch.uint8)
 y = torch.randint(0, 3, (4, 64), generator=gen, dtype=torch.int32)
 rows = slice(2 * cfg["rank"], 2 * cfg["rank"] + 2)
 before = tatt.flash_attention_bwd.launches
 step(vit, head, state, x[rows].cuda(), y[rows].cuda())
+materialize(state)  # FSDP: the whole model, to digest
 h = hashlib.sha1()
 for p in m.model.parameters():
     h.update(p.detach().cpu().numpy().tobytes())
@@ -733,6 +736,19 @@ def test_two_ranks_sharing_the_card_hold_one_replica(cuda, tmp_path):
     from tests.test_torch_port_multiprocess import spawn_ranks
     outs = [json.load(open(o)) for o in spawn_ranks(tmp_path, 2, _DP_RANK,
                                                     {})]
+    assert outs[0]["digest"] == outs[1]["digest"]
+    assert all(o["bwd"] == 1 for o in outs)
+
+
+def test_two_fsdp_ranks_sharing_the_card_hold_one_replica(cuda, tmp_path):
+    """The same step under FSDP (one unit gathered at a time, each unit's
+    gradient reduced over gloo): one backward launch a rank (the recompute
+    is a forward), and the ranks' gathered parameters the same bits."""
+    import json
+
+    from tests.test_torch_port_multiprocess import spawn_ranks
+    outs = [json.load(open(o)) for o in spawn_ranks(tmp_path, 2, _DP_RANK,
+                                                    {"mode": "fsdp"})]
     assert outs[0]["digest"] == outs[1]["digest"]
     assert all(o["bwd"] == 1 for o in outs)
 

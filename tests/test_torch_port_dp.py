@@ -13,9 +13,13 @@ rank; neither imports jax nor dino_tpu) runs every scenario in turn:
     gates), every rank's parameters the same bits after every step, only
     rank 0 writing files, early stopping at the same epoch on both;
   * ZeRO-1 with DP's bits, and its resumed run with the uninterrupted
-    run's bits; FSDP within DP's bounds, each rank holding ceil(n/2)
-    elements per leaf of parameters, gradients and each moment between
-    steps;
+    run's bits; FSDP with DP's bits too (two ranks' sums are order-free),
+    its resumed run the uninterrupted one's, and with two microbatches
+    the accumulated DP run's bits and dino_tpu's gates; each FSDP rank
+    holding ceil(n/2) elements of each unit (a block, the embeddings with
+    the final norm, the head) of parameters, gradients and each moment
+    between steps, and inside a step at most two units' full parameters
+    and one unit's full gradient;
   * fit(parallelism='sp') and SP + ZeRO against dino_tpu's SP fit;
   * evaluate's confusion matrix equal to the world of one's, also with
     fewer samples than ranks; the agreement helpers; one data-parallel
@@ -122,7 +126,7 @@ from dino_tpu_torch.checkpointing.io import flatten_params
 from dino_tpu_torch.models.heads import init_head
 from dino_tpu_torch.models.resnet import build_backbone
 from dino_tpu_torch.parallel import dist as pd
-from dino_tpu_torch.parallel.mesh import ShardedOptimizer
+from dino_tpu_torch.parallel.mesh import FSDPOptimizer
 from dino_tpu_torch.train import loop as tloop
 assert not any(m in ("jax", "dino_tpu") or m.startswith(("jax.", "dino_tpu."))
                for m in sys.modules)
@@ -131,7 +135,7 @@ rank = cfg["rank"]
 inits = {k: {n[len(k) + 1:]: torch.from_numpy(v) for n, v in
              np.load(cfg["inputs"]).items() if n.startswith(k + "/")}
          for k in ("unfrozen", "frozen", "sp")}
-log = {"digests": [], "resident": [], "saves": []}
+log = {"digests": [], "resident": [], "saves": [], "book": [], "units": []}
 out, arrays = {}, {}
 
 
@@ -147,9 +151,14 @@ def instrument(make):
         step = make(*a, **k)
 
         def wrapped(vit, head, opt_state, *rest):
+            fsdp = isinstance(opt_state, FSDPOptimizer)
+            if fsdp:
+                opt_state.book.reset()
             got = step(vit, head, opt_state, *rest)
-            if isinstance(opt_state, ShardedOptimizer) and opt_state.fsdp:
+            if fsdp:
                 log["resident"].append(opt_state.resident_bytes())
+                log["book"].append(opt_state.book.as_dict())
+                log["units"] = [u.full_bytes for u in opt_state.units]
             else:
                 log["digests"].append(digest(vit, head))
             return got
@@ -197,6 +206,8 @@ scenario("zero", "unfrozen", dict(zero=True))
 scenario("zero_resumed", "unfrozen", dict(zero=True, resume=True), runs=2)
 scenario("fsdp", "unfrozen", dict(fsdp=True))
 scenario("fsdp_resumed", "unfrozen", dict(fsdp=True, resume=True), runs=2)
+scenario("dp_accum", "unfrozen", dict(accum_steps=2))
+scenario("fsdp_accum", "unfrozen", dict(fsdp=True, accum_steps=2))
 scenario("sp", "sp", dict(parallelism="sp"), dict(max_epochs=1))
 scenario("sp_zero", "sp", dict(parallelism="sp", zero=True),
          dict(max_epochs=1))
@@ -338,18 +349,20 @@ def test_zero_has_dp_bits_and_resumes_to_them(world):
 
 
 def test_fsdp_fit_within_dp_bounds_resumes_and_shard_bytes(world, jax_runs):
+    """FSDP at one microbatch: DP's bits (a sum of two ranks' gradients is
+    the same in any order), so dino_tpu's gates; the resumed run the
+    uninterrupted one's bits; between steps each rank holds ceil(n/2)
+    elements of each unit's n."""
     results, arrays, _ = world
     for r in range(WORLD):
         _close(arrays[r], jax_runs["unfrozen"]["final"], "fsdp/")
         for k in [k for k in arrays[r] if k.startswith("dp_unfrozen/")]:
-            np.testing.assert_allclose(arrays[r]["fsdp/" + k[12:]],
-                                       arrays[r][k], **PARAM_TOL)
+            np.testing.assert_array_equal(arrays[r]["fsdp/" + k[12:]],
+                                          arrays[r][k], err_msg=k)
         for k in [k for k in arrays[r] if k.startswith("fsdp/")]:
             np.testing.assert_array_equal(  # a resumed run re-shards
                 arrays[r]["fsdp_resumed/" + k[5:]], arrays[r][k])
-    vit, head = _unflatten(jax_runs["unfrozen"]["init"])
-    numels = [v.numel() for v in from_jax_params(vit, head).values()]
-    shard_bytes = sum(-(-n // WORLD) for n in numels) * 4
+    shard_bytes = sum(-(-n // WORLD) for n in _unit_numels(jax_runs)) * 4
     for r in range(WORLD):
         resident = results[r]["fsdp"]["resident"]
         assert len(resident) == 2 * -(-SAMPLES // BATCH)
@@ -357,6 +370,54 @@ def test_fsdp_fit_within_dp_bounds_resumes_and_shard_bytes(world, jax_runs):
             assert got["params"] == shard_bytes
             assert got["grads"] <= shard_bytes
             assert got["moments"] <= 2 * shard_bytes  # Adam's two moments
+
+
+def _unit_numels(jax_runs):
+    """Elements of each FSDP unit of the 1-block model: the embeddings with
+    the final norm, the block, the head."""
+    vit, head = _unflatten(jax_runs["unfrozen"]["init"])
+    units = {}
+    for k, v in from_jax_params(vit, head).items():
+        unit = ("head" if k.startswith("clf.") else
+                k.split(".")[2] if k.startswith("dino.blocks.") else "root")
+        units[unit] = units.get(unit, 0) + v.numel()
+    return list(units.values())
+
+
+def test_fsdp_accum_fit_matches_dino_tpu(world, jax_runs):
+    """Two microbatches a rank: each unit's backward adds them up in the
+    microbatch loop's order and reduces once, so DP's accumulated run's
+    bits, and dino_tpu's gates."""
+    results, arrays, _ = world
+    for r in range(WORLD):
+        _close(arrays[r], jax_runs["unfrozen"]["final"], "fsdp_accum/")
+        np.testing.assert_allclose(results[r]["fsdp_accum"]["test_acc"],
+                                   jax_runs["unfrozen"]["test_acc"],
+                                   atol=ACC_ATOL)
+        for k in [k for k in arrays[r] if k.startswith("dp_accum/")]:
+            np.testing.assert_array_equal(
+                arrays[r]["fsdp_accum/" + k[len("dp_accum/"):]],
+                arrays[r][k], err_msg=k)
+    d0, d1 = (results[r]["fsdp_accum"]["resident"] for r in range(WORLD))
+    assert len(d0) == len(d1) == 2 * -(-SAMPLES // BATCH)
+
+
+@pytest.mark.parametrize("name", ["fsdp", "fsdp_resumed", "fsdp_accum"])
+def test_fsdp_gathers_at_most_two_units_and_one_gradient(world, jax_runs,
+                                                         name):
+    """Inside each step the full parameters gathered at once are at most
+    the two largest units' (one unit and one prefetched) and at most one
+    unit's full gradient is alive."""
+    results, _, _ = world
+    full = sorted(WORLD * -(-n // WORLD) * 4 for n in _unit_numels(jax_runs))
+    for r in range(WORLD):
+        res = results[r][name]
+        assert sorted(res["units"]) == full
+        assert res["book"]
+        for book in res["book"]:
+            assert 0 < book["peak_gathered_bytes"] <= full[-1] + full[-2]
+            assert 0 < book["peak_grad_bytes"] <= full[-1]
+            assert book["reduces"] > 0
 
 
 @pytest.mark.parametrize("name", ["sp", "sp_zero"])

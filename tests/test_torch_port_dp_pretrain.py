@@ -6,7 +6,7 @@ the CPU.
 and local 16 px, batch 4, one epoch: the arguments of
 tests/test_multihost.py:108-123.  Crop randomness is keyed by (seed,
 epoch, image index), so every rank's slab holds the single process's
-pixels.  With and without ``--fsdp``:
+pixels.  With and without ``--fsdp`` (and with it at two microbatches):
 
 * the teacher backbones agree with dino_tpu's by its own gate (every leaf
   rtol 1e-4, atol 1e-5, tests/test_multihost.py:150-155);
@@ -19,7 +19,9 @@ pixels.  With and without ``--fsdp``:
   most PARAM_FLIP_SHARE of them by more than PARAM_LR_SHARE lr, while more
   than half of dino_tpu's entries moved further than that from the
   initial student;
-* the two ranks end with the same bits.
+* the two ranks end with the same bits;
+* under FSDP a rank gathers at most two units' full parameters at once
+  and holds at most one unit's full gradient.
 
 The ranks start from dino_tpu's initial student (``init_dino_params``
 swapped for one that loads it), as the two packages draw weights
@@ -148,6 +150,19 @@ def init_from_jax(generator, vit_cfg, dino_cfg, depth=None, device=None):
 dino_pretrain.init_dino_params = init_from_jax
 
 
+books = {}
+real_shard = dino_pretrain.shard_dino_state
+
+
+def shard_and_log(*a, **k):
+    opt = real_shard(*a, **k)
+    books[len(books)] = opt
+    return opt
+
+
+dino_pretrain.shard_dino_state = shard_and_log
+
+
 def digest(model):
     h = hashlib.sha1()
     for k, v in sorted(model.state_dict().items()):
@@ -156,11 +171,16 @@ def digest(model):
 
 
 def run(name, *extra):
+    books.clear()
     path = main(["--data_path", cfg["images"], "--write_path",
                  cfg["tmp"] + "/" + name, "--device", "cpu"] + cfg["args"]
                 + list(extra))
     # the end of a run leaves both models whole on every rank
     out["digests"][name] = [digest(m) for m in models]
+    if books:
+        opt = books[0]
+        out.setdefault("books", {})[name] = dict(
+            opt.book.as_dict(), units=[u.full_bytes for u in opt.units])
     return path
 
 
@@ -168,6 +188,7 @@ def run(name, *extra):
 for m, extra in (("", []), ("_m0", cfg["momentum_0"])):
     run("dp" + m, *extra)
     run("fsdp" + m, "--fsdp", *extra)
+run("fsdp_accum", "--fsdp", "--accum_steps", "2")
 try:
     run("bad_batch", "--batch_size", "3")
     out["bad_batch"] = None
@@ -209,7 +230,7 @@ def world(images, tmp_path_factory):
     return str(tmp), [json.load(open(o)) for o in outs], start
 
 
-@pytest.mark.parametrize("name", ["dp", "fsdp"])
+@pytest.mark.parametrize("name", ["dp", "fsdp", "fsdp_accum"])
 def test_pretrain_cli_over_ranks_matches_dino_tpu(world, jax_runs, name):
     tmp, results, _ = world
     got = _backbone(os.path.join(tmp, name))
@@ -234,6 +255,24 @@ def test_pretrain_cli_over_ranks_updates_as_dino_tpu(world, jax_runs, name):
     _assert_adam_close(_backbone(os.path.join(tmp, name)), want_backbone)
     # the ranks' students and teachers: the same bits
     assert results[0]["digests"][name] == results[1]["digests"][name]
+
+
+@pytest.mark.parametrize("name", ["fsdp", "fsdp_m0", "fsdp_accum"])
+def test_pretrain_fsdp_gathers_at_most_two_units_and_one_gradient(world,
+                                                                  name):
+    """Over the CLI run, the full parameters gathered at once are at most
+    the two largest units' and at most one unit's full gradient is alive;
+    every unit reduced its gradient once a step and use."""
+    _, results, _ = world
+    for r in range(2):
+        book = results[r]["books"][name]
+        full = sorted(book["units"])
+        assert len(full) == 4  # root, 1 block, the head's MLP, last layer
+        assert 0 < book["peak_gathered_bytes"] <= full[-1] + full[-2]
+        assert 0 < book["peak_grad_bytes"] <= full[-1]
+        # two steps; a step reduces the root twice (its two uses), every
+        # other unit once, whatever the microbatches
+        assert book["reduces"] == 2 * 5
 
 
 def test_pretrain_batch_must_divide_the_world(world):
