@@ -1,0 +1,7 @@
+"""The fused LayerNorm + MLP kernel's share of its roofline in the
+segmentation cells (each launch over all B x N rows of a block)."""
+from benchmark.harness.roofline import roofline_share
+
+
+def read(r):
+    return roofline_share(r, "fused_ln_mlp")

@@ -1,0 +1,15 @@
+"""The segmentation model's share of the card's bf16 peak over the
+measured window, in %: the forward's matmul FLOPs a frame at the cell's
+resolution (``costs/vit_forward.py``) x frames of the window / the
+window's seconds / the peak."""
+from benchmark.harness.peaks import peak
+
+
+def read(r):
+    fl = peak(r.device_kind, "bf16_flops")
+    frames = r.window.work.get("frames")
+    if not fl or not frames:
+        return None
+    per_frame = r.bench.costs("vit_forward").seg_frame_flops(
+        r.cell.config, r.cell.traffic["resolution"])
+    return 100.0 * per_frame * frames / r.window.seconds / fl
