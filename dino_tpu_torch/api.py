@@ -120,6 +120,7 @@ from dino_tpu_torch.train.metrics import (per_class_metrics_from_cm,
                                           segmentation_metrics)
 from dino_tpu_torch.utils.device import on_device, resolve_device
 from dino_tpu_torch.utils.logging import hbm_stats
+from dino_tpu_torch.utils.profiling import annotate
 from dino_tpu_torch.utils.weights import watch_optimizer_steps, weights_key
 
 _HPARAM_KEYS = ("data_path", "write_path", "class_names", "head", "n_blocks",
@@ -236,9 +237,11 @@ def collect_labels(pending) -> np.ndarray:
     """Wait for the events of a (host labels, events) pair whose label maps
     are being copied into the host tensor, then -> int32 (B, H, W)."""
     host, events = pending
-    for done in events:
-        done.synchronize()
-    return host.numpy().astype(np.int32)
+    with annotate("stream.wait"):
+        for done in events:
+            done.synchronize()
+    with annotate("stream.labels"):
+        return host.numpy().astype(np.int32)
 
 
 def label_maps(log_probs: torch.Tensor, resolution: int,
@@ -597,7 +600,9 @@ class DINOSeg:
         batch's labels, so stacking batch k+1 overlaps the card's work on
         batch k.  A ragged tail is padded by repeating its last frame and
         cut on yield, so the stream runs one batch shape.  The options are
-        checked here, before the first frame is read.
+        checked here, before the first frame is read.  Under a profiler
+        the staging, enqueue, wait and conversion are spans (``stream.*``,
+        ``utils/profiling.py``), none open across a yield.
         """
         self._check_parallelism(parallelism, precision)
         self._compute_dtype_for(precision)
@@ -614,22 +619,25 @@ class DINOSeg:
         def submit(k, n_valid):
             """Pad batch k's buffer past ``n_valid`` frames and enqueue
             it; returns ((label buffer, its events), n_valid)."""
-            buf = staged[k % 2]
-            buf[n_valid:] = buf[n_valid - 1]
-            if devices is not None:
-                return self._launch_split(buf, devices, precision), n_valid
-            out = self.predict_device(buf.to(self.device, non_blocking=True),
-                                      precision, parallelism)
-            if labels[k % 2] is None or labels[k % 2].shape != out.shape:
-                labels[k % 2] = torch.empty(out.shape, dtype=out.dtype,
-                                            pin_memory=cuda)
-            host = labels[k % 2]
-            host.copy_(out, non_blocking=True)
-            events = []
-            if cuda:
-                events.append(torch.cuda.Event())
-                events[-1].record()
-            return (host, events), n_valid
+            with annotate("stream.submit"):
+                buf = staged[k % 2]
+                buf[n_valid:] = buf[n_valid - 1]
+                if devices is not None:
+                    return (self._launch_split(buf, devices, precision),
+                            n_valid)
+                out = self.predict_device(
+                    buf.to(self.device, non_blocking=True), precision,
+                    parallelism)
+                if labels[k % 2] is None or labels[k % 2].shape != out.shape:
+                    labels[k % 2] = torch.empty(out.shape, dtype=out.dtype,
+                                                pin_memory=cuda)
+                host = labels[k % 2]
+                host.copy_(out, non_blocking=True)
+                events = []
+                if cuda:
+                    events.append(torch.cuda.Event())
+                    events[-1].record()
+                return (host, events), n_valid
 
         def read(pending):
             labels_events, n_valid = pending
@@ -637,16 +645,18 @@ class DINOSeg:
 
         pending, k, n = None, 0, 0
         for frame in frames:
-            img = torch.from_numpy(self._as_uint8(frame))
-            buf = staged[k % 2]
-            if buf is None or buf.shape[1:] != img.shape:
-                if n:
-                    raise ValueError(f"frame of shape {tuple(img.shape)} in "
-                                     f"a batch of {tuple(buf.shape[1:])}")
-                buf = staged[k % 2] = torch.empty(
-                    (batch_size,) + tuple(img.shape), dtype=torch.uint8,
-                    pin_memory=cuda)
-            buf[n] = img
+            with annotate("stream.stage"):
+                img = torch.from_numpy(self._as_uint8(frame))
+                buf = staged[k % 2]
+                if buf is None or buf.shape[1:] != img.shape:
+                    if n:
+                        raise ValueError(
+                            f"frame of shape {tuple(img.shape)} in a batch "
+                            f"of {tuple(buf.shape[1:])}")
+                    buf = staged[k % 2] = torch.empty(
+                        (batch_size,) + tuple(img.shape), dtype=torch.uint8,
+                        pin_memory=cuda)
+                buf[n] = img
             n += 1
             if n == batch_size:
                 fut = submit(k, n)

@@ -69,6 +69,7 @@ from dino_tpu_torch.models.resnet import OUTPUT_DIM, ResNetBackbone
 from dino_tpu_torch.ops.quant import QuantLinear, quantize_vit
 from dino_tpu_torch.models.vit import ViTConfig, VisionTransformer
 from dino_tpu_torch.utils.device import on_device, resolve_device
+from dino_tpu_torch.utils.profiling import annotate
 from dino_tpu_torch.utils.weights import watch_optimizer_steps, weights_key
 
 MAGIC = "dino_tpu_torch_serving_v1"
@@ -109,7 +110,8 @@ class PredictProgram:
     """The predict path for one input shape, precision and resolution over
     ``model``'s weights: ``program(frames)`` takes uint8 (B, H, W, 3) and
     returns (B, 480, 480) int32 label maps (the kron factor floors).
-    Calls are serialized by the program's own lock."""
+    Calls are serialized by the program's own lock.  Under a profiler a
+    call's phases are spans (``serve.*``, ``utils/profiling.py``)."""
 
     def __init__(self, model: SegModel, cfg: ViTConfig, head: str,
                  n_classes: int, batch_size: int, in_shape: Sequence[int],
@@ -148,13 +150,14 @@ class PredictProgram:
         return weights_key(self.masters) != self._key
 
     def _build(self) -> None:
-        self._graph = self._static_out = self._weights = None
-        key = weights_key(self.masters)
-        self._weights = serving_copy(self.masters, self.precision)
-        if self.device.type == "cuda":
-            self._capture()
-        self._key = key
-        self.builds += 1
+        with annotate("serve.build"):
+            self._graph = self._static_out = self._weights = None
+            key = weights_key(self.masters)
+            self._weights = serving_copy(self.masters, self.precision)
+            if self.device.type == "cuda":
+                self._capture()
+            self._key = key
+            self.builds += 1
 
     @torch.no_grad()
     def _capture(self) -> None:
@@ -185,29 +188,37 @@ class PredictProgram:
     def _enqueue(self, imgs: np.ndarray) -> None:
         """Under ``_lock``: start the call on ``imgs`` (copy in, replay,
         copy out, not waited on); on the CPU, run it."""
-        if self.stale():
+        with annotate("serve.key"):
+            stale = self.stale()
+        if stale:
             self._build()
         if self._graph is None:
-            with torch.no_grad():
+            with annotate("serve.launch"), torch.no_grad():
                 self._host_out = self._forward(torch.from_numpy(imgs))
             return
         with torch.cuda.device(self.device):
-            self._host_in.numpy()[...] = imgs
-            self._static_in.copy_(self._host_in, non_blocking=True)
-            self._graph.replay()
-            self._host_out.copy_(self._static_out, non_blocking=True)
+            with annotate("serve.stage"):
+                self._host_in.numpy()[...] = imgs
+            with annotate("serve.launch"):
+                self._static_in.copy_(self._host_in, non_blocking=True)
+                self._graph.replay()
+                self._host_out.copy_(self._static_out, non_blocking=True)
 
     def _result(self) -> np.ndarray:
         """Under ``_lock``: wait for :meth:`_enqueue`'s call, its labels."""
         if self._graph is not None:
-            torch.cuda.current_stream(self.device).synchronize()
-        return self._host_out.numpy().astype(np.int32)
+            with annotate("serve.wait"):
+                torch.cuda.current_stream(self.device).synchronize()
+        with annotate("serve.labels"):
+            return self._host_out.numpy().astype(np.int32)
 
     def __call__(self, frames) -> np.ndarray:
-        imgs = as_frames(frames, self.input_shape, "expected input")
-        with self._lock:
-            self._enqueue(imgs)
-            return self._result()
+        with annotate("serve.call"):
+            with annotate("serve.check"):
+                imgs = as_frames(frames, self.input_shape, "expected input")
+            with self._lock:
+                self._enqueue(imgs)
+                return self._result()
 
 
 def as_frames(frames, shape, what: str) -> np.ndarray:

@@ -75,6 +75,7 @@ from dino_tpu_torch.parallel.mesh import (FSDPOptimizer, gradient_norms,
 from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.train.optim import clip_gradients, get_params_groups
 from dino_tpu_torch.utils.device import resolve_device
+from dino_tpu_torch.utils.profiling import annotate
 from dino_tpu_torch.utils.schedules import cosine_scheduler
 
 
@@ -303,7 +304,10 @@ def make_dino_train_step(vit_cfg: ViTConfig, dino_cfg: DinoConfig,
     teacher's batch mean are averaged over the group.  ``fsdp_mesh``:
     ``opt_state`` is :func:`shard_dino_state`'s over that group (and
     ``dp_group``, if given, is the same group); the clipped gradients are
-    then left in the units' shard gradients."""
+    then left in the units' shard gradients.
+
+    Under a profiler the step and its phases are spans timed on the card
+    (``pretrain.*``, ``utils/profiling.py``)."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     n_crops = 2 + dino_cfg.n_local_crops
@@ -324,6 +328,17 @@ def make_dino_train_step(vit_cfg: ViTConfig, dino_cfg: DinoConfig,
 
     def step(student, teacher, center, opt_state, g_crops, l_crops,
              teacher_temp, ema_momentum, freeze_last):
+        on_card = g_crops.is_cuda
+        with annotate("pretrain.step", device=on_card):
+            return run(student, teacher, center, opt_state, g_crops,
+                       l_crops, teacher_temp, ema_momentum, freeze_last,
+                       on_card)
+
+    def run(student, teacher, center, opt_state, g_crops, l_crops,
+            teacher_temp, ema_momentum, freeze_last, on_card):
+        def span(name):
+            return annotate(name, device=on_card)
+
         b = g_crops.shape[1]
         if b % accum_steps:
             raise ValueError(
@@ -353,67 +368,81 @@ def make_dino_train_step(vit_cfg: ViTConfig, dino_cfg: DinoConfig,
             mbs = microbatches(g_crops, l_crops, k, mb)
             if fs is None:
                 for s_crops, t_crops in mbs:
-                    s_out = dino_forward(student, s_crops, vit_cfg,
-                                         compute_dtype)
-                    with torch.no_grad():
+                    with span("pretrain.student"):
+                        s_out = dino_forward(student, s_crops, vit_cfg,
+                                             compute_dtype)
+                    with span("pretrain.teacher"), torch.no_grad():
                         t_out = dino_forward(teacher, t_crops, vit_cfg,
                                              compute_dtype)
-                    loss = loss_of(s_out, t_out, center, teacher_temp)
-                    loss.backward()
-                    loss_sum = loss_sum + loss.detach()
-                    t_sum = t_sum + t_out.float().mean(dim=0)
+                    with span("pretrain.loss"):
+                        loss = loss_of(s_out, t_out, center, teacher_temp)
+                        loss_sum = loss_sum + loss.detach()
+                        t_sum = t_sum + t_out.float().mean(dim=0)
+                    with span("pretrain.backward"):
+                        loss.backward()
             else:  # every microbatch through one unit at a time
-                s_outs = dino_forward_units(student, [c for c, _ in mbs],
-                                            vit_cfg, fs, compute_dtype)
-                with torch.no_grad():
-                    t_outs = dino_forward_units(teacher, [c for _, c in mbs],
-                                                vit_cfg, fs, compute_dtype)
-                total = 0
-                for s_out, t_out in zip(s_outs, t_outs):
-                    loss = loss_of(s_out, t_out, center, teacher_temp)
-                    total = total + loss
-                    loss_sum = loss_sum + loss.detach()
-                    t_sum = t_sum + t_out.float().mean(dim=0)
-                total.backward()
-            t_mean = t_sum / k
-            loss = loss_sum / k
-            last = student.head.last_layer
-            if fs is None:
-                for p in params:
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-                grads = [p.grad for p in params]
-                if k > 1:
-                    torch._foreach_div_(grads, float(k))
-                if dp is not None:  # the global batch: the slabs' mean
-                    n = float(get_world_size(dp))
-                    all_reduce_sum_(grads + [t_mean, loss], dp)
-                    torch._foreach_div_(grads, n)
-                    t_mean, loss = t_mean / n, loss / n
-                norms, last_grads = None, [last.v.grad, last.g.grad]
-            else:  # the units' backwards summed the slabs' gradients
-                grads = fs.shard_grads()
-                unit_grads = fs.unit_grads()
-                if k > 1:
-                    torch._foreach_div_(unit_grads, float(k))
-                if dp is not None:
-                    n = float(get_world_size(dp))
-                    all_reduce_sum_([t_mean, loss], dp)
-                    torch._foreach_div_(unit_grads, n)
-                    t_mean, loss = t_mean / n, loss / n
-                # the clip and the update run on the shards
-                norms = gradient_norms(grads, fs.group)
-                last_grads = [fs.piece_of(p).grad for p in (last.v, last.g)]
-            clip_gradients(grads, clip, norms)
-            torch._foreach_mul_(last_grads, 1.0 - float(freeze_last))
-            opt_state.step()
-        if fs is not None:
-            _ema_shards(fs, ema_momentum)
-        else:
-            ema_update(teacher, student, ema_momentum)
-        with torch.no_grad():
-            center.copy_(center_ema(center, t_mean[None],
-                                    dino_cfg.center_momentum))
+                with span("pretrain.student"):
+                    s_outs = dino_forward_units(
+                        student, [c for c, _ in mbs], vit_cfg, fs,
+                        compute_dtype)
+                with span("pretrain.teacher"), torch.no_grad():
+                    t_outs = dino_forward_units(
+                        teacher, [c for _, c in mbs], vit_cfg, fs,
+                        compute_dtype)
+                with span("pretrain.loss"):
+                    total = 0
+                    for s_out, t_out in zip(s_outs, t_outs):
+                        loss = loss_of(s_out, t_out, center, teacher_temp)
+                        total = total + loss
+                        loss_sum = loss_sum + loss.detach()
+                        t_sum = t_sum + t_out.float().mean(dim=0)
+                with span("pretrain.backward"):
+                    total.backward()
+            with span("pretrain.update"):
+                t_mean = t_sum / k
+                loss = loss_sum / k
+                last = student.head.last_layer
+                if fs is None:
+                    for p in params:
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                    grads = [p.grad for p in params]
+                    if k > 1:
+                        torch._foreach_div_(grads, float(k))
+                    if dp is not None:  # the global batch: the slabs' mean
+                        n = float(get_world_size(dp))
+                        all_reduce_sum_(grads + [t_mean, loss], dp)
+                        torch._foreach_div_(grads, n)
+                        t_mean, loss = t_mean / n, loss / n
+                    norms, last_grads = None, [last.v.grad, last.g.grad]
+                else:  # the units' backwards summed the slabs' gradients
+                    grads = fs.shard_grads()
+                    unit_grads = fs.unit_grads()
+                    if k > 1:
+                        torch._foreach_div_(unit_grads, float(k))
+                    if dp is not None:
+                        n = float(get_world_size(dp))
+                        all_reduce_sum_([t_mean, loss], dp)
+                        torch._foreach_div_(unit_grads, n)
+                        t_mean, loss = t_mean / n, loss / n
+                    # the clip and the update run on the shards
+                    norms = gradient_norms(grads, fs.group)
+                    last_grads = [fs.piece_of(p).grad
+                                  for p in (last.v, last.g)]
+                with span("pretrain.clip"):
+                    clip_gradients(grads, clip, norms)
+                    torch._foreach_mul_(last_grads, 1.0 - float(freeze_last))
+                with span("pretrain.adamw"):
+                    opt_state.step()
+                # elementwise: no product for matmul_ctx to change
+                with span("pretrain.ema"):
+                    if fs is not None:
+                        _ema_shards(fs, ema_momentum)
+                    else:
+                        ema_update(teacher, student, ema_momentum)
+                with span("pretrain.center"), torch.no_grad():
+                    center.copy_(center_ema(center, t_mean[None],
+                                            dino_cfg.center_momentum))
         return loss
 
     return step

@@ -1,23 +1,46 @@
-"""Profiling: a device trace, named regions and a step timer.
+"""Profiling: a device trace, named spans and a step timer.
 
 The counterpart of ``dino_tpu/utils/profiling.py`` on ``torch.profiler``:
 ``device_trace`` records the CPU's and, with a card, the card's activity
 and writes a Chrome trace (Perfetto and ``chrome://tracing`` open it);
-``annotate`` names a region on that timeline and, on the card, as an NVTX
-range; ``StepTimer`` waits for the card before it reads the clock.
-``hbm_stats`` is ``utils/logging.py``'s.
+``StepTimer`` waits for the card before it reads the clock.  ``hbm_stats``
+is ``utils/logging.py``'s.
+
+``annotate(name)`` is the port's span.  The serving program
+(``serve.*``), ``predict_stream`` (``stream.*``) and the pretrain step
+(``pretrain.*``) open spans where their work happens.  A span is on
+exactly while a ``torch.profiler`` records on the calling thread (the
+profiler's flag is the thread's), so an operator turns them on by running
+the code under ``device_trace`` (or any profiler):
+
+    reset_spans()
+    with device_trace("runs/trace"):
+        for frame in frames:
+            program(frame[None])
+    span_totals()["serve.call"]  # {"count", "host_s", "device_s": None}
+
+On, a span is a record function of its name (an event on the trace's
+timeline, the profiler's clock, beside the card's kernels and copies)
+and, on the card, an NVTX range; its host seconds and a count are added
+to a process-wide registry, which ``span_totals()`` reads and
+``reset_spans()`` clears.  ``annotate(name, device=True)`` also records a
+CUDA event on the current stream at entry and at exit, resolved into
+device seconds when the totals are read.  Off, a span checks the
+profiler's flag once and returns a shared no-op context: no clock read,
+no allocation.  No span stays open across a ``yield``.
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import tempfile
+import threading
 import time
-from typing import Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from dino_tpu_torch.utils.logging import hbm_stats  # noqa: F401 (re-export)
 
@@ -53,19 +76,106 @@ def device_trace(logdir: Optional[str] = None,
         logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named region on the trace's timeline (``record_function``) and, on
-    the card, an NVTX range of the same name."""
-    cuda = torch.cuda.is_available()
-    with record_function(name):
-        if cuda:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if cuda:
-                torch.cuda.nvtx.range_pop()
+class _Total:
+    """One name's totals: closed spans, host seconds, device seconds and
+    the (start, end) CUDA events not yet resolved into them."""
+    __slots__ = ("count", "host_s", "device_s", "pending")
+
+    def __init__(self):
+        self.count, self.host_s = 0, 0.0
+        self.device_s: Optional[float] = None
+        self.pending: list = []
+
+
+_LOCK = threading.Lock()
+_TOTALS: Dict[str, _Total] = {}
+_OFF = contextlib.nullcontext()
+_profiler_enabled = torch.autograd._profiler_enabled
+# record_function's C++ core: the same named event on the trace (as a
+# ``cpu_op``, not a ``user_annotation``) at a tenth of record_function's
+# host time under a profiler
+_record_function = torch._C._profiler._RecordFunctionFast
+
+
+class _Span:
+    """An open span while a profiler records (see :func:`annotate`)."""
+    __slots__ = ("name", "device", "nvtx", "region", "events", "t0")
+
+    def __init__(self, name: str, device: bool):
+        self.name = name
+        self.nvtx = torch.cuda.is_initialized()
+        self.device = device and self.nvtx
+
+    def __enter__(self):
+        self.region = _record_function(self.name)
+        self.region.__enter__()
+        if self.nvtx:
+            torch.cuda.nvtx.range_push(self.name)
+        if self.device:
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        host_s = time.perf_counter() - self.t0
+        if self.device:
+            self.events[1].record()
+        if self.nvtx:
+            torch.cuda.nvtx.range_pop()
+        self.region.__exit__(*exc)
+        with _LOCK:
+            total = _TOTALS.get(self.name)
+            if total is None:
+                total = _TOTALS[self.name] = _Total()
+            total.count += 1
+            total.host_s += host_s
+            if self.device:
+                total.pending.append(self.events)
+        return False
+
+
+def annotate(name: str, device: bool = False):
+    """A span named ``name``: ``with annotate("serve.stage"): ...``.
+
+    While a ``torch.profiler`` records, a record function of ``name`` (an
+    event on the trace's timeline) and, once CUDA is in use, an NVTX range
+    of the same name; its host seconds and a count go to :func:`span_totals`.
+    ``device=True`` (CUDA in use) also times the span on the current
+    stream with two CUDA events.  While none records, a shared no-op
+    context."""
+    if not _profiler_enabled():
+        return _OFF
+    return _Span(name, device)
+
+
+def span_totals() -> Dict[str, dict]:
+    """``{name: {"count", "host_s", "device_s"}}`` of the spans closed since
+    :func:`reset_spans` (or the process's start); ``device_s`` is None for
+    a name never timed on the card.  Waits for the card's pending events."""
+    with _LOCK:
+        pending = [(total, total.pending) for total in _TOTALS.values()
+                   if total.pending]
+        for total, _ in pending:
+            total.pending = []
+    for total, events in pending:
+        device_s = 0.0
+        for start, end in events:
+            end.synchronize()
+            device_s += start.elapsed_time(end) * 1e-3
+        with _LOCK:
+            total.device_s = (total.device_s or 0.0) + device_s
+    with _LOCK:
+        return {name: {"count": t.count, "host_s": t.host_s,
+                       "device_s": t.device_s}
+                for name, t in _TOTALS.items()}
+
+
+def reset_spans() -> None:
+    """Clear :func:`span_totals`."""
+    with _LOCK:
+        _TOTALS.clear()
 
 
 def _cuda_devices(result) -> set:

@@ -976,3 +976,79 @@ def test_artifact_over_two_cards(cuda, tmp_path, parallelism):
         rec, _ = chip_smoke.sp_check(model, served.replicas, frames, "fp32",
                                   "test")
         assert rec["patches_differing_away_from_near_ties"] == 0
+
+
+def test_serve_spans_on_card_hold_the_graph(cuda, tmp_path):
+    """The serving program's spans under device_trace: the same maps as
+    untraced, and the replayed graph's kernels start inside
+    ``serve.launch``'s span or after it on the trace's timeline."""
+    import glob
+    import json
+    from dino_tpu_torch.serving import predict_program
+    from dino_tpu_torch.utils.profiling import device_trace, reset_spans
+    model = _cards_model("bf16")
+    frames = _serve_frames(1, 20)
+    program = predict_program(model, 1, (240, 320))
+    off = program(frames)
+    reset_spans()
+    with device_trace(str(tmp_path)):
+        on = program(frames)
+    reset_spans()
+    np.testing.assert_array_equal(on, off)
+    (path,) = glob.glob(str(tmp_path / "*.json"))
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X"]
+    spans = {e["name"]: e for e in events
+             if e.get("cat") == "cpu_op" and e["name"].startswith("serve.")}
+    assert {"serve.call", "serve.key", "serve.stage", "serve.launch",
+            "serve.wait", "serve.labels"} <= set(spans), sorted(spans)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert any("flash_fwd_bf16" in e["name"] for e in kernels)
+    launch = float(spans["serve.launch"]["ts"])
+    assert all(float(e["ts"]) >= launch for e in kernels)
+
+
+def test_pretrain_spans_on_card_time_the_phases(cuda, tmp_path):
+    """One bf16 pretrain step at a small size under device_trace: the same
+    loss, models and centre as untraced; the tail's device time is
+    positive and the top-level phases' device times sum to no more than
+    the step's."""
+    from dino_tpu_torch.train import dino_pretrain as tdp
+    from dino_tpu_torch.utils.profiling import (device_trace, reset_spans,
+                                                span_totals)
+    vit = ViTConfig(patch_size=8)  # the fused MLP takes ViT-S's width
+    cfg = tdp.DinoConfig(out_dim=32, n_local_crops=2, global_size=32,
+                         local_size=16, hidden_dim=64, bottleneck_dim=16)
+    rs = np.random.RandomState(0)
+    g = torch.from_numpy(rs.randint(0, 255, (2, 4, 32, 32, 3), np.uint8))
+    loc = torch.from_numpy(rs.randint(0, 255, (2, 4, 16, 16, 3), np.uint8))
+    g, loc = g.to(cuda), loc.to(cuda)
+    runs = []
+    for traced in (False, True):
+        student, teacher = tdp.init_dino_params(
+            torch.Generator().manual_seed(0), vit, cfg, depth=2,
+            device=cuda)
+        opt = tdp.make_dino_optimizer(student)
+        center = torch.zeros(1, cfg.out_dim, device=cuda)
+        step = tdp.make_dino_train_step(vit, cfg, torch.bfloat16)
+        reset_spans()
+        if traced:
+            with device_trace(str(tmp_path)):
+                loss = step(student, teacher, center, opt, g, loc, 0.04,
+                            0.996, 0.0)
+        else:
+            loss = step(student, teacher, center, opt, g, loc, 0.04, 0.996,
+                        0.0)
+        runs.append((loss, student.state_dict(), teacher.state_dict(),
+                     center))
+    totals = span_totals()
+    reset_spans()
+    (l0, s0, t0, c0), (l1, s1, t1, c1) = runs
+    assert torch.equal(l0, l1) and torch.equal(c0, c1)
+    for a, b in ((s0, s1), (t0, t1)):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert totals["pretrain.update"]["device_s"] > 0
+    phases = sum(totals[f"pretrain.{n}"]["device_s"] for n in
+                 ("student", "teacher", "loss", "backward", "update"))
+    assert 0 < phases <= totals["pretrain.step"]["device_s"]
