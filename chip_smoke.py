@@ -11,7 +11,8 @@ each printing JSON lines:
   2. build: nvcc builds the kernels of dino_tpu_torch/csrc at first use;
      ptxas's registers and spills per kernel, failing on a spill (or
      ptxas's C7512, wgmma serialized for want of registers) in the bf16
-     forward, the fused MLP or either backward kernel;
+     forward, the fused MLP, either backward kernel or the bias-GELU
+     pass;
   3. kernels vs their plain PyTorch versions on the card, at the main
      path's shapes, each against its stated tolerance; every kernel run
      twice and held to the same bits; the bf16 forward at query counts
@@ -26,7 +27,8 @@ each printing JSON lines:
      at 480px (batch 16, 8 microbatches, 3 steps), frozen bf16 (1 step) and
      unfrozen fp32 at 240px (batch 2, 1 step), with the launch counts read
      around every step; the fp32 step is repeated on the CPU from the same
-     weights and batch and its loss and gradients compared;
+     weights and batch, with the card's head ReLU choices, and its loss
+     and gradients compared;
   6. sequence parallelism (ring attention): the dynamic-bound kernels vs
      their plain versions at the per-hop shapes of a 960px ring over 1, 2
      and 4 ranks (sp_kernels); SP predict_batch at 960px in a world of one
@@ -103,7 +105,11 @@ each printing JSON lines:
      and backward (kernels 1 and 3), f32 and bf16, at the pretrain step's
      shapes (B*nh, N) = (768, 145) and (192, 785) against their plain
      versions, the same bits twice, timed as CUDA-graph replays beside
-     SDPA, with the bound; (b) one f32 step at depth 2, batch 2 (ViT-S/8,
+     SDPA, with the bound, and fc1's bias-GELU pass each way at the
+     benchmark's bf16 step's rows (100,480 and 74,240 x 1,536) against
+     the composition (one bf16 step apart at most, db1 within 1e-5 of
+     each column's sum of |du|, the same bits twice), timed beside the
+     composition's eager passes, with the byte bound; (b) one f32 step at depth 2, batch 2 (ViT-S/8,
      DinoConfig's widths) on the card against the port's CPU step from the
      same weights and crops: loss, clipped gradients, post-step student,
      teacher and centre; (c) the full-width step (ViT-S/8, 12 blocks,
@@ -258,6 +264,7 @@ from dino_tpu_torch.ops.attention import (attention_bwd_dyn_plain,
                                           flash_attention, flash_attention_bwd,
                                           flash_attention_bwd_dyn,
                                           flash_attention_with_lse_dyn)
+from dino_tpu_torch.ops import bias_gelu as tbg
 from dino_tpu_torch.ops.device_augment import MAX_BLUR, device_augment_batch
 from dino_tpu_torch.ops.fused_mlp import (fused_ln_mlp_residual,
                                           fused_ln_mlp_residual_plain)
@@ -344,7 +351,7 @@ MLP_EDGE_H = (64, 1536)
 # the kernels whose ptxas report must show no spill and no C7512 (wgmma
 # serialized for want of registers)
 NO_SPILL = ("flash_fwd_bf16", "fused_ln_mlp_kernel", "flash_bwd_bf16",
-            "flash_bwd_f32")
+            "flash_bwd_f32", "bias_gelu_fwd_kernel", "bias_gelu_bwd_kernel")
 # attention maps (phase 8): card f32 outputs vs the CPU's, max |err| against
 # each output's largest |ref|; bf16 intermediate layers by FLASH_TOL's bf16
 # rates, also against the tensor's largest |ref| (atol + rtol x max|ref|):
@@ -711,13 +718,14 @@ def zero_counts():
     flash_attention_with_lse_dyn.launches = 0
     flash_attention_bwd_dyn.launches = 0
     flash_attention_bwd_dyn.launches_f32 = 0
+    tbg.fc1_bias_gelu.launches = tbg.fc1_bias_gelu.launches_bwd = 0
 
 
 def all_counts():
     """Launch counts of every kernel, by kernel name: the backward's bf16
     kernel per entry (kernel 3, kernel 6) and its f32 kernel over both; the
     forward entry's launches in both dtypes, and of them the f32 kernel's
-    (flash_fwd_f32)."""
+    (flash_fwd_f32); fc1's bias-GELU pass forward and backward."""
     bwd, dyn = flash_attention_bwd, flash_attention_bwd_dyn
     return {"flash_attn_fwd": flash_attention.launches,
             "flash_attn_fwd_f32": flash_attention.launches_f32,
@@ -725,16 +733,19 @@ def all_counts():
             "flash_attn_bwd": bwd.launches - bwd.launches_f32,
             "flash_attn_bwd_f32": bwd.launches_f32 + dyn.launches_f32,
             "flash_attn_fwd_dyn": flash_attention_with_lse_dyn.launches,
-            "flash_attn_bwd_dyn": dyn.launches - dyn.launches_f32}
+            "flash_attn_bwd_dyn": dyn.launches - dyn.launches_f32,
+            "bias_gelu_fwd": tbg.fc1_bias_gelu.launches,
+            "bias_gelu_bwd": tbg.fc1_bias_gelu.launches_bwd}
 
 
 def sp_want(fwd_dyn, bwd_dyn=0, bwd_f32=0):
     """The counts an SP run must show: dyn entries only (the backward's
-    bf16 or f32 kernel)."""
+    bf16 or f32 kernel); the SP block runs its own MLP composition."""
     return {"flash_attn_fwd": 0, "flash_attn_fwd_f32": 0, "fused_ln_mlp": 0,
             "flash_attn_bwd": 0, "flash_attn_bwd_f32": bwd_f32,
             "flash_attn_fwd_dyn": fwd_dyn,
-            "flash_attn_bwd_dyn": bwd_dyn}
+            "flash_attn_bwd_dyn": bwd_dyn, "bias_gelu_fwd": 0,
+            "bias_gelu_bwd": 0}
 
 
 def phase_main_path(model, frame, frames3):
@@ -868,22 +879,28 @@ def phase_train_path():
                   random_init=True, device="cpu", freeze_backbone=False)
     cpu.load_state_dict({k: v.cpu() for k, v in
                          model.model.state_dict().items()})
-    loss, _ = train_run(model, False, "fp32", 240, 2, 1, 1, (3, 0, 0, 3),
-                        seed=4)
+    masks = []  # the head's ReLU choices on the card, for the CPU's step
+    with head_relu(record=masks):
+        loss, _ = train_run(model, False, "fp32", 240, 2, 1, 1,
+                            (3, 0, 0, 3), seed=4)
     total = all_counts()
     emit({"phase": "train_path", "launches": total})
     check(total["flash_attn_bwd"] > 0 and total["flash_attn_bwd_f32"] > 0,
           "a backward kernel was never launched")
-    phase_train_cpu_reference(model, cpu, loss.item(), seed=4)
+    phase_train_cpu_reference(model, cpu, loss.item(), seed=4, masks=masks)
     return total, 24, 16 / float(np.median(times[1:]))
 
 
 def phase_train_cpu_reference(card, cpu, card_loss, seed, phase="train",
-                              floor_rel=0.0):
+                              floor_rel=0.0, masks=None):
     """The card's fp32 240px step (just taken, gradients still in .grad)
     against the same step on the CPU from the same weights and batch (the
     model's head and backbone).  Each gradient leaf is held against
-    max(its own max |g|, ``floor_rel`` x the model's largest |g|)."""
+    max(its own max |g|, ``floor_rel`` x the model's largest |g|).
+    ``masks``: the card step's head ReLU choices (:func:`head_relu`'s
+    record), replayed on the CPU's step, as the SP and PP steps replay the
+    single-device step's: a unit within rounding of 0 takes the card's
+    branch on both sides, and the record counts the units that flipped."""
     vit, head = cpu.model.dino, cpu.model.clf
     opt = make_optimizer("adam", 1e-5)
     step = make_train_step(cpu.cfg, cpu.head, 7, opt, False,
@@ -892,8 +909,9 @@ def phase_train_cpu_reference(card, cpu, card_loss, seed, phase="train",
     labels = torch.from_numpy(rs.randint(0, 7, (2, 900)).astype(np.int32))
     imgs = torch.from_numpy(rs.randint(0, 255, (2, 240, 240, 3)).astype(
         np.uint8))
-    loss, _ = step(vit, head, init_opt_state(opt, vit, head, False), imgs,
-                   labels)
+    with head_relu(replay=masks) as flips:
+        loss, _ = step(vit, head, init_opt_state(opt, vit, head, False),
+                       imgs, labels)
     worst, worst_name, ok, diffs = 0.0, None, True, {}
     card_params = dict(card.model.named_parameters())
     floor = floor_rel * max(p.grad.abs().max().item()
@@ -912,6 +930,7 @@ def phase_train_cpu_reference(card, cpu, card_loss, seed, phase="train",
            "loss_card": card_loss, "loss_cpu": loss.item(),
            "grad_max_abs_diff": diffs,
            "grad_worst_rel_diff": worst, "grad_worst_leaf": worst_name,
+           "head_relu_units_replayed": flips,
            "tol": {"loss_rtol": STEP_LOSS_RTOL,
                    "grad_rel_per_leaf": STEP_GRAD_REL,
                    "grad_floor_rel": floor_rel}}
@@ -2015,11 +2034,16 @@ def pipeline_stats(model):
             for s, m in epoch_metrics(model)]
 
 
-def launches_want(fwd=0, mlp=0, bwd=0, fwd_f32=0, bwd_f32=0):
+def launches_want(fwd=0, mlp=0, bwd=0, fwd_f32=0, bwd_f32=0, gelu=0,
+                  gelu_bwd=0):
+    """``gelu``, ``gelu_bwd``: fc1's bias-GELU pass, which every bf16 block
+    on one card runs under autograd (and FSDP's and a pipeline's forward
+    without a gradient too); TP's blocks run their own composition."""
     return {"flash_attn_fwd": fwd + fwd_f32, "flash_attn_fwd_f32": fwd_f32,
             "fused_ln_mlp": mlp, "flash_attn_bwd": bwd,
             "flash_attn_bwd_f32": bwd_f32, "flash_attn_fwd_dyn": 0,
-            "flash_attn_bwd_dyn": 0}
+            "flash_attn_bwd_dyn": 0, "bias_gelu_fwd": gelu,
+            "bias_gelu_bwd": gelu_bwd}
 
 
 def batches(n, batch):
@@ -2053,7 +2077,8 @@ def fit_unfrozen(splits, tmp, bare_fps):
              + batches(FIT_FRAMES["test"], FIT_BATCH))
     per_step = 3 * FIT_ACCUM
     want = launches_want(fwd=per_step * steps + 3 * evals, mlp=3 * evals,
-                         bwd=per_step * steps)
+                         bwd=per_step * steps, gelu=per_step * steps,
+                         gelu_bwd=per_step * steps)
     stats = pipeline_stats(model)
     best = DINOSeg.load_from_checkpoint(model.best_ck, device=FIT_DEVICE)
     rec = {"phase": "fit", "part": "a unfrozen bf16", "res": FIT_RES,
@@ -2331,7 +2356,8 @@ def fit_unfrozen_device(splits, tmp, bare_fps, host_a, augment):
              + batches(FIT_FRAMES["test"], FIT_BATCH))
     per_step = 3 * FIT_ACCUM
     want = launches_want(fwd=per_step * steps + 3 * evals, mlp=3 * evals,
-                         bwd=per_step * steps)
+                         bwd=per_step * steps, gelu=per_step * steps,
+                         gelu_bwd=per_step * steps)
     stats = pipeline_stats(model)
     best = DINOSeg.load_from_checkpoint(model.best_ck, device=FIT_DEVICE)
     rec = {"phase": "fit", "part": "e unfrozen bf16, device augmentation",
@@ -3105,6 +3131,12 @@ def phase_item8(model, frames3):
 # (2 x 16 crops of 224 px, 785 tokens); both leave a 17-row tail past the
 # kernels' 128-row blocks
 PRETRAIN_ATTN = ((768, 145), (192, 785))
+# fc1's rows in the benchmark's bf16 pretrain step (batch 64): the student's
+# global group (2 x 64 x 785 tokens) and local group (8 x 64 x 145)
+PRETRAIN_MLP_ROWS = (2 * 64 * 785, 8 * 64 * 145)
+# the bias-GELU pass's db1 against the composition's column sum: float32
+# sum-order error, a share of the column's sum of |du|
+BIAS_GELU_DB_REL = 1e-5
 PRETRAIN_BATCH = 16
 PRETRAIN_LR, PRETRAIN_WD = 5e-4, 0.04  # the CLI's base lr and first wd
 PRETRAIN_TT, PRETRAIN_M = 0.04, 0.996  # the CLI's teacher temp, momentum
@@ -3125,14 +3157,18 @@ def pretrain_want(depth, bf16=False, fsdp=False):
     student's forward for each resolution group (2 groups) and the
     teacher's (the global group only), 3 forwards, and the student's 2
     backwards; in bf16 on the bf16 kernels, with the teacher's MLP (no
-    gradient) on the fused kernel.  Under FSDP each student block's
-    backward recomputes its 2 forwards first: 5 forwards a block."""
+    gradient) on the fused kernel and the student's fc1 epilogue on the
+    bias-GELU pass each way.  Under FSDP each student block's backward
+    recomputes its 2 forwards first: 5 forwards a block, 4 of them the
+    student's."""
     fwd, bwd = (5 if fsdp else 3) * depth, 2 * depth
     return {"flash_attn_fwd": fwd, "flash_attn_fwd_f32": 0 if bf16 else fwd,
             "fused_ln_mlp": depth if bf16 else 0,
             "flash_attn_bwd": bwd if bf16 else 0,
             "flash_attn_bwd_f32": 0 if bf16 else bwd,
-            "flash_attn_fwd_dyn": 0, "flash_attn_bwd_dyn": 0}
+            "flash_attn_fwd_dyn": 0, "flash_attn_bwd_dyn": 0,
+            "bias_gelu_fwd": (fwd - depth) if bf16 else 0,
+            "bias_gelu_bwd": bwd if bf16 else 0}
 
 
 def pretrain_attention_rows():
@@ -3200,6 +3236,86 @@ def pretrain_attention_rows():
     block = teacher.vit.blocks[0]
     check_mlp(block.norm2, block.mlp, 2 * PRETRAIN_BATCH * 785,
               torch.Generator(device="cuda").manual_seed(17))
+    return rows
+
+
+def bf16_ulps_apart(a, b):
+    """Largest distance in bf16 steps between two bf16 tensors (finite):
+    their bit patterns put in the order of the values."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def bias_gelu_row(rows, hidden, seed, timed=True):
+    """fc1's bias-GELU pass each way (ops/bias_gelu.py) at ``rows`` x
+    ``hidden`` against the composition it replaces, on the card: h and du at
+    most one bf16 step apart, db1 within BIAS_GELU_DB_REL of each column's
+    sum of |du|, each kernel twice with the same bits.  ``timed``: the
+    kernels' times (kernel_times), the eager composition's (plain_ms: the
+    bias add, GELU and cast forward; the cast back, GELU's backward, du's
+    cast and column sum backward) and the byte bounds."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y = torch.randn(rows, hidden, generator=g, device="cuda") * 2.0
+    b1 = torch.rand(hidden, generator=g, device="cuda") - 0.5
+    dh = (torch.randn(rows, hidden, generator=g, device="cuda")
+          * 0.1).to(torch.bfloat16)
+    h, h2 = (tbg.bias_gelu_fwd(y, b1) for _ in range(2))
+    (du, db), (du2, db2) = (tbg.bias_gelu_bwd(dh, y, b1) for _ in range(2))
+    h_ref = tbg.bias_gelu_fwd_plain(y, b1, torch.bfloat16)
+    du32 = torch.ops.aten.gelu_backward(dh.float(), y + b1,
+                                        approximate="none")
+    db_err = ((db - du32.sum(0)).abs() / du32.abs().sum(0)).max().item()
+    rec = {"phase": "pretrain", "part": "a bias_gelu", "rows": rows,
+           "hidden": hidden,
+           "h_steps_apart": bf16_ulps_apart(h, h_ref),
+           "h_share_differing": (h != h_ref).float().mean().item(),
+           "du_steps_apart": bf16_ulps_apart(du, du32.to(torch.bfloat16)),
+           "du_share_differing": (du != du32.to(torch.bfloat16)).float()
+           .mean().item(),
+           "db_err_over_sum_abs": db_err, "db_tol": BIAS_GELU_DB_REL,
+           "same_bits_twice": bool(torch.equal(h, h2) and torch.equal(du, du2)
+                                   and torch.equal(db, db2))}
+    rec["ok"] = (rec["h_steps_apart"] <= 1 and rec["du_steps_apart"] <= 1
+                 and db_err <= BIAS_GELU_DB_REL and rec["same_bits_twice"])
+    del h, h2, du, du2, db2, h_ref, du32
+    if timed:
+        u = torch.empty_like(y)
+
+        def plain_fwd():
+            return F.gelu(torch.add(y, b1, out=u),
+                          approximate="none").to(torch.bfloat16)
+
+        def plain_bwd():
+            g32 = torch.ops.aten.gelu_backward(dh.float(), u,
+                                               approximate="none")
+            return g32.to(torch.bfloat16), g32.float().sum(0)
+        plain_fwd()
+        for way, kernel, plain, nbytes in (
+                ("fwd", lambda: tbg.bias_gelu_fwd(y, b1), plain_fwd,
+                 rows * hidden * 6 + hidden * 4),
+                ("bwd", lambda: tbg.bias_gelu_bwd(dh, y, b1), plain_bwd,
+                 rows * hidden * 8 + hidden * 8)):
+            t = kernel_times(kernel)
+            rec.update({f"{way}_kernel_ms": t["ms"],
+                        f"{way}_kernel_ms_eager": t["ms_eager"],
+                        f"{way}_plain_ms": graph_ms(plain),
+                        f"{way}_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                        f"{way}_bound_by": "bytes"})
+        del u
+    return rec
+
+
+def bias_gelu_rows():
+    """(a) the bias-GELU pass at the benchmark's pretrain shapes."""
+    rows = []
+    for i, m in enumerate(PRETRAIN_MLP_ROWS):
+        rec = bias_gelu_row(m, 1536, seed=40 + i)
+        emit(rec)
+        rows.append(rec)
+        check(rec["ok"], f"bias_gelu against the composition {rec}")
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -3386,12 +3502,12 @@ def pretrain_cli(tmp):
 
 
 def phase_pretrain():
-    """Phase 12: (a) kernels 1 and 3 at the pretrain shapes and the fused
-    MLP at the bf16 teacher's, (b) the card step against the CPU step, (c)
+    """Phase 12: (a) kernels 1 and 3 at the pretrain shapes, the fused MLP
+    at the bf16 teacher's and the bias-GELU pass at the student's, (b) the card step against the CPU step, (c)
     the full-width step, (d) the CLI.  Returns the launch counts of (b)
     and (c)."""
     t0 = time.perf_counter()
-    rows = pretrain_attention_rows()
+    rows = pretrain_attention_rows() + bias_gelu_rows()
     total = {}
     add_counts(total, pretrain_step_vs_cpu())
     add_counts(total, pretrain_full_width())
@@ -3642,7 +3758,9 @@ def dp_bench_steps(rank, world, backend):
     for mode in ("dp", "zero", "fsdp"):
         # FSDP's backward recomputes each block's forward
         want = launches_want(fwd=per_step * (2 if mode == "fsdp" else 1),
-                             bwd=per_step)
+                             bwd=per_step,
+                             gelu=per_step * (2 if mode == "fsdp" else 1),
+                             gelu_bwd=per_step)
         m = sp_model("bf16")
         vit, head = m.model.dino, m.model.clf
         meshes = dict(zero_mesh=group if mode == "zero" else None,
@@ -3750,7 +3868,8 @@ def dp_world_of_one():
         (loss, _), got = counted(lambda: step(m.model.dino, m.model.clf, opt,
                                               x, y))
         host.append((time.perf_counter() - t0) * 1e3)
-    want = launches_want(fwd=3 * accum, bwd=3 * accum)
+    want = launches_want(fwd=3 * accum, bwd=3 * accum, gelu=3 * accum,
+                         gelu_bwd=3 * accum)
     rec = {"phase": "dp", "part": "a world of one", "world": 1,
            "res": FIT_RES, "global_batch": DP_BATCH, "accum_steps": accum,
            "host_ms_per_step": host, "host_ms": float(np.median(host[1:])),
@@ -3908,7 +4027,9 @@ def dp_fit(rank, world, tmp):
     per_rank_eval = 2 * batches(FIT_FRAMES["val"] // world, FIT_BATCH)
     want = launches_want(fwd=3 * DP_FIT_ACCUM * steps + 3 * per_rank_eval,
                          mlp=3 * per_rank_eval,
-                         bwd=3 * DP_FIT_ACCUM * steps)
+                         bwd=3 * DP_FIT_ACCUM * steps,
+                         gelu=3 * DP_FIT_ACCUM * steps,
+                         gelu_bwd=3 * DP_FIT_ACCUM * steps)
     cm, got_eval = counted(lambda: model._run_eval(
         model._eval_step(), model._make_dataset(model.test_path, False,
                                                 FIT_RES), 2))
@@ -4910,7 +5031,8 @@ def pp_bench_steps(rank, world, backend, schedules):
                                   n_chunks=chunks))
         step = make(m.cfg, "mlp", 7, optimizer, group, n_microbatches=PP_MB,
                     compute_dtype=torch.bfloat16)
-        want = launches_want(fwd=2 * PP_MB * per, bwd=PP_MB * per)
+        want = launches_want(fwd=2 * PP_MB * per, bwd=PP_MB * per,
+                             gelu=2 * PP_MB * per, gelu_bwd=PP_MB * per)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         host, losses = [], []

@@ -44,6 +44,7 @@ import torch.utils.checkpoint
 from dino_tpu_torch.models.heads import affine, dense
 from dino_tpu_torch.ops.attention import (attention_probs,
                                           multi_head_attention)
+from dino_tpu_torch.ops import bias_gelu
 from dino_tpu_torch.ops.bicubic import bicubic_resize_matrix
 from dino_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual
 from dino_tpu_torch.ops.quant import QuantLinear, int8_dense
@@ -302,11 +303,18 @@ def mlp_residual(norm: nn.LayerNorm, mlp: Mlp, x: torch.Tensor, eps: float,
     -> cast -> fc1 + f32 bias -> true-erf GELU in float32 -> cast -> fc2 +
     f32 bias -> cast -> residual add in the input dtype.  Each product is
     accumulated in float32 and takes its bias unrounded (:func:`affine`).
-    With a ``generator``, train-mode dropout after the GELU and after fc2,
-    then drop-path on the branch, each where its rate is > 0."""
+    A bf16 tensor on the card runs fc1's bias, GELU and cast as one kernel
+    each way (:func:`dino_tpu_torch.ops.bias_gelu.fc1_bias_gelu`, the same
+    arithmetic), with or without a gradient, so a forward without one and
+    its recompute under autograd give the same activation.  With a
+    ``generator``, train-mode dropout after the GELU and after fc2, then
+    drop-path on the branch, each where its rate is > 0."""
     dt = x.dtype
     h = layer_norm(norm, x, eps)
-    h = F.gelu(affine(mlp.fc1, h), approximate="none").to(dt)
+    if bias_gelu.applies(h, mlp.fc1.weight.shape[0]):
+        h = bias_gelu.fc1_bias_gelu(h, mlp.fc1.weight.to(dt), mlp.fc1.bias)
+    else:
+        h = F.gelu(affine(mlp.fc1, h), approximate="none").to(dt)
     drop = generator is not None and drop_rate > 0
     if drop:
         h = dropout(h, drop_rate, generator)

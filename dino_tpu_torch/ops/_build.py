@@ -22,12 +22,14 @@ from typing import Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "fused_ln_mlp.cu")
+SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "fused_ln_mlp.cu",
+           "bias_gelu.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures: (argtypes), every function returns cudaGetLastError()
+# C signatures: (argtypes), every function returns cudaGetLastError() (but
+# dtt_bias_gelu_slabs, which returns a count)
 _SIGNATURES = {
     # q, k, v, out, lse (or NULL), bh, n, hd, is_bf16, scale, stream
     "dtt_flash_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
@@ -44,6 +46,12 @@ _SIGNATURES = {
     # x, w1 (H, D), b1, w2 (D, H), b2, ln weight, ln bias, out, m, d, h, eps,
     # stream
     "dtt_fused_ln_mlp": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # y, b1, h, rows, hidden, stream
+    "dtt_bias_gelu_fwd": (_P, _P, _P, _I, _I, _P),
+    # dh, y, b1, du, partial (slabs, hidden), db, rows, hidden, slabs, stream
+    "dtt_bias_gelu_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # rows, hidden -> the backward's slabs (negative: a CUDA error)
+    "dtt_bias_gelu_slabs": (_I, _I),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

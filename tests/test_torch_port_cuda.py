@@ -15,6 +15,7 @@ from dino_tpu_torch.models import heads
 from dino_tpu_torch.models.vit import Block, Mlp, ViTConfig
 from dino_tpu_torch.models.vit import layer_norm as tvit_layer_norm
 from dino_tpu_torch.ops import attention as tatt
+from dino_tpu_torch.ops import bias_gelu as tbg
 from dino_tpu_torch.ops import fused_mlp as tfm
 from dino_tpu_torch.train import loop as tloop
 
@@ -425,7 +426,8 @@ def test_fit_on_card_launches_the_kernels(cuda, tmp_path, precision):
     assert model.device.type == "cuda"
     out, got = chip_smoke.counted(lambda: model.fit(samples_per_epoch=4))
     if precision == "bf16":
-        want = chip_smoke.launches_want(fwd=4, mlp=2, bwd=2)
+        want = chip_smoke.launches_want(fwd=4, mlp=2, bwd=2, gelu=2,
+                                        gelu_bwd=2)
     else:
         want = chip_smoke.launches_want(fwd_f32=4, bwd_f32=2)
     assert got == want
@@ -471,7 +473,8 @@ def test_fit_on_card_with_device_augmentation(cuda, tmp_path):
     out, got = chip_smoke.counted(lambda: model.fit(
         samples_per_epoch=3, augment_backend="device"))
     assert device_augment_batch.calls == calls + 2
-    assert got == chip_smoke.launches_want(fwd=4, mlp=2, bwd=2)
+    assert got == chip_smoke.launches_want(fwd=4, mlp=2, bwd=2, gelu=2,
+                                           gelu_bwd=2)
     (step, metrics), = [(s, m) for s, m in model.logger.metrics if s >= 0]
     assert np.isfinite(metrics["train_loss"]) and metrics["train_steps"] == 2
 
@@ -645,9 +648,11 @@ def test_flash_kernels_at_the_pretrain_shapes(cuda, dtype, bh, n):
 
 def test_full_depth_pretrain_step_launches(cuda):
     """One DINO pretrain step at ViT-S/8's full depth (12 blocks, the
-    default DinoConfig, batch 2) on the card: every student and teacher
-    forward on the f32 flash kernel, every student backward on the f32
-    backward, a finite loss and gradient."""
+    default DinoConfig, batch 2) on the card, f32 then bf16: in f32 every
+    student and teacher forward on the f32 flash kernel, every student
+    backward on the f32 backward; in bf16 the bf16 kernels, the teacher's
+    MLP fused, the student's fc1 epilogue on the bias-GELU pass (2 x depth
+    each way); a finite loss and gradient."""
     from dino_tpu_torch.models.vit import vit_small
     from dino_tpu_torch.train import dino_pretrain as tdp
     cfg = tdp.DinoConfig()
@@ -656,15 +661,61 @@ def test_full_depth_pretrain_step_launches(cuda):
         device=cuda)
     opt = tdp.make_dino_optimizer(student)
     g, l = (t.to(cuda) for t in chip_smoke.pretrain_crops(1, 2, cfg))
-    step = tdp.make_dino_train_step(vit_small(patch_size=8), cfg)
+    for dtype in (None, torch.bfloat16):
+        step = tdp.make_dino_train_step(vit_small(patch_size=8), cfg,
+                                        compute_dtype=dtype)
+        chip_smoke.zero_counts()
+        loss = step(student, teacher,
+                    torch.zeros(1, cfg.out_dim, device=cuda), opt, g, l,
+                    0.04, 0.996, 0.0)
+        torch.cuda.synchronize()
+        assert chip_smoke.all_counts() == chip_smoke.pretrain_want(
+            12, bf16=dtype is not None)
+        assert bool(torch.isfinite(loss))
+        assert all(bool(torch.isfinite(p.grad).all())
+                   for p in student.parameters())
+
+
+@pytest.mark.parametrize("rows,hidden", [
+    *((m, 1536) for m in chip_smoke.PRETRAIN_MLP_ROWS), (37, 64), (1, 72),
+    (1000, 1544)])
+def test_bias_gelu_kernels_match_the_composition(cuda, rows, hidden):
+    """fc1's bias-GELU pass each way against the composition it replaces,
+    at the benchmark's pretrain rows (b1 nonzero) and at edges of the
+    kernels' 8-row groups and 256-column tiles: h and du at most one bf16
+    step apart, db1 within float32 sum-order error, the same bits twice."""
+    before = (tbg.fc1_bias_gelu.launches, tbg.fc1_bias_gelu.launches_bwd)
+    rec = chip_smoke.bias_gelu_row(rows, hidden, seed=rows + hidden,
+                                   timed=False)
+    assert rec["ok"], rec
+    assert (tbg.fc1_bias_gelu.launches,
+            tbg.fc1_bias_gelu.launches_bwd) == (before[0] + 2, before[1] + 2)
+
+
+def test_bf16_forward_slot_and_its_recompute_agree(cuda):
+    """A bf16 block as a pipeline's forward slot runs it (no gradient, no
+    fused MLP) and as its backward recomputes it under autograd: the same
+    activation, both through the bias-GELU pass."""
+    from dino_tpu_torch.models.vit import block_apply
+    cfg = ViTConfig()
+    g = torch.Generator().manual_seed(8)
+    blk = Block(cfg)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    blk = blk.to(cuda)
+    x = (torch.randn(2, 785, 384, generator=g) * 0.5).to(cuda, torch.bfloat16)
     chip_smoke.zero_counts()
-    loss = step(student, teacher, torch.zeros(1, cfg.out_dim, device=cuda),
-                opt, g, l, 0.04, 0.996, 0.0)
+    with torch.no_grad():
+        slot = block_apply(blk, x, cfg, fused_mlp=False)[0]
+    again = block_apply(blk, x.clone().requires_grad_(), cfg,
+                        fused_mlp=False)[0]
+    again.float().sum().backward()
     torch.cuda.synchronize()
-    assert chip_smoke.all_counts() == chip_smoke.pretrain_want(12)
-    assert bool(torch.isfinite(loss))
-    assert all(bool(torch.isfinite(p.grad).all())
-               for p in student.parameters())
+    assert torch.equal(slot, again.detach())
+    counts = chip_smoke.all_counts()
+    assert (counts["bias_gelu_fwd"], counts["bias_gelu_bwd"],
+            counts["fused_ln_mlp"]) == (2, 1, 0)
 
 
 def test_sharded_fused_adamw_has_the_plain_bits(cuda):
