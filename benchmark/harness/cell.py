@@ -15,6 +15,14 @@ A driver (``drivers/<name>.py``) has a class ``Driver(run)`` with:
   * ``check() -> {number: value}``: the comparison with the plain
     reference, run after ``release``.
 
+A driver of a cell over several cards (rank 0 in the harness's process,
+``harness/ranks.py``) also has:
+
+  * ``memory_peak(mine) -> int``: the peak of the fullest card, given
+    this process's;
+  * ``ranks_trace(summary) -> summary``: rank 0's trace summary with its
+    device numbers averaged over the cards.
+
 The harness holds each compared number to its limit in
 ``limits/<cell>.json`` (a number whose limit is null is printed but not
 compared).  With ``--trace 0`` the line carries the cell's end-to-end
@@ -71,14 +79,17 @@ class Readings:
 def port_counters() -> Dict[str, int]:
     """The port's kernel launch counters (eager launches; a CUDA-graph
     replay is not counted), logged beside the traced iterations: the
-    roofline readers count launches in the trace, which sees replays."""
-    from dino_tpu_torch.ops import attention, fused_mlp
+    roofline readers count launches in the trace, which sees replays.
+    fc1's bias-GELU pass counts its forward launches and backward calls."""
+    from dino_tpu_torch.ops import attention, bias_gelu, fused_mlp
     return {
         "flash_fwd_bf16": (attention.flash_attention.launches
                            - attention.flash_attention.launches_f32),
         "flash_bwd_bf16": (attention.flash_attention_bwd.launches
                            - attention.flash_attention_bwd.launches_f32),
         "fused_ln_mlp": fused_mlp.fused_ln_mlp_residual.launches,
+        "fc1_bias_gelu": bias_gelu.fc1_bias_gelu.launches,
+        "fc1_bias_gelu_bwd": bias_gelu.fc1_bias_gelu.launches_bwd,
     }
 
 
@@ -124,6 +135,8 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
     cuda = device.type == "cuda"
     kind = torch.cuda.get_device_name(device) if cuda else None
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    if hasattr(drv, "memory_peak"):  # a cell over several cards
+        peak = drv.memory_peak(peak)
     log(f"[bench] {workload} seed {seed}: setup {setup_s:.3f} s, window "
         f"{win.seconds:.3f} s, {win.work}, peak memory {peak} bytes "
         f"({kind})")
@@ -134,6 +147,8 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
     extra = {}
     if trace:
         summary, info, counters = _profile(drv, device)
+        if hasattr(drv, "ranks_trace"):  # a cell over several cards
+            summary = drv.ranks_trace(summary)
         readings = Readings(bench=bench, cell=cell, window=win,
                             device_kind=kind, trace=summary, traced=info,
                             launches=drv.launches())

@@ -11,7 +11,10 @@ synchronize.  From the Chrome trace the profiler exports:
   * seconds and launches of each kernel by name, and of the copies;
   * the idle gaps (the span less the union), each labelled with the host
     op that was running at its middle: the shortest host event of any
-    thread that contains that instant.
+    thread that contains that instant;
+  * the collectives' seconds (the union of the kernels whose name holds
+    ``nccl``), and of those the seconds in which no other kernel, copy or
+    memset runs (exposed), averaged over the devices.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ WINDOW = "bench.traced"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
 NAME_LEN = 100
+COMM = "nccl"  # in the name of every NCCL collective's kernel
 
 
 @dataclasses.dataclass
@@ -37,6 +41,8 @@ class TraceSummary:
     kernel_n: Dict[str, int]        # launches by kernel name
     copy_s: Dict[str, float]        # seconds by copy or memset name
     idle_by_host: List[Tuple[str, float]]
+    comm_s: float = 0.0             # collectives' union, a device's mean
+    comm_exposed_s: float = 0.0     # the part no other device op covers
 
     def kernels_like(self, part: str) -> Tuple[float, int]:
         """(seconds, launches) of the kernels whose name holds ``part``."""
@@ -49,6 +55,22 @@ class TraceSummary:
         for k, v in self.copy_s.items():
             ops[k] = ops.get(k, 0.0) + v
         return sorted(ops.items(), key=lambda kv: -kv[1])[:top]
+
+
+def _overlap(a: List[Tuple[float, float]],
+             b: List[Tuple[float, float]]) -> float:
+    """The length of the intersection of two unions (each sorted and
+    disjoint)."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        total += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
 
 
 def _union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
@@ -115,10 +137,16 @@ def reduce_events(events: List[dict]) -> Optional[TraceSummary]:
     kernel_n: Dict[str, int] = defaultdict(int)
     copy_s: Dict[str, float] = defaultdict(float)
     per_dev = defaultdict(list)
+    comm_dev = defaultdict(list)   # a device's collectives
+    other_dev = defaultdict(list)  # its other kernels, copies and memsets
     for e in dev:
         s = float(e["ts"])
         d = float(e["dur"])
         per_dev[e.get("pid")].append((s, min(s + d, w1)))
+        is_comm = (str(e["cat"]).lower() == "kernel"
+                   and COMM in str(e["name"]).lower())
+        (comm_dev if is_comm else other_dev)[e.get("pid")].append(
+            (s, min(s + d, w1)))
         name = str(e["name"])[:NAME_LEN]
         if str(e["cat"]).lower() == "kernel":
             kernel_s[name] += d * 1e-6
@@ -128,6 +156,14 @@ def reduce_events(events: List[dict]) -> Optional[TraceSummary]:
     unions = [_union(iv) for iv in per_dev.values()]
     busy = (sum(sum(e - s for s, e in u) for u in unions) / len(unions)
             if unions else 0.0)
+    comm = exposed = 0.0
+    for pid in per_dev:
+        c = _union(comm_dev[pid])
+        c_s = sum(e - s for s, e in c)
+        comm += c_s
+        exposed += c_s - _overlap(c, _union(other_dev[pid]))
+    if per_dev:
+        comm, exposed = comm / len(per_dev), exposed / len(per_dev)
     gaps: List[Tuple[float, float]] = []
     for u in unions or [[]]:
         t = w0
@@ -146,7 +182,8 @@ def reduce_events(events: List[dict]) -> Optional[TraceSummary]:
         window_s=(w1 - w0) * 1e-6, busy_s=busy * 1e-6,
         kernel_s=dict(kernel_s),
         kernel_n=dict(kernel_n), copy_s=dict(copy_s),
-        idle_by_host=sorted(idle.items(), key=lambda kv: -kv[1]))
+        idle_by_host=sorted(idle.items(), key=lambda kv: -kv[1]),
+        comm_s=comm * 1e-6, comm_exposed_s=exposed * 1e-6)
 
 
 def reduce_profile(prof) -> Optional[TraceSummary]:

@@ -60,9 +60,12 @@ def test_bounds_and_sources():
 
 def test_every_cell_finds_its_parts():
     bench = Bench(ROOT)
+    chips = [w["chips"] for w in SPEC["workloads"]]
+    assert set(chips) <= {1, 4}
+    assert chips.count(4) <= max(1, len(chips) // 4)
     for w in SPEC["workloads"]:
         cell = bench.cell(w["name"])
-        assert cell.chips == 1
+        assert cell.chips == w["chips"]
         names = [m["name"] for m in cell.end_to_end]
         assert "setup_s" in names and len(names) >= 2
         assert cell.per_layer

@@ -38,3 +38,28 @@ def test_union_kernels_copies_and_gaps():
 
 def test_no_span_no_summary():
     assert reduce_events([ev("k1", "kernel", 0, 10, pid=0)]) is None
+
+
+def test_collectives_and_their_exposed_part():
+    """A collective's seconds are the union of the ``nccl`` kernels; its
+    exposed part is what no other kernel, copy or memset of the same
+    device covers; both a device's mean."""
+    events = [
+        ev("bench.traced", "user_annotation", 0, 100),
+        ev("ncclDevKernel_AllReduce_Sum_f32_RING_LL", "kernel", 10, 40,
+           pid=0, tid=9),
+        ev("gemm", "kernel", 0, 20, pid=0, tid=7),       # hides [10, 20]
+        ev("Memcpy DtoD", "gpu_memcpy", 40, 5, pid=0),   # hides [40, 45]
+        ev("ncclDevKernel_AllReduce_Sum_f32_RING_LL", "kernel", 60, 10,
+           pid=1, tid=9),                                # all exposed
+    ]
+    t = reduce_events(events)
+    assert abs(t.comm_s - (40e-6 + 10e-6) / 2) < 1e-12
+    assert abs(t.comm_exposed_s - (25e-6 + 10e-6) / 2) < 1e-12
+    assert t.kernels_like("nccl")[1] == 2
+
+
+def test_no_collective_reads_zero():
+    t = reduce_events([ev("bench.traced", "user_annotation", 0, 100),
+                       ev("k1", "kernel", 0, 10, pid=0)])
+    assert t.comm_s == 0.0 and t.comm_exposed_s == 0.0
