@@ -187,7 +187,18 @@ each printing JSON lines:
      utils/profiling.py:device_trace around one predict, whose trace must
      name the bf16 flash forward; the launches summed into the kernels
      line;
-  17. timing (CUDA events around bursts of back-to-back calls, median of
+  17. DINOv3 ViT-H+/16 (dinov3): (a) the qkv epilogue (ops/qkv_rope.py)
+     and the SwiGLU pass (ops/swiglu.py) at the 960px benchmark cell's
+     shapes (batch 4 of 3,605 tokens, 5 of them not rotated, 20 heads of
+     64; 14,420 x 2 x 5,120) against their plain versions: the same bits
+     (0 bf16 steps apart), twice; their times (kernel_times), the plain
+     composition's (a CUDA-graph replay) and the byte bound; (b) the
+     32-block backbone at its published widths (random weights, bf16):
+     predict_stream at 960px over 8 frames in batches of 4 and predict at
+     480px, the launch counts zeroed just before each (32 of each pass and
+     of the bf16 forward a batch, no fused MLP, no bias-GELU pass), the
+     peak memory;
+  18. timing (CUDA events around bursts of back-to-back calls, median of
      the bursts; the bf16 kernels and the f32 backward also replayed from a
      CUDA graph, which takes the host out) at the 480px predict shapes
      (batch 3; the fused MLP also at one frame), the train bench's
@@ -200,7 +211,7 @@ each printing JSON lines:
      forward's and backward's on their route: three TF32 passes); the fp32
      predict latency at 480 and 960px; then the cli/bench line
      (predict and train);
-  18. the per-kernel summary line, the card line, and the final status
+  19. the per-kernel summary line, the card line, and the final status
       line.
 
 ``python3 chip_smoke.py --sp-world W`` (W cards) runs only phase 6's rank
@@ -214,7 +225,8 @@ each rank's peak memory and weight bytes, and with W = 4 (b) on 2 x 2
 cards.  ``--pp-world W`` runs phase 15's (b) over NCCL with one rank a card
 (S = W, the 1F1B and interleaved 1F1B steps), beside the world of one's
 12-block step on card 0 in the same call, with the hop ms, each rank's
-bytes and peak.  ``--cards N`` (N >= 2 cards in one process) runs phase
+bytes and peak.  ``--dinov3`` runs only phase 17 (with phases 1 and 2).
+``--cards N`` (N >= 2 cards in one process) runs phase
 16 (b) over cards 0..N-1 and over cards 0 and 1: the DP artifact at batch
 2N and the split predict_batch at twice the card count against the
 one-card program's bits, the SP artifact at 960px against one card as in
@@ -245,7 +257,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from dino_tpu_torch import DINOSeg, export_predict, load_exported_predict
-from dino_tpu_torch.api import collect_labels, label_maps, seg_log_probs_sp
+from dino_tpu_torch.api import (collect_labels, frame_log_probs, label_maps,
+                                seg_log_probs_sp)
 from dino_tpu_torch.cli import bench
 from dino_tpu_torch.cli.serve import make_server
 from dino_tpu_torch.cli.visualize import overlay
@@ -265,6 +278,8 @@ from dino_tpu_torch.ops.attention import (attention_bwd_dyn_plain,
                                           flash_attention_bwd_dyn,
                                           flash_attention_with_lse_dyn)
 from dino_tpu_torch.ops import bias_gelu as tbg
+from dino_tpu_torch.ops import qkv_rope as tqr
+from dino_tpu_torch.ops import swiglu as tsw
 from dino_tpu_torch.ops.device_augment import MAX_BLUR, device_augment_batch
 from dino_tpu_torch.ops.fused_mlp import (fused_ln_mlp_residual,
                                           fused_ln_mlp_residual_plain)
@@ -276,7 +291,7 @@ from dino_tpu_torch.parallel.mesh import (FSDPOptimizer, ShardedOptimizer,
 from dino_tpu_torch.parallel.ring_attention import make_sp_train_step
 from dino_tpu_torch.precision import matmul_ctx
 from dino_tpu_torch.serving import predict_program
-from dino_tpu_torch.models.vit import vit_small
+from dino_tpu_torch.models.vit import dinov3_vith16plus, rope_table, vit_small
 from dino_tpu_torch.train.dino_pretrain import (DinoConfig, init_dino_params,
                                                 make_dino_optimizer,
                                                 make_dino_train_step,
@@ -368,6 +383,9 @@ ATTN_MASKS = 4
 ATTN_960_MASKS = 8
 ATTN_PEAK_LIMIT = 1 << 30   # bytes the 960px CLS-row and mask calls may add
 STREAM_FRAMES, STREAM_BATCH = 10, 4
+# phase 17: the DINOv3 cell's batch, patch grid at 960px and prefix tokens
+# (CLS and 4 storage tokens), and the frames of its predict_stream run
+V3_BATCH, V3_GRID, V3_PREFIX, V3_STREAM_FRAMES = 4, 60, 5, 8
 # predict_stream's frame rate: 64 batches of 4, two readings in turns with
 # the predict_batch loop
 STREAM_TIMED_FRAMES, STREAM_READINGS = 256, 2
@@ -719,13 +737,15 @@ def zero_counts():
     flash_attention_bwd_dyn.launches = 0
     flash_attention_bwd_dyn.launches_f32 = 0
     tbg.fc1_bias_gelu.launches = tbg.fc1_bias_gelu.launches_bwd = 0
+    tqr.qkv_rope.launches = tsw.swiglu.launches = 0
 
 
 def all_counts():
     """Launch counts of every kernel, by kernel name: the backward's bf16
     kernel per entry (kernel 3, kernel 6) and its f32 kernel over both; the
     forward entry's launches in both dtypes, and of them the f32 kernel's
-    (flash_fwd_f32); fc1's bias-GELU pass forward and backward."""
+    (flash_fwd_f32); fc1's bias-GELU pass forward and backward; the DINOv3
+    block's qkv epilogue and SwiGLU pass."""
     bwd, dyn = flash_attention_bwd, flash_attention_bwd_dyn
     return {"flash_attn_fwd": flash_attention.launches,
             "flash_attn_fwd_f32": flash_attention.launches_f32,
@@ -735,7 +755,9 @@ def all_counts():
             "flash_attn_fwd_dyn": flash_attention_with_lse_dyn.launches,
             "flash_attn_bwd_dyn": dyn.launches - dyn.launches_f32,
             "bias_gelu_fwd": tbg.fc1_bias_gelu.launches,
-            "bias_gelu_bwd": tbg.fc1_bias_gelu.launches_bwd}
+            "bias_gelu_bwd": tbg.fc1_bias_gelu.launches_bwd,
+            "qkv_rope": tqr.qkv_rope.launches,
+            "swiglu": tsw.swiglu.launches}
 
 
 def sp_want(fwd_dyn, bwd_dyn=0, bwd_f32=0):
@@ -745,7 +767,7 @@ def sp_want(fwd_dyn, bwd_dyn=0, bwd_f32=0):
             "flash_attn_bwd": 0, "flash_attn_bwd_f32": bwd_f32,
             "flash_attn_fwd_dyn": fwd_dyn,
             "flash_attn_bwd_dyn": bwd_dyn, "bias_gelu_fwd": 0,
-            "bias_gelu_bwd": 0}
+            "bias_gelu_bwd": 0, "qkv_rope": 0, "swiglu": 0}
 
 
 def phase_main_path(model, frame, frames3):
@@ -2043,7 +2065,7 @@ def launches_want(fwd=0, mlp=0, bwd=0, fwd_f32=0, bwd_f32=0, gelu=0,
             "fused_ln_mlp": mlp, "flash_attn_bwd": bwd,
             "flash_attn_bwd_f32": bwd_f32, "flash_attn_fwd_dyn": 0,
             "flash_attn_bwd_dyn": 0, "bias_gelu_fwd": gelu,
-            "bias_gelu_bwd": gelu_bwd}
+            "bias_gelu_bwd": gelu_bwd, "qkv_rope": 0, "swiglu": 0}
 
 
 def batches(n, batch):
@@ -3168,7 +3190,7 @@ def pretrain_want(depth, bf16=False, fsdp=False):
             "flash_attn_bwd_f32": 0 if bf16 else bwd,
             "flash_attn_fwd_dyn": 0, "flash_attn_bwd_dyn": 0,
             "bias_gelu_fwd": (fwd - depth) if bf16 else 0,
-            "bias_gelu_bwd": bwd if bf16 else 0}
+            "bias_gelu_bwd": bwd if bf16 else 0, "qkv_rope": 0, "swiglu": 0}
 
 
 def pretrain_attention_rows():
@@ -5364,8 +5386,11 @@ def sp_check(model, replicas, frames, precision, tag):
                                    res, cdt).float().cpu()
     logp = model.log_probs(imgs, precision=precision).float().cpu()
     out_size = res // 8
-    got = label_maps(logp_sp, res, model.n_classes).cpu().numpy()
-    want = label_maps(logp, res, model.n_classes).cpu().numpy()
+    b = imgs.shape[0]
+    got = label_maps(frame_log_probs(logp_sp, b), res,
+                     model.n_classes).cpu().numpy()
+    want = label_maps(frame_log_probs(logp, b), res,
+                      model.n_classes).cpu().numpy()
     n_diff, n_far = labels_agree(got, want, near_ties(logp), out_size)
     err = float((logp_sp - logp).abs().max())
     rec = {"phase": "cards", "part": tag, "call": "sp ring",
@@ -5608,6 +5633,95 @@ def peer_copy_ms(model, frames, k, precision):
             "hop_copy_bytes": kv.numel() * kv.element_size()}
 
 
+def dinov3_pass_rows():
+    """Phase 17 (a): both passes at the cell's shapes against their plain
+    versions, timed, with the byte bound (``benchmark/costs/qkv_rope.py``
+    and ``swiglu.py`` count the same bytes)."""
+    cfg = dinov3_vith16plus()
+    heads, hd, c = cfg.num_heads, cfg.head_dim, cfg.embed_dim
+    hidden = cfg.mlp_hidden
+    n = V3_PREFIX + V3_GRID * V3_GRID
+    rows = V3_BATCH * n
+    g = torch.Generator(device="cuda").manual_seed(70)
+    y = torch.randn(rows, 3 * c, generator=g, device="cuda")
+    bias = torch.randn(3 * c, generator=g, device="cuda")
+    cos, sin = rope_table(V3_GRID, V3_GRID, cfg, torch.device("cuda"))
+    y2 = torch.randn(rows, 2 * hidden, generator=g, device="cuda")
+    b12 = torch.randn(2 * hidden, generator=g, device="cuda")
+    passes = (
+        ("qkv_rope",
+         lambda: tqr.qkv_rope(y, bias, cos, sin, V3_BATCH, heads, V3_PREFIX),
+         lambda: tqr.qkv_rope_plain(y, bias, cos, sin, V3_BATCH, heads,
+                                    V3_PREFIX, torch.bfloat16),
+         rows * 3 * c * (4 + 2) + 3 * c * 4 + 2 * (n - V3_PREFIX) * hd * 4,
+         {"batch": V3_BATCH, "n": n, "heads": heads, "prefix": V3_PREFIX}),
+        ("swiglu", lambda: tsw.swiglu(y2, b12),
+         lambda: tsw.swiglu_plain(y2, b12, torch.bfloat16),
+         rows * 2 * hidden * 4 + 2 * hidden * 4 + rows * hidden * 2,
+         {"rows": rows, "hidden": hidden}))
+    out = []
+    with torch.no_grad():
+        for name, kernel, plain, nbytes, shape in passes:
+            got, again, ref = kernel(), kernel(), plain()
+            t = kernel_times(kernel)
+            rec = dict({"phase": "dinov3", "part": f"a {name}"}, **shape)
+            rec.update({
+                "steps_apart": bf16_ulps_apart(got, ref),
+                "same_bits_twice": bool(torch.equal(got, again)),
+                "kernel_ms": t["ms"], "kernel_ms_eager": t["ms_eager"],
+                "plain_ms": graph_ms(plain),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes"})
+            rec["ok"] = rec["steps_apart"] == 0 and rec["same_bits_twice"]
+            emit(rec)
+            check(rec["ok"], f"{name} against its plain version {rec}")
+            out.append(rec)
+            del got, again, ref
+    del y, y2
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dinov3():
+    """Phase 17: (a) the DINOv3 passes; (b) the 32-block backbone through
+    predict_stream at 960px and predict at 480px, each call's launches
+    counted from zero."""
+    rows = dinov3_pass_rows()
+    torch.cuda.reset_peak_memory_stats()
+    model = DINOSeg(backbone="dinov3_vith16plus", head="mlp",
+                    n_blocks=dinov3_vith16plus().depth, n_classes=7,
+                    precision="bf16", random_init=True, seed=0)
+    depth = len(model.model.dino.blocks)
+    check(depth == 32, f"the DINOv3 backbone has {depth} blocks, not 32")
+    rs = np.random.RandomState(17)
+    frames = rs.randint(0, 256, (V3_STREAM_FRAMES, 480, 640, 3)
+                        ).astype(np.uint8)
+    batches = V3_STREAM_FRAMES // V3_BATCH
+    for res, call, n_batches in (
+            (960, lambda: list(model.predict_stream(frames,
+                                                    batch_size=V3_BATCH)),
+             batches),
+            (480, lambda: [model.predict(frames[0])], 1)):
+        model.set_resolution(res)
+        call()  # the first call builds what the call uses
+        torch.cuda.synchronize()
+        maps, got = counted(call)
+        want = launches_want(fwd=depth * n_batches)
+        want.update(qkv_rope=depth * n_batches, swiglu=depth * n_batches)
+        rec = {"phase": "dinov3", "part": "b backbone", "res": res,
+               "maps": len(maps), "batches": n_batches, "launches": got,
+               "launches_per_batch": {k: v / n_batches
+                                      for k, v in got.items()},
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        emit(rec)
+        check(got == want, f"DINOv3 launches {got}, want {want}")
+        check(all(np.asarray(m).shape == (480, 480) for m in maps),
+              f"DINOv3 map shapes {rec}")
+    del model
+    torch.cuda.empty_cache()
+    return rows
+
+
 KERNELS = {
     "flash_attn_fwd": dict(
         source="dino_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -5662,6 +5776,7 @@ def main():
     ap.add_argument("--pp-store")
     ap.add_argument("--pp-backend", default="gloo")
     ap.add_argument("--cards", type=int)
+    ap.add_argument("--dinov3", action="store_true")
     args = ap.parse_args()
     if args.sp_rank is not None:
         return sp_rank_main(args.sp_rank, args.sp_world, args.sp_store,
@@ -5701,6 +5816,12 @@ def main():
         check(rep and not any(r.get("spill_stores") or r.get("spill_loads")
                               or r.get("wgmma_serialized") for r in rep),
               f"{name} spills: {rep}")
+    if args.dinov3:
+        phase_dinov3()
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
 
     ranks = start_ranks("sp", SP_WORLD, "gloo")  # share the card till phase 7
     try:
@@ -5746,6 +5867,7 @@ def main():
     tp = phase_tp(bare_fps)
     pp = phase_pp()
     cards = phase_cards(model, frame)
+    phase_dinov3()
     rows = phase_timing(block, per_call, bwd_per_step)
     rows.update(phase_timing_sp(launches))
     phase_fp32_latency(model, frame)

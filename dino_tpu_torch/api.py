@@ -24,6 +24,13 @@ The counterpart of ``dino_tpu/api.py``'s ``DINOSeg`` for inference:
   * ``backbone='cnn1'`` / ``'cnn2'``: the reference's truncated ResNet-50
     baselines (``models/resnet.py``), 512-dim patch features at H/8;
     pretrained weights from ``checkpointing/pretrained.py``'s ladder.
+  * ``backbone='dinov3_vith16plus'``: DINOv3 ViT-H+/16
+    (``models/vit.py:dinov3_vith16plus``: RoPE, SwiGLU, LayerScale, 4
+    storage tokens), its first ``n_blocks`` blocks, random weights (no
+    published checkpoint is loaded); a 16-pixel label grid.  It predicts
+    (``predict``, ``predict_batch``, ``predict_stream``, the serving
+    program) in bf16 or fp32; int8, the parallel modes, ``fit`` and the
+    attention-map calls raise.
   * checkpoints: ``dino_tpu`` ``.npz`` files and reference PL ``.ckpt``
     files load; ``save`` writes the ``.npz`` format.
   * ``fit`` trains on a VOC-style data folder (optional sim pretraining,
@@ -61,6 +68,7 @@ raises when there is none.  Pass ``device="cpu"`` to run on the CPU.
 from __future__ import annotations
 
 import copy
+import math
 import os
 import time
 import warnings
@@ -86,8 +94,9 @@ from dino_tpu_torch.data.dataset import (DuckieSegDataset, batched_loader,
 from dino_tpu_torch.data.prefetch import prefetched
 from dino_tpu_torch.models.heads import head_apply, init_head
 from dino_tpu_torch.models.resnet import OUTPUT_DIM, build_backbone
-from dino_tpu_torch.models.vit import (ViTConfig, VisionTransformer,
-                                       forward_mask, get_intermediate_layers,
+from dino_tpu_torch.models.vit import (VIT_BACKBONES, ViTConfig,
+                                       VisionTransformer, forward_mask,
+                                       get_intermediate_layers,
                                        get_last_selfattention,
                                        init_vit_params)
 from dino_tpu_torch.ops.preprocess import normalize_imagenet, preprocess
@@ -233,6 +242,12 @@ def replicate(model: nn.Module, devices) -> Dict[torch.device, nn.Module]:
     return out
 
 
+def backbone_arch(backbone: str) -> str:
+    """'vit' for a ViT backbone name (``models/vit.py:VIT_BACKBONES``), else
+    the name ('cnn1', 'cnn2'): what the forward paths dispatch on."""
+    return "vit" if backbone in VIT_BACKBONES else backbone
+
+
 def collect_labels(pending) -> np.ndarray:
     """Wait for the events of a (host labels, events) pair whose label maps
     are being copied into the host tensor, then -> int32 (B, H, W)."""
@@ -246,18 +261,31 @@ def collect_labels(pending) -> np.ndarray:
 
 def label_maps(log_probs: torch.Tensor, resolution: int,
                n_classes: int) -> torch.Tensor:
-    """(B*N, n_classes) log-probs -> (B, 480, 480) label maps on their
-    device (the kron factor floors: 480 // (resolution // 8)), uint8 when
-    n_classes <= 255 (the label wire), else int32."""
-    out_size = resolution // 8
+    """(B, N, n_classes) log-probs over a square grid of N patches a frame
+    -> (B, 480, 480) label maps on their device (the kron factor floors:
+    480 // sqrt(N), whatever the patch size), uint8 when n_classes <= 255
+    (the label wire), else int32.  ``resolution`` is the frames' side,
+    which the grid divides."""
+    out_size = math.isqrt(log_probs.shape[-2])
+    if (log_probs.dim() != 3 or out_size * out_size != log_probs.shape[-2]
+            or resolution % out_size):
+        raise ValueError(f"label_maps takes (B, N, C) log-probs over a "
+                         f"square grid that divides {resolution}, got "
+                         f"{tuple(log_probs.shape)}")
     wire = torch.uint8 if n_classes <= 255 else torch.int32
     low = log_probs.argmax(dim=-1).to(wire)
     return kron_upsample(low.reshape(-1, out_size, out_size),
                          480 // out_size)
 
 
+def frame_log_probs(log_probs: torch.Tensor, frames: int) -> torch.Tensor:
+    """(B*N, C) log-probs -> (B, N, C), as :func:`label_maps` takes them."""
+    return log_probs.reshape(frames, -1, log_probs.shape[-1])
+
+
 class DINOSeg:
-    """DINO ViT-S/8 backbone + per-patch segmentation head."""
+    """DINO ViT-S/8 (or another ViT of ``models/vit.py:VIT_BACKBONES``, or
+    a ResNet) backbone + per-patch segmentation head."""
 
     def __init__(self, data_path: Optional[str] = None,
                  write_path: Optional[str] = None,
@@ -275,7 +303,7 @@ class DINOSeg:
                  comet_logger=None, device=None):
         if logger is None and comet_logger is not None:
             logger = comet_logger  # the reference's keyword
-        if backbone not in ("vit", "cnn1", "cnn2"):
+        if backbone not in ("cnn1", "cnn2") and backbone not in VIT_BACKBONES:
             raise ValueError(f"unknown backbone {backbone!r}")
         if moe_dispatch not in ("dense", "sparse"):
             raise ValueError(f"unsupported moe_dispatch {moe_dispatch!r}")
@@ -295,10 +323,13 @@ class DINOSeg:
             n_experts=n_experts, moe_dispatch=moe_dispatch,
             moe_capacity=float(moe_capacity))
         self.__dict__.update(self.hparams)
+        # what the forward paths dispatch on: 'vit', 'cnn1' or 'cnn2'
+        self.arch = backbone_arch(backbone)
+        self.cfg = (VIT_BACKBONES[backbone]() if self.arch == "vit"
+                    else ViTConfig(patch_size=8))
         self._check_precision(None)
         self.class_names = tuple(class_names) if class_names else None
         self.logger = logger
-        self.cfg = ViTConfig(patch_size=8)  # ViT-S/8
         self.compute_dtype = compute_dtype_of(precision)
         self._head_kwargs = dict(moe_dispatch=moe_dispatch,
                                  moe_capacity=float(moe_capacity))
@@ -310,7 +341,7 @@ class DINOSeg:
         # (weights key, precision, the cards, {card: serving model}) of the
         # batch split over one process's cards
         self._split_cache = None
-        self.mlp_input_dim = (self.cfg.embed_dim if backbone == "vit"
+        self.mlp_input_dim = (self.cfg.embed_dim if self.arch == "vit"
                               else OUTPUT_DIM)
         self.resolution = 480
         self.best_ck: Optional[str] = None
@@ -323,11 +354,21 @@ class DINOSeg:
             self.test_path_sim = os.path.join(data_path, "dt_sim_voc_test")
 
         gen = torch.Generator().manual_seed(seed)
-        if backbone != "vit":
+        if self.arch != "vit":
             vit = build_backbone(backbone, gen, random_init, pretrained_path)
+        elif self.cfg.rope:
+            # DINOv3: built and drawn on the model's device (hundreds of
+            # millions of weights take tens of seconds to draw on the CPU)
+            with self.device:
+                vit = init_vit_params(
+                    VisionTransformer(self.cfg, depth=n_blocks),
+                    torch.Generator(self.device).manual_seed(seed))
         else:
             vit = init_vit_params(VisionTransformer(self.cfg, depth=n_blocks),
                                   gen)
+        if not random_init and backbone != "vit" and self.arch == "vit":
+            warnings.warn(f"no published weights are loaded for backbone "
+                          f"{backbone!r}; using random init")
         if not random_init and backbone == "vit":
             sd = load_pretrained_backbone(pretrained_path=pretrained_path)
             if sd is not None:
@@ -348,16 +389,31 @@ class DINOSeg:
     # ------------------------------------------------------------------
 
     def set_resolution(self, resolution: int = 480) -> None:
-        if resolution % 8 != 0:
-            raise ValueError("Resolution should be a multiple of 8.")
+        """The square side frames are resized to; a multiple of the
+        backbone's patch size (8 for ViT-S/8 and the ResNets, 16 for
+        DINOv3 ViT-H+/16)."""
+        patch = self.cfg.patch_size
+        if resolution % patch != 0:
+            raise ValueError(f"Resolution should be a multiple of {patch}.")
         self.resolution = resolution
+
+    def _need_classic_vit(self, what: str) -> None:
+        """Raise for a path the DINOv3 (RoPE) backbone does not take (it
+        runs forwards only; the module docstring)."""
+        if self.arch == "vit" and self.cfg.rope:
+            raise ValueError(f"{what} is not supported for backbone "
+                             f"{self.backbone!r} (forwards only: predict, "
+                             f"predict_batch, predict_stream, the serving "
+                             f"program)")
 
     def _check_precision(self, precision: Optional[str]) -> str:
         precision = precision or self.precision
         compute_dtype_of(precision)
-        if precision == "int8" and self.backbone != "vit":
+        if precision == "int8" and self.arch != "vit":
             raise ValueError("precision='int8' is only supported for the "
                              "ViT backbone")
+        if precision == "int8":
+            self._need_classic_vit("precision='int8'")
         return precision
 
     def _compute_dtype_for(self, precision: Optional[str]):
@@ -378,7 +434,7 @@ class DINOSeg:
         return self._int8_cache[1]
 
     def _need_vit(self, what: str) -> None:
-        if self.backbone != "vit":
+        if self.arch != "vit":
             raise ValueError(f"{what} requires the ViT backbone")
 
     @torch.no_grad()
@@ -389,7 +445,7 @@ class DINOSeg:
         with matmul_ctx(cdt):
             return seg_forward(self.model.dino, self.model.clf, self.cfg,
                                self.head, pre_normalized=normalize_imagenet(x),
-                               compute_dtype=cdt, backbone=self.backbone,
+                               compute_dtype=cdt, backbone=self.arch,
                                **self._head_kwargs)
 
     def _check_parallel_options(self, parallelism: Optional[str],
@@ -400,6 +456,7 @@ class DINOSeg:
             raise ValueError(f"unsupported parallelism {parallelism!r}")
         if parallelism is not None:
             self._need_vit(f"parallelism={parallelism!r}")
+            self._need_classic_vit(f"parallelism={parallelism!r}")
             if self._check_precision(precision) == "int8":
                 raise ValueError(f"parallelism={parallelism!r} is not "
                                  f"supported with int8 params")
@@ -495,10 +552,10 @@ class DINOSeg:
                                                imgs_u8.split(rows))):
             dev = concrete_device(next(model.parameters()).device)
             with on_device(dev):
-                out = label_maps(seg_log_probs(
+                out = label_maps(frame_log_probs(seg_log_probs(
                     model, self.cfg, self.head,
                     chunk.to(dev, non_blocking=True), self.resolution, cdt,
-                    self.backbone, **self._head_kwargs),
+                    self.arch, **self._head_kwargs), chunk.shape[0]),
                     self.resolution, self.n_classes)
                 if host is None:
                     host = torch.empty((imgs_u8.shape[0],) + out.shape[1:],
@@ -524,7 +581,7 @@ class DINOSeg:
         if parallelism is None:
             return seg_log_probs(self._serving_model(precision), self.cfg,
                                  self.head, imgs_u8, self.resolution, cdt,
-                                 self.backbone, **self._head_kwargs)
+                                 self.arch, **self._head_kwargs)
         with matmul_ctx(cdt):
             x = preprocess(imgs_u8, self.resolution)
             if cdt is not None:
@@ -550,8 +607,9 @@ class DINOSeg:
                        parallelism: Optional[str] = None) -> torch.Tensor:
         """uint8 (B, H, W, 3) on the model's device -> (B, 480, 480) label
         maps on the device, uint8 when n_classes <= 255 (the label wire)."""
-        return label_maps(self.log_probs(imgs_u8, precision, parallelism),
-                          self.resolution, self.n_classes)
+        return label_maps(frame_log_probs(
+            self.log_probs(imgs_u8, precision, parallelism),
+            imgs_u8.shape[0]), self.resolution, self.n_classes)
 
     @staticmethod
     def _as_uint8(img) -> np.ndarray:
@@ -675,7 +733,7 @@ class DINOSeg:
         return torch.as_tensor(np.asarray(images_u8), device=self.device)
 
     def _mask(self, cls_mask) -> torch.Tensor:
-        """(n_masks, res/8, res/8) masks on the model's device."""
+        """(n_masks, res/P, res/P) masks on the model's device."""
         mask = torch.as_tensor(np.asarray(cls_mask), device=self.device)
         grid = self.resolution // self.cfg.patch_size
         if mask.dim() != 3 or tuple(mask.shape[1:]) != (grid, grid):
@@ -708,6 +766,7 @@ class DINOSeg:
         (n_masks, D) float32.  Float32 with TF32 off whatever the model's
         precision, as in ``dino_tpu``; O(n_masks * N) memory."""
         self._need_vit("forward_mask")
+        self._need_classic_vit("forward_mask")
         with matmul_ctx(None):
             x = preprocess(self._frames(image_u8)[None], self.resolution)
             out = forward_mask(self.model.dino, x, self._mask(cls_mask),
@@ -724,6 +783,7 @@ class DINOSeg:
         is ~5 GB per frame at 960px).  A ``cls_mask`` gives the masked CLS
         rows of the first frame, (1, nh, n_masks, N)."""
         self._need_vit("get_last_selfattention")
+        self._need_classic_vit("get_last_selfattention")
         with matmul_ctx(None):
             x = preprocess(self._frames(images_u8), self.resolution)
             mask = None if cls_mask is None else self._mask(cls_mask)
@@ -818,8 +878,9 @@ class DINOSeg:
         world every rank calls it: rank r evaluates samples r, r+W, ... and
         the confusion matrices are summed over the ranks."""
         res = resolution or self.train_resolution
-        if res % 8 != 0:
-            raise ValueError("Resolution should be a multiple of 8.")
+        if res % self.cfg.patch_size != 0:
+            raise ValueError(f"Resolution should be a multiple of "
+                             f"{self.cfg.patch_size}.")
         ds = self._make_dataset(data_path, False, res)
         if len(ds) == 0:
             raise FileNotFoundError(f"no images under {data_path}")
@@ -834,7 +895,7 @@ class DINOSeg:
     def _eval_step(self, fsdp=None):
         return make_eval_step(self.cfg, self.head, self.n_classes,
                               compute_dtype=self.compute_dtype,
-                              backbone=self.backbone, fsdp=fsdp,
+                              backbone=self.arch, fsdp=fsdp,
                               **self._head_kwargs)
 
     def _run_eval(self, eval_step, dataset, batch_size: int) -> np.ndarray:
@@ -863,9 +924,9 @@ class DINOSeg:
         ($DINO_TPU_FEATURE_CACHE_BYTES, default 2 GB) drops the train cache
         first, then the val cache."""
         if (cache_features is False or not self.freeze_backbone
-                or self.backbone != "vit" or get_world_size() > 1):
+                or self.arch != "vit" or get_world_size() > 1):
             return False, False
-        n_patches = (self.train_resolution // 8) ** 2
+        n_patches = (self.train_resolution // self.cfg.patch_size) ** 2
         cap = int(os.environ.get("DINO_TPU_FEATURE_CACHE_BYTES",
                                  2_000_000_000))
         itemsize = 2 if self.compute_dtype == torch.bfloat16 else 4
@@ -957,6 +1018,7 @@ class DINOSeg:
         each epoch's end.  The ViT backbone, unfrozen, with the mlp or
         linear head; not with ``zero``, ``fsdp`` or ``accum_steps``.  A
         world of one runs one stage."""
+        self._need_classic_vit("fit")
         if parallelism not in (None, "sp", "pp"):
             raise ValueError(f"unsupported train parallelism {parallelism!r}")
         if parallelism == "pp":
@@ -986,7 +1048,7 @@ class DINOSeg:
                     f"({self.batch_size}//{accum_steps}) must divide by the "
                     f"world size ({world})")
         if parallelism == "sp":
-            if self.backbone != "vit":
+            if self.arch != "vit":
                 raise ValueError("parallelism='sp' requires the ViT backbone")
             if self.freeze_backbone:
                 raise ValueError("parallelism='sp' is the unfrozen-finetune "
@@ -1037,7 +1099,7 @@ class DINOSeg:
         if schedule not in ("1f1b", "interleaved_1f1b"):
             raise ValueError(f"pp_schedule must be '1f1b' or "
                              f"'interleaved_1f1b', got {schedule!r}")
-        if self.backbone != "vit":
+        if backbone_arch(self.backbone) != "vit":
             raise ValueError("parallelism='pp' requires the ViT backbone")
         if self.freeze_backbone:
             raise ValueError("parallelism='pp' pipelines the UNFROZEN "
@@ -1164,7 +1226,7 @@ class DINOSeg:
                                          optimizer, self.freeze_backbone,
                                          compute_dtype=self.compute_dtype,
                                          accum_steps=accum_steps,
-                                         backbone=self.backbone,
+                                         backbone=self.arch,
                                          zero_mesh=zero_mesh,
                                          fsdp_mesh=fsdp_mesh, dp_group=dp,
                                          **self._head_kwargs)

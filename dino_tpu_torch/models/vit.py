@@ -27,7 +27,17 @@ modules, one per function of ``dino_tpu/models/vit.py``:
   * ``get_last_selfattention`` (full, masked or CLS-row only),
     ``forward_mask`` and ``get_intermediate_layers`` run the earlier blocks
     as ``vit_forward`` does and the last block's attention through its
-    materialized probabilities (``ops.attention.attention_probs``).
+    materialized probabilities (``ops.attention.attention_probs``);
+  * a DINOv3 configuration (:func:`dinov3_vith16plus`; facebookresearch/
+    dinov3 ``vision_transformer.py``) puts ``n_storage_tokens`` after CLS
+    and no position embedding before the blocks, rotates q and k of the
+    patch rows by 2-D RoPE (:func:`rope_table`, applied in
+    ``ops/qkv_rope.py``), scales each branch by a per-channel LayerScale
+    and runs a SwiGLU MLP (``ops/swiglu.py``); its parameters carry the
+    source's names (``storage_tokens``, ``mask_token``,
+    ``blocks.{i}.ls1.gamma``, ``blocks.{i}.mlp.w1``/``w2``/``w3``).  Such a
+    model runs forwards only (no int8, no parallel mode, no attention
+    maps).
 """
 from __future__ import annotations
 
@@ -41,14 +51,16 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from dino_tpu_torch.models.heads import affine, dense
+from dino_tpu_torch.models.heads import affine, affine_t, dense
 from dino_tpu_torch.ops.attention import (attention_probs,
                                           multi_head_attention)
 from dino_tpu_torch.ops import bias_gelu
 from dino_tpu_torch.ops.bicubic import bicubic_resize_matrix
-from dino_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual
+from dino_tpu_torch.ops import swiglu as swiglu_ops
+from dino_tpu_torch.ops.fused_mlp import fused_ln_mlp_residual, takes_widths
 from dino_tpu_torch.ops.quant import QuantLinear, int8_dense
 from dino_tpu_torch.parallel.mesh import run_unit
+from dino_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +82,16 @@ class ViTConfig:
     drop_rate: float = 0.0
     attn_drop_rate: float = 0.0
     drop_path_rate: float = 0.0
+    # DINOv3: ffn_hidden > 0 runs the SwiGLU MLP w3(silu(w1 x) * w2 x) of
+    # that hidden width in place of fc2(gelu(fc1 x)); n_storage_tokens sit
+    # after CLS; layerscale scales each branch by a per-channel gamma;
+    # rope_base > 0 rotates q and k of the patch rows (RoPE) in place of a
+    # learned position embedding, and holds the k third of qkv's bias at 0
+    # (the source's mask_k_bias)
+    ffn_hidden: int = 0
+    n_storage_tokens: int = 0
+    layerscale: bool = False
+    rope_base: float = 0.0
 
     @property
     def head_dim(self) -> int:
@@ -89,7 +111,16 @@ class ViTConfig:
 
     @property
     def mlp_hidden(self) -> int:
-        return int(self.embed_dim * self.mlp_ratio)
+        return self.ffn_hidden or int(self.embed_dim * self.mlp_ratio)
+
+    @property
+    def rope(self) -> bool:
+        return self.rope_base > 0
+
+    @property
+    def num_prefix(self) -> int:
+        """Tokens before the patches: CLS and the storage tokens."""
+        return 1 + self.n_storage_tokens
 
 
 def vit_tiny(patch_size: int = 16, **kw) -> ViTConfig:
@@ -102,6 +133,31 @@ def vit_small(patch_size: int = 16, **kw) -> ViTConfig:
 
 def vit_base(patch_size: int = 16, **kw) -> ViTConfig:
     return ViTConfig(patch_size=patch_size, embed_dim=768, depth=12, num_heads=12, **kw)
+
+
+def swiglu_hidden(dim: int, ffn_ratio: float, align: int = 8) -> int:
+    """The source's ``SwiGLUFFN`` width: 2/3 of ``dim * ffn_ratio``, rounded
+    up to a multiple of ``align``."""
+    d = int(int(dim * ffn_ratio) * 2 / 3)
+    return d + (-d % align)
+
+
+def dinov3_vith16plus(**kw) -> ViTConfig:
+    """DINOv3 ViT-H+/16 (facebookresearch/dinov3
+    ``dinov3/hub/backbones.py:dinov3_vith16plus``): D 1,280, 32 blocks, 20
+    heads of 64, SwiGLU of width 5,120 (``ffn_ratio`` 6), 4 storage tokens,
+    LayerScale, RoPE of base 100 on q and k of the patch rows (the k bias
+    masked), LayerNorm eps 1e-5."""
+    kw = {"patch_size": 16, "embed_dim": 1280, "depth": 32, "num_heads": 20,
+          "mlp_ratio": 6.0, "ln_eps": 1e-5,
+          "ffn_hidden": swiglu_hidden(1280, 6.0), "n_storage_tokens": 4,
+          "layerscale": True, "rope_base": 100.0, **kw}
+    return ViTConfig(**kw)
+
+
+# DINOSeg's ViT backbones by name ('vit' is the product's DINO ViT-S/8)
+VIT_BACKBONES = {"vit": functools.partial(ViTConfig, patch_size=8),
+                 "dinov3_vith16plus": dinov3_vith16plus}
 
 
 # ---------------------------------------------------------------------------
@@ -130,13 +186,32 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(cfg.mlp_hidden, cfg.embed_dim)
 
 
+class SwiGLUFFN(nn.Module):
+    """The source's ``SwiGLUFFN``: w3(silu(w1 x) * w2 x)."""
+
+    def __init__(self, cfg: ViTConfig):
+        super().__init__()
+        self.w1 = nn.Linear(cfg.embed_dim, cfg.mlp_hidden)
+        self.w2 = nn.Linear(cfg.embed_dim, cfg.mlp_hidden)
+        self.w3 = nn.Linear(cfg.mlp_hidden, cfg.embed_dim)
+
+
+class LayerScale(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(dim))
+
+
 class Block(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         self.norm1 = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
         self.attn = Attention(cfg)
         self.norm2 = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
-        self.mlp = Mlp(cfg)
+        self.mlp = SwiGLUFFN(cfg) if cfg.ffn_hidden else Mlp(cfg)
+        if cfg.layerscale:
+            self.ls1 = LayerScale(cfg.embed_dim)
+            self.ls2 = LayerScale(cfg.embed_dim)
 
 
 class VisionTransformer(nn.Module):
@@ -148,8 +223,15 @@ class VisionTransformer(nn.Module):
         self.cfg = cfg
         depth = cfg.depth if depth is None else depth
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.embed_dim))
-        self.pos_embed = nn.Parameter(
-            torch.zeros(1, cfg.num_patches + 1, cfg.embed_dim))
+        if cfg.n_storage_tokens:
+            self.storage_tokens = nn.Parameter(
+                torch.zeros(1, cfg.n_storage_tokens, cfg.embed_dim))
+        if cfg.rope:
+            # the source's masked-image token, unused by a forward
+            self.mask_token = nn.Parameter(torch.zeros(1, cfg.embed_dim))
+        else:
+            self.pos_embed = nn.Parameter(
+                torch.zeros(1, cfg.num_patches + 1, cfg.embed_dim))
         self.patch_embed = PatchEmbed(cfg)
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(depth))
         self.norm = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
@@ -164,24 +246,34 @@ def init_vit_params(model: VisionTransformer,
     """Random init matching the reference's distributions: trunc_normal
     (std .02, cut at 2 std) for linear weights, CLS and pos-embed; zero
     biases; torch Conv2d default U(-1/sqrt(fan_in), ..) for the patch embed;
-    LayerNorm ones/zeros.  Draws from ``generator`` on the CPU."""
+    LayerNorm ones/zeros.  DINOv3: the storage tokens as CLS, the mask
+    token zero, LayerScale's gamma at the source's 1e-5.  Draws from
+    ``generator`` on the CPU."""
     def tn(t):
         nn.init.trunc_normal_(t, std=0.02, a=-0.04, b=0.04,
                               generator=generator)
 
     tn(model.cls_token)
-    tn(model.pos_embed)
+    for name in ("storage_tokens", "pos_embed"):
+        if hasattr(model, name):
+            tn(getattr(model, name))
+    if hasattr(model, "mask_token"):
+        nn.init.zeros_(model.mask_token)
     proj = model.patch_embed.proj
     bound = 1.0 / math.sqrt(proj.weight[0].numel())
     nn.init.uniform_(proj.weight, -bound, bound, generator=generator)
     nn.init.uniform_(proj.bias, -bound, bound, generator=generator)
     for blk in model.blocks:
-        for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
+        for lin in (blk.attn.qkv, blk.attn.proj,
+                    *(m for m in blk.mlp.children())):
             tn(lin.weight)
             nn.init.zeros_(lin.bias)
         for ln in (blk.norm1, blk.norm2):
             nn.init.ones_(ln.weight)
             nn.init.zeros_(ln.bias)
+        for ls in (getattr(blk, "ls1", None), getattr(blk, "ls2", None)):
+            if ls is not None:
+                nn.init.constant_(ls.gamma, 1e-5)
     nn.init.ones_(model.norm.weight)
     nn.init.zeros_(model.norm.bias)
     return model
@@ -255,7 +347,10 @@ def interpolate_pos_encoding(pos_embed: torch.Tensor, h: int, w: int,
 
 def prepare_tokens(model: VisionTransformer, x: torch.Tensor,
                    cfg: ViTConfig) -> torch.Tensor:
-    """(B, H, W, 3) image -> (B, 1+N, D) tokens (patchify + CLS + pos-embed)."""
+    """(B, H, W, 3) image -> (B, prefix + N, D) tokens: patchify, then CLS
+    (and the storage tokens) before the patches, then the position
+    embedding, where the model has one (a RoPE model rotates q and k in
+    its blocks instead)."""
     if not x.dtype.is_floating_point:
         # the network runs in the input dtype; an integer image would drag
         # every matmul to an integer type.  Raw frames go through
@@ -268,10 +363,61 @@ def prepare_tokens(model: VisionTransformer, x: torch.Tensor,
     proj = model.patch_embed.proj
     patches = dense(patchify(x, cfg.patch_size),
                     proj.weight.reshape(proj.weight.shape[0], -1), proj.bias)
-    cls = model.cls_token.to(x.dtype).expand(b, 1, cfg.embed_dim)
-    tokens = torch.cat([cls, patches], dim=1)
+    prefix = [model.cls_token.to(x.dtype).expand(b, 1, cfg.embed_dim)]
+    if cfg.n_storage_tokens:
+        prefix.append(model.storage_tokens.to(x.dtype).expand(
+            b, cfg.n_storage_tokens, cfg.embed_dim))
+    tokens = torch.cat(prefix + [patches], dim=1)
+    if cfg.rope:
+        return tokens
     pos = interpolate_pos_encoding(model.pos_embed, h, w, cfg.patch_size)
     return tokens + pos.to(tokens.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_table_cpu(gh: int, gw: int, head_dim: int, base: float):
+    """:func:`rope_table` on the CPU (the same float32 bits on every
+    machine)."""
+    dd = dict(dtype=torch.float32)
+    periods = base ** (2 * torch.arange(head_dim // 4, **dd)
+                       / (head_dim // 2))
+    coords = torch.stack(torch.meshgrid(torch.arange(0.5, gh, **dd) / gh,
+                                        torch.arange(0.5, gw, **dd) / gw,
+                                        indexing="ij"), dim=-1).flatten(0, 1)
+    coords = 2.0 * coords - 1.0
+    angles = 2 * math.pi * coords[:, :, None] / periods[None, None, :]
+    angles = angles.flatten(1, 2).tile(2)
+    return torch.cos(angles), torch.sin(angles)
+
+
+# rope_table per (gh, gw, head_dim, base, device), copied to the device once
+# (as the pos-embed matrices): no copy per call, which a CUDA graph could not
+# capture
+_DEVICE_ROPE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def rope_table(gh: int, gw: int, cfg: ViTConfig, device: torch.device
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin), each (gh * gw, head_dim) float32 on ``device``: the
+    source's ``RopePositionEmbedding`` (``normalize_coords='separate'``, no
+    training augmentation) for a gh x gw patch grid.  Patch (i, j) sits at
+    c_h = 2 (i + 0.5) / gh - 1, c_w = 2 (j + 0.5) / gw - 1; with periods
+    p_k = base^(2k / (hd/2)), k < hd/4, its angles 2 pi c / p, h's then w's,
+    are tiled twice over the head's hd channels."""
+    key = (gh, gw, cfg.head_dim, float(cfg.rope_base), torch.device(device))
+    if key not in _DEVICE_ROPE:
+        _DEVICE_ROPE[key] = tuple(t.to(device) for t in _rope_table_cpu(
+            gh, gw, cfg.head_dim, float(cfg.rope_base)))
+    return _DEVICE_ROPE[key]
+
+
+def rope_for(cfg: ViTConfig, x: torch.Tensor):
+    """The RoPE table of images ``x`` (B, H, W, 3), or None for a model
+    without RoPE."""
+    if not cfg.rope:
+        return None
+    return rope_table(x.shape[1] // cfg.patch_size,
+                      x.shape[2] // cfg.patch_size, cfg, x.device)
 
 
 def drop_path(x: torch.Tensor, rate: float,
@@ -337,6 +483,33 @@ def mlp_residual_int8(norm: nn.LayerNorm, mlp: Mlp, x: torch.Tensor,
     return x + int8_dense(mlp.fc2, h)
 
 
+def layer_scale_add(x: torch.Tensor, h: torch.Tensor,
+                    ls: Optional[LayerScale]) -> torch.Tensor:
+    """x + gamma * h (x + h without LayerScale): float32 arithmetic rounded
+    once to x's dtype, gamma taken in that dtype (a weight, as the dense
+    layers' are)."""
+    if ls is None:
+        return x + h
+    return torch.addcmul(x, h, ls.gamma.to(x.dtype))
+
+
+def swiglu_mlp_residual(blk: Block, x: torch.Tensor,
+                        eps: float) -> torch.Tensor:
+    """x + ls2 * w3(silu(w1 LN(x)) * w2 LN(x)) (the ``vit.mlp`` span): LN in
+    float32 -> cast; w1 and w2 as one product with a float32 result over
+    their concatenation; both float32 biases, silu(a) * b in float32 and
+    one rounding (``ops/swiglu.py``); w3 with its float32 bias, rounded
+    once; LayerScale and the residual (:func:`layer_scale_add`)."""
+    with annotate("vit.mlp", device=True):
+        dt = x.dtype
+        h = layer_norm(blk.norm2, x, eps)
+        w12, b12 = swiglu_ops.fused_weights(blk.mlp, dt)
+        y = affine_t(h, w12, None)
+        h = swiglu_ops.swiglu(y.reshape(-1, y.shape[-1]), b12, dt)
+        h = affine(blk.mlp.w3, h.reshape(*x.shape[:-1], -1), dt)
+        return layer_scale_add(x, h, getattr(blk, "ls2", None))
+
+
 def _needs_grad(blk: Block, x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and (
         x.requires_grad or any(p.requires_grad for p in blk.parameters()))
@@ -346,7 +519,7 @@ def block_apply(blk: Block, x: torch.Tensor, cfg: ViTConfig,
                 cls_mask: Optional[torch.Tensor] = None,
                 need_probs: bool = False, drop_path_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None,
-                fused_mlp: bool = True):
+                fused_mlp: bool = True, rope=None):
     """One pre-LN transformer block; returns (x_out, probs or None).
 
     ``need_probs`` or a ``cls_mask`` (n_masks, gh, gw) take attention
@@ -362,18 +535,34 @@ def block_apply(blk: Block, x: torch.Tensor, cfg: ViTConfig,
     composition :func:`mlp_residual`.  A pipeline's train step turns it off
     in the forward slots it runs without a gradient, so the activation it
     sends on is the one its backward recomputes.  A block in int8 serving form runs
-    :func:`mlp_residual_int8`.
+    :func:`mlp_residual_int8`.  The kernel is built for D 384 only
+    (``ops/fused_mlp.py:takes_widths``); other widths run the composition.
+
+    A DINOv3 block (``cfg.rope``) takes the RoPE table of its patch grid,
+    ``rope`` = (cos, sin) from :func:`rope_table`, scales both branches by
+    its LayerScale and runs :func:`swiglu_mlp_residual`; it has no
+    attention-map path and no train-mode regularization.
     """
     train = generator is not None and (cfg.drop_rate > 0
                                        or cfg.attn_drop_rate > 0
                                        or drop_path_rate > 0)
+    if cfg.rope and (rope is None or need_probs or cls_mask is not None
+                     or train):
+        raise ValueError(
+            "a RoPE (DINOv3) block runs forwards with its RoPE table "
+            "(rope_table) and nothing else: no attention maps, masks or "
+            "train-mode regularization")
     gen = generator if train else None
     y, probs = multi_head_attention(
         blk.attn, layer_norm(blk.norm1, x, cfg.ln_eps),
         num_heads=cfg.num_heads, scale=cfg.scale, cls_mask=cls_mask,
         need_probs=need_probs,
         attn_drop=(cfg.attn_drop_rate, gen) if train
-        and cfg.attn_drop_rate > 0 else None)
+        and cfg.attn_drop_rate > 0 else None,
+        rope=None if rope is None else (*rope, cfg.num_prefix))
+    if isinstance(blk.mlp, SwiGLUFFN):
+        x = layer_scale_add(x, y, getattr(blk, "ls1", None))
+        return swiglu_mlp_residual(blk, x, cfg.ln_eps), probs
     if train and cfg.drop_rate > 0:
         y = dropout(y, cfg.drop_rate, gen)  # proj_drop
     if cls_mask is not None:
@@ -385,7 +574,8 @@ def block_apply(blk: Block, x: torch.Tensor, cfg: ViTConfig,
     if isinstance(blk.mlp.fc1, QuantLinear):
         return mlp_residual_int8(blk.norm2, blk.mlp, x, cfg.ln_eps), probs
     if (fused_mlp and not train and x.is_cuda and x.dtype == torch.bfloat16
-            and not _needs_grad(blk, x)):
+            and not _needs_grad(blk, x)
+            and takes_widths(blk.mlp, x)):
         return fused_ln_mlp_residual(blk.norm2, blk.mlp, x, cfg.ln_eps), probs
     return mlp_residual(blk.norm2, blk.mlp, x, cfg.ln_eps, cfg.drop_rate,
                         drop_path_rate, gen), probs
@@ -402,12 +592,14 @@ def vit_forward(model: VisionTransformer, x: torch.Tensor, cfg: ViTConfig, *,
     storing them.
     """
     tokens = prepare_tokens(model, x, cfg)
+    rope = rope_for(cfg, x)
     for i, blk in enumerate(model.blocks):
         if remat:
             tokens = torch.utils.checkpoint.checkpoint(
-                block_apply, blk, tokens, cfg, use_reentrant=False)[0]
+                block_apply, blk, tokens, cfg, use_reentrant=False,
+                rope=rope)[0]
         else:
-            tokens = block_apply(blk, tokens, cfg)[0]
+            tokens = block_apply(blk, tokens, cfg, rope=rope)[0]
         if intermediate and i == intermediate - 1:
             return layer_norm(model.norm, tokens, cfg.ln_eps)
     tokens = layer_norm(model.norm, tokens, cfg.ln_eps)
@@ -508,10 +700,11 @@ def get_intermediate_layers(model: VisionTransformer, x: torch.Tensor,
     """The final-LayerNorm'd tokens after each of the last ``n`` blocks,
     (B, 1+N, D) each (reference ``get_intermediate_layers``)."""
     tokens = prepare_tokens(model, x, cfg)
+    rope = rope_for(cfg, x)
     depth = len(model.blocks)
     out = []
     for i, blk in enumerate(model.blocks):
-        tokens = block_apply(blk, tokens, cfg)[0]
+        tokens = block_apply(blk, tokens, cfg, rope=rope)[0]
         if depth - i <= n:
             out.append(layer_norm(model.norm, tokens, cfg.ln_eps))
     return out

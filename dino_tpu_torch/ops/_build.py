@@ -23,7 +23,7 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "fused_ln_mlp.cu",
-           "bias_gelu.cu")
+           "bias_gelu.cu", "qkv_rope.cu", "swiglu.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,6 +52,10 @@ _SIGNATURES = {
     "dtt_bias_gelu_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # rows, hidden -> the backward's slabs (negative: a CUDA error)
     "dtt_bias_gelu_slabs": (_I, _I),
+    # y, bias, cos, sin, out, batch, n, heads, prefix, stream
+    "dtt_qkv_rope": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # y, b12, h, rows, hidden, stream
+    "dtt_swiglu": (_P, _P, _P, _I, _I, _P),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

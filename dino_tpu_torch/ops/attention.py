@@ -31,9 +31,11 @@ from typing import Optional
 
 import torch
 
-from dino_tpu_torch.models.heads import dense
+from dino_tpu_torch.models.heads import affine_t, dense
+from dino_tpu_torch.ops.qkv_rope import qkv_rope
 from dino_tpu_torch.ops.quant import QuantLinear, int8_dense
 from dino_tpu_torch.ops import _build
+from dino_tpu_torch.utils.profiling import annotate
 
 _HEAD_DIM = 64
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -411,7 +413,8 @@ def _project(lin, x: torch.Tensor) -> torch.Tensor:
 
 def multi_head_attention(attn, x: torch.Tensor, *, num_heads: int,
                          scale: float, cls_mask: Optional[torch.Tensor] = None,
-                         need_probs: bool = False, attn_drop=None):
+                         need_probs: bool = False, attn_drop=None,
+                         rope=None):
     """MHSA: qkv projection -> attention -> out projection; returns (out,
     probs or None).
 
@@ -425,12 +428,26 @@ def multi_head_attention(attn, x: torch.Tensor, *, num_heads: int,
     (rate, generator) drops them, the attention is :func:`flash_attention`;
     otherwise :func:`attention_with_probs`, and with a ``cls_mask`` the
     output holds one token per mask, (1, n_masks, C).
+
+    ``rope`` = (cos, sin, prefix) rotates q and k of the tokens past the
+    first ``prefix`` (a DINOv3 layer: ``models/vit.py:rope_table``): qkv's
+    product is taken with a float32 result and
+    :func:`~dino_tpu_torch.ops.qkv_rope.qkv_rope` adds the bias (its k
+    third held at 0), rotates, rounds once and lays q, k and v out
+    head-major (the ``vit.rope`` span).
     """
     b, n, c = x.shape
     hd = c // num_heads
-    qkv = _project(attn.qkv, x)
-    qkv = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    qkv = qkv.contiguous()
+    if rope is not None:
+        cos, sin, prefix = rope
+        y = affine_t(x, attn.qkv.weight, None)
+        with annotate("vit.rope", device=True):
+            qkv = qkv_rope(y.reshape(b * n, 3 * c), attn.qkv.bias, cos, sin,
+                           b, num_heads, prefix, x.dtype)
+    else:
+        qkv = _project(attn.qkv, x)
+        qkv = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+        qkv = qkv.contiguous()
     probs = None
     if need_probs or cls_mask is not None or attn_drop is not None:
         out, probs = attention_with_probs(qkv[0], qkv[1], qkv[2], scale,

@@ -83,6 +83,15 @@ def check_mlp_args(norm, mlp, x: torch.Tensor) -> None:
             raise ValueError("weights and x must be on one device")
 
 
+def takes_widths(mlp, x: torch.Tensor) -> bool:
+    """Whether the CUDA kernel is built for these widths: D 384 and fc1's
+    hidden width a multiple of 64.  Its other demands (bf16, contiguous,
+    one device) :func:`check_mlp_args` enforces in the call."""
+    hidden, d_in = mlp.fc1.weight.shape
+    return (x.shape[-1] == _EMBED_DIM and d_in == _EMBED_DIM and hidden > 0
+            and hidden % _HIDDEN_STEP == 0)
+
+
 def fused_ln_mlp_residual(norm, mlp, x: torch.Tensor,
                           eps: float) -> torch.Tensor:
     """x: (..., 384) bf16 -> x + fc2(gelu(fc1(LN(x)))) in one kernel.

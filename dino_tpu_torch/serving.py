@@ -61,13 +61,13 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from dino_tpu_torch.api import (SegModel, compute_dtype_of, concrete_device,
-                                label_maps, replicate, seg_log_probs,
-                                seg_log_probs_sp)
+from dino_tpu_torch.api import (SegModel, backbone_arch, compute_dtype_of,
+                                concrete_device, frame_log_probs, label_maps,
+                                replicate, seg_log_probs, seg_log_probs_sp)
 from dino_tpu_torch.models.heads import init_head
 from dino_tpu_torch.models.resnet import OUTPUT_DIM, ResNetBackbone
 from dino_tpu_torch.ops.quant import QuantLinear, quantize_vit
-from dino_tpu_torch.models.vit import ViTConfig, VisionTransformer
+from dino_tpu_torch.models.vit import LayerScale, ViTConfig, VisionTransformer
 from dino_tpu_torch.utils.device import on_device, resolve_device
 from dino_tpu_torch.utils.profiling import annotate
 from dino_tpu_torch.utils.weights import watch_optimizer_steps, weights_key
@@ -85,9 +85,9 @@ def _quantized(vit: nn.Module) -> bool:
 
 def serving_copy(model: SegModel, precision: str) -> SegModel:
     """A frozen copy of ``model`` with its dense layers' and convolutions'
-    weights and the CLS token in the compute dtype (bf16 for 'bf16' and
-    'int8'), the values the predict path casts the float32 masters to on
-    every call; biases, LayerNorms, BatchNorms, the pos-embed and the MoE
+    weights, the CLS and storage tokens and the LayerScale gammas in the
+    compute dtype (bf16 for 'bf16' and 'int8'), the values the predict
+    path casts the float32 masters to on every call; biases, LayerNorms, BatchNorms, the pos-embed and the MoE
     router (a float32 route) stay float32.  'int8' first quantizes the
     ViT's blocks from the float copy (a model already in int8 form keeps
     its codes).  'fp32' copies as is."""
@@ -100,9 +100,13 @@ def serving_copy(model: SegModel, precision: str) -> SegModel:
             if (isinstance(mod, (nn.Linear, nn.Conv2d))
                     and not name.endswith("router")):
                 mod.weight.data = mod.weight.data.to(compute_dtype)
-        if hasattr(out.dino, "cls_token"):
-            out.dino.cls_token.data = out.dino.cls_token.data.to(
-                compute_dtype)
+        for name in ("cls_token", "storage_tokens"):
+            if hasattr(out.dino, name):
+                t = getattr(out.dino, name)
+                t.data = t.data.to(compute_dtype)
+        for mod in out.modules():
+            if isinstance(mod, LayerScale):
+                mod.gamma.data = mod.gamma.data.to(compute_dtype)
     return out
 
 
@@ -139,11 +143,11 @@ class PredictProgram:
             self._build()
 
     def _forward(self, imgs_u8: torch.Tensor) -> torch.Tensor:
-        return label_maps(seg_log_probs(self._weights, self.cfg, self.head,
-                                        imgs_u8, self.resolution,
-                                        self.compute_dtype, self.backbone,
-                                        **self.head_kwargs),
-                          self.resolution, self.n_classes)
+        return label_maps(frame_log_probs(
+            seg_log_probs(self._weights, self.cfg, self.head, imgs_u8,
+                          self.resolution, self.compute_dtype,
+                          backbone_arch(self.backbone), **self.head_kwargs),
+            imgs_u8.shape[0]), self.resolution, self.n_classes)
 
     def stale(self) -> bool:
         """Whether the model's parameters changed since the last build."""
@@ -289,7 +293,7 @@ def export_predict(model, path: str, batch_size: int = 1,
     precision = model._check_precision(precision)
     model._check_parallel_options(parallelism, precision)
     res = model.resolution
-    out_size = res // 8
+    out_size = res // model.cfg.patch_size
     # the kron factor floors, as dino_tpu's (480x480 at 240/480/960px)
     out_hw = out_size * (480 // out_size)
     in_sh = [batch_size, int(in_shape[0]), int(in_shape[1]), 3]
@@ -311,7 +315,7 @@ def export_predict(model, path: str, batch_size: int = 1,
         "contract": contract,
         "config": {"vit": dataclasses.asdict(model.cfg),
                    "n_blocks": (len(model.model.dino.blocks)
-                                if model.backbone == "vit" else 0),
+                                if model.arch == "vit" else 0),
                    "head": model.head, "n_classes": model.n_classes,
                    "backbone": model.backbone, "n_experts": model.n_experts,
                    "moe_dispatch": model.moe_dispatch,
@@ -374,7 +378,7 @@ class ExportedPredictor:
         precision = self.contract["precision"]
         self.devices = artifact_devices(self.device,
                                         self.contract.get("nr_devices", 1))
-        if backbone == "vit":
+        if backbone_arch(backbone) == "vit":
             dino = VisionTransformer(cfg, depth=conf["n_blocks"])
             if precision == "int8":  # the int8 form's buffers
                 dino = quantize_vit(dino)
@@ -410,10 +414,10 @@ class ExportedPredictor:
         with self._lock, on_device(first):
             x = torch.from_numpy(imgs).to(first)
             res = self.contract["resolution"]
-            out = label_maps(seg_log_probs_sp(
+            out = label_maps(frame_log_probs(seg_log_probs_sp(
                 self.replicas, self.cfg, self.head, x, res,
                 compute_dtype_of(self.contract["precision"]),
-                **self.head_kwargs), res, self.n_classes)
+                **self.head_kwargs), x.shape[0]), res, self.n_classes)
             return out.cpu().numpy().astype(np.int32)
 
     def __call__(self, frames) -> np.ndarray:

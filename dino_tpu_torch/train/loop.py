@@ -142,7 +142,8 @@ def backbone_features(vit: torch.nn.Module, x: torch.Tensor, cfg: ViTConfig,
                       bn_collect: Optional[dict] = None,
                       bn_group=None, tp_group=None) -> torch.Tensor:
     """Normalized (B, H, W, 3) -> (B*N_patches, D) patch features: the ViT's
-    tokens without CLS, or a ResNet's (B, H/8, W/8, 512) map in row-major
+    tokens without its prefix (CLS, and a DINOv3 model's storage tokens),
+    or a ResNet's (B, H/8, W/8, 512) map in row-major
     order (``bn_collect`` switches its BatchNorm to train mode, with batch
     statistics over ``bn_group``'s ranks' slabs too).  A
     :class:`~dino_tpu_torch.parallel.tp.TPVisionTransformer` runs
@@ -153,7 +154,7 @@ def backbone_features(vit: torch.nn.Module, x: torch.Tensor, cfg: ViTConfig,
         tokens = vit_forward_tp(vit, x, cfg, tp_group, remat=remat)
         return tokens[:, 1:, :].reshape(-1, tokens.shape[-1])
     tokens = vit_forward(vit, x, cfg, remat=remat)
-    return tokens[:, 1:, :].reshape(-1, tokens.shape[-1])
+    return tokens[:, cfg.num_prefix:, :].reshape(-1, tokens.shape[-1])
 
 
 def seg_forward(vit: torch.nn.Module, head: torch.nn.Module, cfg: ViTConfig,
@@ -169,7 +170,8 @@ def seg_forward(vit: torch.nn.Module, head: torch.nn.Module, cfg: ViTConfig,
                 tp_group=None) -> torch.Tensor:
     """uint8 (B,res,res,3) -> (B*N_patches, n_classes) log-probs.
 
-    Backbone -> (ViT: drop CLS) -> fold patches onto the batch axis ->
+    Backbone -> (ViT: drop CLS and any storage tokens) -> fold patches
+    onto the batch axis ->
     per-patch head.  Normalization runs here unless a pre-normalized tensor
     is given (the predict path resizes and normalizes upstream).
     ``compute_dtype=torch.bfloat16`` runs the matmuls in bf16; LayerNorm,
@@ -202,7 +204,8 @@ def unit_features(fsdp: FSDPOptimizer, vit: VisionTransformer,
     under FSDP, one unit gathered at a time."""
     out = []
     for (tokens,) in vit_forward_units(vit, [[x] for x in xs], cfg, fsdp):
-        out.append(tokens[:, 1:, :].reshape(-1, tokens.shape[-1]))
+        out.append(tokens[:, cfg.num_prefix:, :].reshape(-1,
+                                                         tokens.shape[-1]))
     return out
 
 

@@ -7,11 +7,12 @@ and writes a Chrome trace (Perfetto and ``chrome://tracing`` open it);
 is ``utils/logging.py``'s.
 
 ``annotate(name)`` is the port's span.  The serving program
-(``serve.*``), ``predict_stream`` (``stream.*``) and the pretrain step
-(``pretrain.*``) open spans where their work happens.  A span is on
-exactly while a ``torch.profiler`` records on the calling thread (the
-profiler's flag is the thread's), so an operator turns them on by running
-the code under ``device_trace`` (or any profiler):
+(``serve.*``), ``predict_stream`` (``stream.*``), the pretrain step
+(``pretrain.*``) and a DINOv3 block (``vit.rope``, ``vit.mlp``) open
+spans where their work happens.  A span is on exactly while a
+``torch.profiler`` records on the calling thread (the profiler's flag is
+the thread's), so an operator turns them on by running the code under
+``device_trace`` (or any profiler):
 
     reset_spans()
     with device_trace("runs/trace"):
@@ -28,6 +29,9 @@ CUDA event on the current stream at entry and at exit, resolved into
 device seconds when the totals are read.  Off, a span checks the
 profiler's flag once and returns a shared no-op context: no clock read,
 no allocation.  No span stays open across a ``yield``.
+
+A device span opened while its stream is captured into a CUDA graph
+records no events (its device seconds are left out).
 """
 from __future__ import annotations
 
@@ -104,7 +108,8 @@ class _Span:
     def __init__(self, name: str, device: bool):
         self.name = name
         self.nvtx = torch.cuda.is_initialized()
-        self.device = device and self.nvtx
+        self.device = (device and self.nvtx
+                       and not torch.cuda.is_current_stream_capturing())
 
     def __enter__(self):
         self.region = _record_function(self.name)

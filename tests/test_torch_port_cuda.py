@@ -1103,3 +1103,186 @@ def test_pretrain_spans_on_card_time_the_phases(cuda, tmp_path):
     phases = sum(totals[f"pretrain.{n}"]["device_s"] for n in
                  ("student", "teacher", "loss", "backward", "update"))
     assert 0 < phases <= totals["pretrain.step"]["device_s"]
+
+
+# ---------------------------------------------------------------------------
+# DINOv3 ViT-H+/16: the qkv epilogue and SwiGLU passes, the full-width
+# forward; ViT blocks off D 384 on the composition (the fused MLP's gate)
+# ---------------------------------------------------------------------------
+
+V3_BATCH, V3_N, V3_HEADS, V3_PREFIX = 4, 3605, 20, 5  # the 960px cell's
+
+
+def _bf16_bits(t):
+    return t.contiguous().view(torch.int16)
+
+
+@pytest.mark.parametrize("batch,n,heads,prefix", [
+    (V3_BATCH, V3_N, V3_HEADS, V3_PREFIX), (1, 5, 3, 5), (3, 37, 2, 5),
+    (2, 901, 6, 1)])
+def test_qkv_rope_kernel_matches_plain(cuda, batch, n, heads, prefix):
+    """The qkv epilogue against its plain composition at the cell's shapes
+    (14,420 rows of 3 x 1,280) and at edges (no patch row, one prefix
+    token): the same bits (0 ulps: each add and product rounded as
+    PyTorch's passes round them, then one rounding), twice."""
+    from dino_tpu_torch.ops import qkv_rope as tqr
+    g = torch.Generator(device=cuda).manual_seed(n + heads)
+    c = heads * 64
+    y = torch.randn(batch * n, 3 * c, generator=g, device=cuda) * 2
+    bias = torch.randn(3 * c, generator=g, device=cuda) * 0.1
+    ang = torch.rand(n - prefix, 64, generator=g, device=cuda) * 6.3
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    before = tqr.qkv_rope.launches
+    with torch.no_grad():
+        out = tqr.qkv_rope(y, bias, cos, sin, batch, heads, prefix)
+        again = tqr.qkv_rope(y, bias, cos, sin, batch, heads, prefix)
+        ref = tqr.qkv_rope_plain(y, bias, cos, sin, batch, heads, prefix,
+                                 torch.bfloat16)
+    assert tqr.qkv_rope.launches == before + 2
+    assert out.shape == (3, batch, heads, n, 64) and out.is_contiguous()
+    assert torch.equal(_bf16_bits(out), _bf16_bits(ref))
+    assert torch.equal(_bf16_bits(out), _bf16_bits(again))
+
+
+@pytest.mark.parametrize("rows,hidden", [(V3_BATCH * V3_N, 5120), (1, 8),
+                                         (37, 264), (1000, 5128)])
+def test_swiglu_kernel_matches_plain(cuda, rows, hidden):
+    """SwiGLU's epilogue against its plain composition at the cell's shape
+    (14,420 rows of 2 x 5,120) and at edges: the same bits (0 ulps), twice."""
+    from dino_tpu_torch.ops import swiglu as tsw
+    g = torch.Generator(device=cuda).manual_seed(rows + hidden)
+    y = torch.randn(rows, 2 * hidden, generator=g, device=cuda) * 3
+    b12 = torch.randn(2 * hidden, generator=g, device=cuda) * 0.1
+    before = tsw.swiglu.launches
+    with torch.no_grad():
+        out = tsw.swiglu(y, b12)
+        again = tsw.swiglu(y, b12)
+        ref = tsw.swiglu_plain(y, b12, torch.bfloat16)
+    assert tsw.swiglu.launches == before + 2
+    assert torch.equal(_bf16_bits(out), _bf16_bits(ref))
+    assert torch.equal(_bf16_bits(out), _bf16_bits(again))
+
+
+@pytest.fixture(scope="module")
+def v3_model():
+    """The 960px cell's model: DINOv3 ViT-H+/16 at published widths, all 32
+    blocks, the configuration's seeded weights (``reference/dinov3.py``'s
+    names; LayerScale drawn so that every branch moves the residual)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+    from pathlib import Path
+    from benchmark.harness.weights import make_weights
+    from benchmark.reference import dinov3 as ref_v3
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "benchmark" / "configs" /
+                      "dinov3-vith16plus-seg.json").read_text())
+    w = make_weights(ref_v3.param_shapes(cfg), cfg["init"], 24, "cuda")
+    model = DINOSeg(backbone="dinov3_vith16plus", head="mlp", n_blocks=32,
+                    precision="bf16", random_init=True, device="cuda")
+    model.model.load_state_dict(w, strict=True)
+    model.set_resolution(960)
+    return model, cfg, w
+
+
+def _v3_frames(n, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 256, (n, 480, 640, 3), generator=g,
+                         dtype=torch.uint8).numpy()
+
+
+@pytest.mark.parametrize("res", [480, 960])
+def test_v3_predict_paths_launch_both_passes(cuda, v3_model, res):
+    """predict, predict_batch, predict_stream and the serving program run
+    the 32-block model at 480 and 960px: 32 launches each of the qkv
+    epilogue, SwiGLU's epilogue and the bf16 flash forward per eager
+    predict batch, none of the fused MLP; the four give the same maps."""
+    from dino_tpu_torch import serving
+    from dino_tpu_torch.ops import qkv_rope as tqr
+    from dino_tpu_torch.ops import swiglu as tsw
+    model = v3_model[0]
+    model.set_resolution(res)
+    frames = _v3_frames(2, 1)
+    counts = (tqr.qkv_rope.launches, tsw.swiglu.launches,
+              tatt.flash_attention.launches,
+              tfm.fused_ln_mlp_residual.launches)
+    batch = model.predict_batch(frames)
+    torch.cuda.synchronize()
+    assert (tqr.qkv_rope.launches - counts[0], tsw.swiglu.launches - counts[1],
+            tatt.flash_attention.launches - counts[2],
+            tfm.fused_ln_mlp_residual.launches - counts[3]) == (32, 32, 32, 0)
+    assert batch.shape == (2, 480, 480) and batch.dtype == np.int32
+    one = model.predict(frames[0])
+    stream = list(model.predict_stream(iter(frames), batch_size=2))
+    program = serving.predict_program(model, 2, (480, 640))
+    replay = program(frames)
+    model.set_resolution(960)
+    np.testing.assert_array_equal(one, batch[0])
+    np.testing.assert_array_equal(np.stack(stream), batch)
+    np.testing.assert_array_equal(replay, batch)
+
+
+def test_v3_full_width_forward_matches_the_reference(cuda, v3_model):
+    """The port's bf16 log-probabilities at 960px on 2 frames against
+    ``reference/dinov3.py`` in float32: the mean error under 2% of the
+    reference's spread of log-probabilities and labels off the reference's
+    best only where its top two lie within 0.25 (bf16 through 32 blocks of
+    width 1,280)."""
+    from benchmark.reference import dinov3 as ref_v3
+    model, cfg, w = v3_model
+    frames = _v3_frames(2, 2)
+    lp = model.log_probs(torch.from_numpy(frames).cuda()).float()
+    want = ref_v3.log_probs(w, torch.from_numpy(frames).cuda(), cfg, 960)
+    lp = lp.reshape(want.shape)
+    err = (lp - want).abs()
+    top2 = want.topk(2, dim=-1).values
+    off = lp.argmax(-1) != want.argmax(-1)
+    print(f"v3 960px bf16 vs f32 reference: mean |err| {err.mean():.4g}, "
+          f"max {err.max():.4g}, spread {want.std():.4g}, labels off "
+          f"{int(off.sum())} of {off.numel()}, widest top-2 gap off "
+          f"{float((top2[..., 0] - top2[..., 1])[off].max()) if off.any() else 0:.4g}")
+    assert float(err.mean()) < 0.02 * float(want.std())
+    assert not off.any() or float(
+        (top2[..., 0] - top2[..., 1])[off].max()) < 0.25
+
+
+@pytest.mark.parametrize("dim,heads", [(192, 3), (768, 12)])
+def test_vit_blocks_off_384_on_card_match_the_cpu(cuda, dim, heads):
+    """A bf16 ViT at D 192 and D 768 (the fused MLP takes D 384 only) runs
+    its no-gradient forward and a DINO pretrain step on the card through
+    the MLP composition (the teacher's forward takes no gradient), not the
+    kernel: the forward's tokens and the step's loss and clipped gradients
+    against the port's bf16 CPU path, the same rounding points, within what
+    a flipped rounding carries through two blocks."""
+    from dino_tpu_torch.models.vit import VisionTransformer, init_vit_params
+    from dino_tpu_torch.models.vit import vit_forward
+    from dino_tpu_torch.train import dino_pretrain as tdp
+    cfg = ViTConfig(patch_size=8, embed_dim=dim, num_heads=heads, depth=2)
+    vit = init_vit_params(VisionTransformer(cfg),
+                          torch.Generator().manual_seed(dim))
+    x = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    before = tfm.fused_ln_mlp_residual.launches
+    with torch.no_grad():
+        got = vit_forward(vit.to(cuda), x.to(cuda, torch.bfloat16), cfg)
+        want = vit_forward(vit.cpu(), x.to(torch.bfloat16), cfg)
+    assert tfm.fused_ln_mlp_residual.launches == before
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=0.05,
+                               rtol=0.02)
+    dcfg = tdp.DinoConfig(out_dim=256, n_local_crops=2, global_size=32,
+                          local_size=16, hidden_dim=64, bottleneck_dim=32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        student, teacher = tdp.init_dino_params(
+            torch.Generator().manual_seed(3), cfg, dcfg, device=dev)
+        opt = tdp.make_dino_optimizer(student)
+        g, l = chip_smoke.pretrain_crops(4, 2, dcfg)
+        step = tdp.make_dino_train_step(cfg, dcfg,
+                                        compute_dtype=torch.bfloat16)
+        loss = step(student, teacher, torch.zeros(1, dcfg.out_dim,
+                                                  device=dev),
+                    opt, g.to(dev), l.to(dev), 0.04, 0.996, 0.0)
+        out[dev] = (float(loss), [p.grad.float().cpu()
+                                  for p in student.parameters()])
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-2 * abs(out["cpu"][0])
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((a - b).abs().max()) <= 0.05 * float(b.abs().max()) + 1e-6
